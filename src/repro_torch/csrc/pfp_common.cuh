@@ -1,0 +1,20 @@
+// Shared by the port's CUDA sources: the C interface they export and the
+// fp32 constants of the moment formulas (repro_torch/core/pfp_math.py).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#define PFP_EXPORT extern "C" __attribute__((visibility("default")))
+
+namespace pfp {
+
+constexpr float kVarEps = 1e-12f;                  // core/gaussian.py VAR_EPS
+constexpr float kSqrt2 = 1.41421356237309504880f;
+constexpr float kSqrt2Pi = 2.50662827463100050242f;
+
+// Every launcher returns the launch's own error (0 on success); the Python
+// wrapper raises on anything else. A refused launch never runs, so this is
+// the only place its error shows.
+inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
+
+}  // namespace pfp

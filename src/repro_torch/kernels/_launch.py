@@ -1,0 +1,34 @@
+"""What every kernel launcher shares: operand checks, the stream, and the
+launch counts.
+
+``LAUNCHES`` holds one plain integer per kernel. A launcher adds one right
+after its kernel was launched without error, and nowhere else, so a run
+can show that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+LAUNCHES = {"dense": 0, "dense_first_layer": 0, "dense_var": 0,
+            "activation": 0, "maxpool2d": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def cuda_operands(*tensors: torch.Tensor):
+    """Contiguous fp32 copies (or the tensors themselves) on one CUDA
+    device. Raises on a mix of devices: a kernel never reads host memory."""
+    device = tensors[0].device
+    if device.type != "cuda":
+        raise ValueError(f"a CUDA kernel needs CUDA tensors, got {device}")
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"operands on {device} and {t.device}")
+    return tuple(t.to(torch.float32).contiguous() for t in tensors)
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

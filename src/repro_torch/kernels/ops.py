@@ -1,0 +1,69 @@
+"""The kernel wrappers: shape plumbing and device routing.
+
+Counterpart of ``repro/kernels/ops.py``. Each wrapper flattens leading
+dims to the 2-D problem its kernel takes and reshapes the result back. The
+CUDA kernels mask their own ragged edges, so nothing is padded or sliced.
+
+Routing is by the device the tensors lie on and nothing else:
+
+  * CPU tensors run the kernel's plain version (``kernels/ref.py``);
+  * CUDA tensors launch the hand-written kernel, or the launch raises.
+    There is no fallback from a CUDA tensor to the plain version.
+
+Each launcher counts its launches in ``kernels/_launch.py``'s ``LAUNCHES``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.pfp_activations import pfp_activation_cuda
+from repro_torch.kernels.pfp_dense import (MODE_FIRST_LAYER, MODE_SRM,
+                                           MODE_VAR, pfp_dense_cuda)
+from repro_torch.kernels.pfp_maxpool import pfp_maxpool2d_cuda
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _dense(mode, x_a, x_b, w_a, w_b):
+    lead, kdim, n = x_a.shape[:-1], x_a.shape[-1], w_a.shape[-1]
+    x_a, x_b = x_a.reshape(-1, kdim), x_b.reshape(-1, kdim)
+    if _on_cuda(x_a):
+        mu, var = pfp_dense_cuda(x_a, x_b, w_a, w_b, mode=mode)
+    elif mode == MODE_FIRST_LAYER:
+        mu, var = ref.pfp_dense_first_layer_ref(x_a, w_a, w_b)
+    elif mode == MODE_VAR:
+        mu, var = ref.pfp_dense_var_ref(x_a, x_b, w_a, w_b)
+    else:
+        mu, var = ref.pfp_dense_ref(x_a, x_b, w_a, w_b)
+    return mu.reshape(*lead, n), var.reshape(*lead, n)
+
+
+def pfp_dense(mu_x, srm_x, mu_w, srm_w, *, first_layer: bool = False):
+    """Joint PFP dense for (..., K) x (K, N), Eq. 12. Returns (mean, var).
+
+    ``first_layer=True`` is Eq. 13 for deterministic inputs: the operands
+    are read as (x, x, mu_w, var_w)."""
+    mode = MODE_FIRST_LAYER if first_layer else MODE_SRM
+    return _dense(mode, mu_x, srm_x, mu_w, srm_w)
+
+
+def pfp_dense_var(mu_x, var_x, mu_w, var_w):
+    """Joint PFP dense, Eq. 7, for (..., K) x (K, N). Returns (mean, var)."""
+    return _dense(MODE_VAR, mu_x, var_x, mu_w, var_w)
+
+
+def pfp_activation(mu, var, *, kind: str = "relu"):
+    """Moment-matched activation, any shape. Returns (mean, srm)."""
+    if _on_cuda(mu):
+        return pfp_activation_cuda(mu, var, kind=kind)
+    return ref.pfp_activation_ref(mu, var, kind)
+
+
+def pfp_maxpool2d(mu, var):
+    """2x2/2 PFP max pool on NHWC. Returns (mean, var)."""
+    if _on_cuda(mu):
+        return pfp_maxpool2d_cuda(mu, var)
+    return ref.pfp_maxpool2d_ref(mu, var)

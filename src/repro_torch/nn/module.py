@@ -1,0 +1,150 @@
+"""Bayesian weight leaves, the execution context and weight resolution.
+
+Counterpart of ``repro/nn/module.py``. A Bayesian weight is a
+:class:`BayesParam` module whose buffers are one of the reference's three
+leaf flavours:
+
+  variational        : ``mu``, ``rho``  (sigma = exp(rho))
+  converted PFP (SRM): ``mu``, ``srm``  (precomputed E[w^2], paper §5)
+  converted PFP (VAR): ``mu``, ``var``
+
+so a model's buffer names are the reference's parameter paths
+(``dense0.w.mu``, ``conv1.b.rho``, ...). ``resolve_weight`` turns a leaf
+into what the active mode needs: a tensor (DETERMINISTIC) or a
+:class:`GaussianTensor` (PFP).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core.device import DeviceLike, cpu_generator, resolve_device
+from repro_torch.core.gaussian import SRM, VAR, GaussianTensor
+from repro_torch.core.modes import Mode
+
+LEAF_KEYS = (frozenset({"mu", "rho"}), frozenset({"mu", "srm"}),
+             frozenset({"mu", "var"}))
+
+
+class BayesParam(nn.Module):
+    """One Bayesian weight: buffers ``mu`` plus ``rho``, ``srm`` or ``var``."""
+
+    def __init__(self, **tensors: torch.Tensor):
+        super().__init__()
+        if frozenset(tensors) not in LEAF_KEYS:
+            raise ValueError(f"a Bayesian leaf holds one of {LEAF_KEYS}, "
+                             f"got {sorted(tensors)}")
+        shapes = {tuple(t.shape) for t in tensors.values()}
+        if len(shapes) != 1:
+            raise ValueError(f"leaf tensors differ in shape: {shapes}")
+        for name, t in tensors.items():
+            self.register_buffer(name, t)
+
+    def keys(self) -> frozenset:
+        return frozenset(self._buffers)
+
+    @property
+    def shape(self):
+        return self.mu.shape
+
+
+def is_bayes_leaf(tree) -> bool:
+    """A dict of numpy-like arrays with one of the leaf key sets."""
+    return isinstance(tree, Mapping) and frozenset(tree) in LEAF_KEYS
+
+
+@dataclasses.dataclass
+class Context:
+    """Per-forward execution context."""
+
+    mode: Mode
+    formulation: str = "srm"          # 'srm' (Eq. 12) | 'var' (Eq. 7)
+    # 'eager' | 'kernel' | None (core/dispatch.py's DEFAULT_IMPL, 'kernel').
+    impl: Optional[str] = None
+    device: DeviceLike = None         # None: the CUDA card
+
+    def __post_init__(self):
+        self.mode = Mode.parse(self.mode)
+
+
+def bayes_variance(param: BayesParam) -> torch.Tensor:
+    keys = param.keys()
+    if "rho" in keys:
+        return torch.exp(2.0 * param.rho)
+    if "var" in keys:
+        return param.var
+    return param.srm - torch.square(param.mu)
+
+
+def bayes_srm(param: BayesParam) -> torch.Tensor:
+    if "srm" in param.keys():
+        return param.srm
+    return bayes_variance(param) + torch.square(param.mu)
+
+
+def resolve_weight(param, ctx: Context):
+    """Tensor for DETERMINISTIC, GaussianTensor for PFP."""
+    if not isinstance(param, BayesParam):
+        return param
+    if ctx.mode == Mode.DETERMINISTIC:
+        return param.mu
+    if ctx.mode == Mode.SVI:
+        raise NotImplementedError(
+            "SVI sampling is not ported yet: it heads queue A of ROADMAP.md")
+    if "srm" in param.keys():
+        return GaussianTensor(param.mu, param.srm, SRM)
+    return GaussianTensor(param.mu, bayes_variance(param), VAR)
+
+
+def init_bayes(shape, *, generator: Optional[torch.Generator] = None,
+               scale: Optional[float] = None, fan_in: Optional[int] = None,
+               sigma_init: float = 1e-4, mu_init: Optional[float] = None,
+               dtype=torch.float32, device: DeviceLike = None) -> BayesParam:
+    """Variational Gaussian weight. Default: mu from a normal truncated at
+    +-2 and scaled by fan_in**-0.5; sigma = sigma_init (the paper's 1e-4).
+    Draws from a CPU ``generator``, then moves to ``device``."""
+    device = resolve_device(device)
+    shape = tuple(shape)
+    if mu_init is not None:
+        mu = torch.full(shape, mu_init, dtype=dtype)
+    else:
+        if scale is None:
+            scale = (fan_in if fan_in is not None else shape[0]) ** -0.5
+        mu = torch.empty(shape, dtype=dtype)
+        nn.init.trunc_normal_(mu, 0.0, 1.0, -2.0, 2.0,
+                              generator=cpu_generator(generator))
+        mu = mu * scale
+    rho = torch.full(shape, math.log(sigma_init), dtype=dtype)
+    return BayesParam(mu=mu.to(device), rho=rho.to(device))
+
+
+def load_numpy_params(module: nn.Module, tree: Mapping) -> nn.Module:
+    """Fill ``module`` from the reference's parameter tree: nested dicts of
+    numpy arrays with ``{'mu','rho'}``, ``{'mu','srm'}`` or ``{'mu','var'}``
+    leaves. Each leaf replaces the module's :class:`BayesParam` of the same
+    path (on the same device), so the key set follows the tree. Returns
+    ``module``."""
+    children = dict(module.named_children())
+    if set(tree) != set(children):
+        raise KeyError(f"tree has {sorted(tree)}, module has "
+                       f"{sorted(children)}")
+    for name, sub in tree.items():
+        child = children[name]
+        if not is_bayes_leaf(sub):
+            load_numpy_params(child, sub)
+            continue
+        if not isinstance(child, BayesParam):
+            raise TypeError(f"{name}: the tree holds a leaf, the module a "
+                            f"{type(child).__name__}")
+        tensors = {k: torch.tensor(np.asarray(v), device=child.mu.device)
+                   for k, v in sub.items()}
+        if tuple(tensors["mu"].shape) != tuple(child.shape):
+            raise ValueError(f"{name}: shape {tuple(tensors['mu'].shape)} "
+                             f"vs {tuple(child.shape)}")
+        setattr(module, name, BayesParam(**tensors))
+    return module
