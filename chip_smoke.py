@@ -8,20 +8,29 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. card   : nvidia-smi name and power limit, torch and CUDA versions
   2. build  : nvcc builds src/repro_torch/csrc/*.cu for sm_90a
   3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-              at the main-path shapes (batch 100) and ragged ones, plus the
-              Eq. 12 cancellation check against an fp64 plain version
+              at the main paths' shapes and ragged ones, plus the Eq. 12
+              cancellation check and a LayerNorm row offset by 100, both
+              against fp64
   4. serving: LeNet-5 and MLP at full width (random weights from a seed,
               sigma_init 1e-3, converted with calibration factor 0.4) answer
               Dirty-MNIST batches of 100 per split with impl="kernel"; the
               logits are held against impl="eager" on the card, and every
               kernel must have launched during this phase
-  5. times  : device times (CUDA graph replays between CUDA events) of
-              each kernel at batch 10, 100 and 1024 beside its plain
-              version, a one-call PyTorch yardstick and its bound, plus
-              its time per eager call; whole-model forwards, eager and
-              captured in a CUDA graph
-  6. profile: torch.profiler over each model's forwards at each batch:
-              device busy share and the kernels that take the device time
+  5. lm     : granite-8b at full width (d_model 4096, 32 / 8 heads of 128,
+              d_ff 14336, vocab 49152; the one cut: 2 layers of 36), random
+              weights drawn on the card from a seed, answers requests of 4
+              prompts of 512 token ids, one PFP forward each with
+              impl="kernel": next token and Eq. 1-3 uncertainty at the last
+              position. The logits are held against impl="eager", and the
+              norm, GLU, attention, dense and activation kernels must have
+              launched during this phase
+  6. times  : device times (CUDA graph replays between CUDA events) of
+              each kernel at batch 10, 100 and 1024 and at the LM's shapes,
+              beside its plain version, a one-call PyTorch yardstick and its
+              bound, plus its time per eager call; whole-model forwards,
+              eager and captured in a CUDA graph
+  7. profile: torch.profiler over each model's forwards: device busy share
+              and the kernels that take the device time
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and a last JSON line ``{"ok": true, "device": {...}}``. Full numbers go to
@@ -42,13 +51,23 @@ PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 DENSE_TOL = dict(rtol=1e-5, atol=1e-4)       # tests/test_kernels.py
 ELEMENTWISE_TOL = dict(rtol=1e-5, atol=1e-5)
+NORM_TOL = dict(rtol=1e-4, atol=1e-5)        # norms and attention
 MODEL_TOL = dict(mean=(1e-3, 1e-4), var=(1e-2, 1e-5))  # test_impl_dispatch.py
 BATCHES = (10, 100, 1024)
 MAIN_BATCH = 100
 CALIBRATION = 0.4
 # Approximate fp32 operations per element (erf and exp counted as one each).
-RELU_OPS = 20
+ACTIVATION_OPS = {"relu": 20, "silu": 110}   # silu: 8 Gauss-Hermite nodes
 POOL_OPS_PER_OUTPUT = 75
+NORM_OPS = {"rmsnorm": 8, "layernorm": 12}
+SOFTMAX_OPS_PER_SCORE = 6   # scale, mask, max, exp, sum, square of p
+# The LM serving phase: granite-8b at full width, cut to LM_LAYERS layers.
+LM_ARCH = "granite-8b"
+LM_LAYERS = 2
+LM_BATCH, LM_SEQ, LM_REQUESTS = 4, 512, 2
+CNN_KERNELS = ("dense", "dense_first_layer", "dense_var", "activation",
+               "maxpool2d")
+LM_KERNELS = ("dense", "activation", "rmsnorm", "glu_product", "attention")
 
 KERNELS = {
     "dense": ("src/repro_torch/csrc/pfp_dense.cu",
@@ -61,6 +80,21 @@ KERNELS = {
                    "src/repro/kernels/pfp_activations.py:101"),
     "maxpool2d": ("src/repro_torch/csrc/pfp_maxpool.cu",
                   "src/repro/kernels/pfp_maxpool.py:59"),
+    "glu_product": ("src/repro_torch/csrc/pfp_activations.cu",
+                    "src/repro/kernels/pfp_activations.py:132"),
+    "rmsnorm": ("src/repro_torch/csrc/pfp_norms.cu",
+                "src/repro/kernels/pfp_norms.py:84"),
+    "layernorm": ("src/repro_torch/csrc/pfp_norms.cu",
+                  "src/repro/kernels/pfp_norms.py:101"),
+    "attention": ("src/repro_torch/csrc/pfp_attention.cu",
+                  "src/repro/kernels/pfp_attention.py:171"),
+}
+# What ``library_ms`` times, where one PyTorch call computes the same work.
+LIBRARY = {
+    "dense": "torch.bmm of the stacked fp32 operand pairs (products only)",
+    "dense_first_layer": "torch.bmm of the stacked fp32 operand pairs",
+    "dense_var": "torch.bmm of the stacked fp32 operand pairs",
+    "attention": "scaled_dot_product_attention on the means: mean half only",
 }
 
 
@@ -98,9 +132,58 @@ def main_path_calls(batch, formulation="srm"):
     ]
 
 
+def lm_config():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LM_ARCH), num_layers=LM_LAYERS,
+                               sigma_init=1e-3)
+
+
+def lm_path_calls(cfg):
+    """Every kernel call of one LM PFP forward (impl="kernel", srm) on
+    LM_BATCH x LM_SEQ tokens. Dense shapes are (M, K, N); norm and GLU
+    shapes (rows, width); attention (B, H, Hkv, Tq, Tk, D, causal)."""
+    batch, seq = LM_BATCH, LM_SEQ
+    m, d, f = batch * seq, cfg.d_model, cfg.d_ff
+    kv = cfg.num_kv_heads * cfg.head_dim
+    block = [
+        ("rmsnorm", (m, d)),
+        ("dense", (m, d, cfg.attn_dim)), ("dense", (m, d, kv)),
+        ("dense", (m, d, kv)),
+        ("attention", (batch, cfg.num_heads, cfg.num_kv_heads, seq, seq,
+                       cfg.head_dim, True)),
+        ("dense", (m, cfg.attn_dim, d)),
+        ("rmsnorm", (m, d)),
+        ("dense", (m, d, f)), ("dense", (m, d, f)),   # up, gate
+        ("activation", ("silu", m, f)), ("glu_product", (m, f)),
+        ("dense", (m, f, d)),
+    ]
+    return block * cfg.num_layers + [("rmsnorm", (m, d)),
+                                     ("dense", (m, d, cfg.vocab_size))]
+
+
+def _valid_pairs(tq, tk, causal):
+    """(query, key) pairs with a valid key: right-aligned causality."""
+    if not causal:
+        return tq * tk
+    return sum(min(tk, max(0, i + tk - tq + 1)) for i in range(tq))
+
+
 def work(kernel, shape):
     """(bytes, fp32 operations) the function needs: each input read once,
-    each output written once."""
+    each output written once; attention counts the valid scores only."""
+    if kernel == "attention":
+        b, h, hkv, tq, tk, d, causal = shape
+        nbytes = 4 * (3 * b * h * tq * d + 3 * b * hkv * tk * d)
+        pairs = b * h * _valid_pairs(tq, tk, causal)
+        return nbytes, pairs * (6 * d + SOFTMAX_OPS_PER_SCORE)
+    if kernel in NORM_OPS:
+        rows, d = shape
+        vectors = 2 if kernel == "layernorm" else 1
+        return 16 * rows * d + 4 * vectors * d, NORM_OPS[kernel] * rows * d
+    if kernel == "glu_product":
+        rows, n = shape
+        return 24 * rows * n, 2 * rows * n
     if kernel.startswith("dense"):
         m, k, n = shape
         if kernel == "dense_first_layer":
@@ -108,13 +191,22 @@ def work(kernel, shape):
         products = 3 if kernel == "dense" else 4
         return (4 * (2 * m * k + 2 * k * n + 2 * m * n),
                 2 * products * m * n * k + m * k + k * n + m * n)
+    kind, dims = _activation_kind(kernel, shape)
     numel = 1
-    for d in shape:
+    for d in dims:
         numel *= d
     if kernel == "activation":
-        return 16 * numel, RELU_OPS * numel
+        return 16 * numel, ACTIVATION_OPS[kind] * numel
     out = numel // 4
     return 4 * (2 * numel + 2 * out), POOL_OPS_PER_OUTPUT * out
+
+
+def _activation_kind(kernel, shape):
+    """An activation shape may lead with its kind ("silu", rows, cols);
+    without one it is relu. Returns (kind, dims)."""
+    if kernel == "activation" and isinstance(shape[0], str):
+        return shape[0], shape[1:]
+    return "relu", shape
 
 
 def bound_ms(kernel, shape):
@@ -136,6 +228,24 @@ def gaussian(shape, seed, device, scale=1.0):
 
 def operands(kernel, shape, seed, device):
     """Kernel arguments on ``device`` for one call."""
+    import torch
+    if kernel == "attention":
+        b, h, hkv, tq, tk, d, causal = shape
+        q, _ = gaussian((b, h, tq, d), seed, device)
+        k, _ = gaussian((b, hkv, tk, d), seed + 1, device)
+        vm, vv = gaussian((b, hkv, tk, d), seed + 2, device)
+        return (q, k, vm, vv, d ** -0.5, causal)
+    if kernel in NORM_OPS:
+        rows, d = shape
+        mu, var = gaussian((rows, d), seed, device)
+        g = torch.Generator(device="cpu").manual_seed(seed + 1)
+        gain = (1.0 + 0.1 * torch.randn((2, d), generator=g)).to(device)
+        return (mu, var, gain[0]) + ((gain[1],) if kernel == "layernorm"
+                                     else ())
+    if kernel == "glu_product":
+        mu_a, var_a = gaussian(shape, seed, device)
+        mu_b, var_b = gaussian(shape, seed + 1, device)
+        return (mu_a, var_a + mu_a * mu_a, mu_b, var_b + mu_b * mu_b)
     if kernel.startswith("dense"):
         m, k, n = shape
         mx, vx = gaussian((m, k), seed, device)
@@ -145,7 +255,9 @@ def operands(kernel, shape, seed, device):
         if kernel == "dense_var":
             return (mx, vx, mw, vw)
         return (mx, mx, mw, vw)
-    return gaussian(shape, seed, device)
+    kind, dims = _activation_kind(kernel, shape)
+    mu, var = gaussian(dims, seed, device)
+    return (mu, var, kind) if kernel == "activation" else (mu, var)
 
 
 def run_kernel(kernel, args):
@@ -157,7 +269,15 @@ def run_kernel(kernel, args):
     if kernel == "dense_var":
         return ops.pfp_dense_var(*args)
     if kernel == "activation":
-        return ops.pfp_activation(*args, kind="relu")
+        return ops.pfp_activation(args[0], args[1], kind=args[2])
+    if kernel == "rmsnorm":
+        return ops.pfp_rmsnorm(*args)
+    if kernel == "layernorm":
+        return ops.pfp_layernorm(*args)
+    if kernel == "glu_product":
+        return ops.pfp_glu_product(*args)
+    if kernel == "attention":
+        return ops.pfp_attention(*args[:4], scale=args[4], causal=args[5])
     return ops.pfp_maxpool2d(*args)
 
 
@@ -170,15 +290,31 @@ def run_plain(kernel, args):
     if kernel == "dense_var":
         return ref.pfp_dense_var_ref(*args)
     if kernel == "activation":
-        return ref.pfp_relu_ref(*args)
+        return ref.pfp_activation_ref(*args)
+    if kernel == "rmsnorm":
+        return ref.pfp_rmsnorm_ref(*args)
+    if kernel == "layernorm":
+        return ref.pfp_layernorm_ref(*args)
+    if kernel == "glu_product":
+        return ref.pfp_glu_ref(*args)
+    if kernel == "attention":
+        return ref.pfp_attention_ref(*args)
     return ref.pfp_maxpool2d_ref(*args)
 
 
 def library_call(kernel, args):
     """One PyTorch call computing the same products, or None. For the dense
     kernels: one fp32 torch.bmm (TF32 off) over the stacked operand pairs of
-    the formulation, without the final elementwise combine."""
+    the formulation, without the final elementwise combine. For attention:
+    scaled_dot_product_attention on the means, which is the mean half only
+    (no variance output). No single call computes a PFP norm or the GLU
+    pair of products."""
     import torch
+    if kernel == "attention":
+        q, k, vm, _, scale, causal = args
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        return lambda: sdpa(q, k, vm, is_causal=causal, scale=scale,
+                            enable_gqa=True)
     if not kernel.startswith("dense"):
         return None
     xa, xb, wa, wb = args
@@ -328,7 +464,90 @@ def phase_kernels(device):
         print(f"[kernels] activation[{kind:7s}] max_abs_err "
               f"{_max_err(got, want):.3e}")
     cancellation_check(device)
+    lm_kernel_checks(device, errs)
+    layernorm_offset_check(device)
     return errs
+
+
+def lm_kernel_checks(device, errs):
+    """The norm, GLU and attention kernels against their plain versions at
+    the LM's shapes and ragged ones; updates ``errs``."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    cfg = lm_config()
+    m, d, f = LM_BATCH * LM_SEQ, cfg.d_model, cfg.d_ff
+
+    def check(name, label, got, want, tol):
+        torch.cuda.synchronize()
+        _check_close(f"{name}{label}", got, want, tol)
+        err = _max_err(got, want)
+        errs[name] = max(errs[name], err)
+        print(f"[kernels] {name:18s} {label:44s} max_abs_err {err:.3e}")
+
+    seed = 500
+    for norm, kernel, plain in (
+            ("rmsnorm", ops.pfp_rmsnorm, ref.pfp_rmsnorm_ref),
+            ("layernorm", ops.pfp_layernorm, ref.pfp_layernorm_ref)):
+        for shape in ((m, d), (33, 100)):
+            for rep in ("var", "srm"):
+                for act in (None, "silu"):
+                    seed += 1
+                    mu, var, *vecs = operands(norm, shape, seed, device)
+                    second = var if rep == "var" else var + mu * mu
+                    kw = dict(rep=rep, act=act)
+                    check(norm, f"{shape} rep={rep} act={act}",
+                          kernel(mu, second, *vecs, **kw),
+                          plain(mu, second, *vecs, **kw), NORM_TOL)
+    for shape in ((m, f), (7, 333)):
+        seed += 1
+        args = operands("glu_product", shape, seed, device)
+        check("glu_product", str(shape), ops.pfp_glu_product(*args),
+              ref.pfp_glu_ref(*args), ELEMENTWISE_TOL)
+    odd = [a.reshape(-1)[1:] for a in args]   # 4 bytes off 16-byte alignment
+    check("glu_product", f"({odd[0].numel()},) unaligned",
+          ops.pfp_glu_product(*odd), ref.pfp_glu_ref(*odd), ELEMENTWISE_TOL)
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    for shape in ((LM_BATCH, h, hkv, LM_SEQ, LM_SEQ, dh, True),
+                  (LM_BATCH, h, hkv, LM_SEQ, LM_SEQ, dh, False),
+                  (2, 4, 2, 37, 37, dh, True),      # ragged
+                  (2, 4, 2, 5, 37, dh, True),       # Tq < Tk
+                  (2, 4, 2, 37, 37, 16, True),      # reduced head_dim
+                  (2, 4, 2, 37, 16, 64, True)):     # rows without a key
+        seed += 1
+        args = operands("attention", shape, seed, device)
+        got = run_kernel("attention", args)
+        check("attention", str(shape), got, run_plain("attention", args),
+              NORM_TOL)
+        b, _, _, tq, tk, _, causal = shape
+        if causal and tq > tk and float(got[0][:, :, :tq - tk].abs().max()
+                                        + got[1][:, :, :tq - tk].abs().max()):
+            fail(f"attention{shape}: rows without a valid key are not 0")
+
+
+def layernorm_offset_check(device):
+    """LayerNorm rows offset by 100, against fp64: the kernel sums the
+    centred spread; the TPU kernel's moment form sum(var + mu^2)/d -
+    mu_tok^2 cancels there (its fp32 error is printed beside)."""
+    import torch
+    from repro_torch.kernels import ops
+    mu, var = gaussian((4, 4096), 77, device)
+    mu = mu + 100.0
+    gain = torch.ones(4096, device=device)
+    got = ops.pfp_layernorm(mu, var, gain)
+    m64, v64 = mu.double(), var.double()
+    tok = m64.mean(-1, keepdim=True)
+    scale = torch.rsqrt((v64 + (m64 - tok) ** 2).mean(-1, keepdim=True) + 1e-6)
+    want = ((m64 - tok) * scale, v64 * scale ** 2)
+    torch.cuda.synchronize()
+    _check_close("layernorm offset 100", [g.double() for g in got], want,
+                 NORM_TOL)
+    tok32 = mu.mean(-1, keepdim=True)
+    moment = torch.mean(var + mu * mu, -1, keepdim=True) - tok32 * tok32
+    moment_err = float(((mu - tok32) * torch.rsqrt(moment + 1e-6)
+                        - want[0]).abs().max())
+    print(f"[kernels] layernorm offset 100 vs fp64: kernel max_abs_err "
+          f"{_max_err([g.double() for g in got], want):.3e}; the moment "
+          f"form in fp32 {moment_err:.3e}")
 
 
 def cancellation_check(device):
@@ -407,7 +626,7 @@ def phase_serving(device):
                                                        100)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    launches = {k: LAUNCHES[k] for k in CNN_KERNELS}
     print(f"[serving] main path: {len(outs)} results in {seconds:.3f} s "
           f"(first calls included); launches {launches}")
     missing = [k for k, v in launches.items() if v == 0]
@@ -444,41 +663,157 @@ def phase_serving(device):
     return launches
 
 
-def phase_times(device):
-    """Per-(kernel, shape) times at each batch, and whole-model forwards.
+def _lm_model(device):
+    """granite-8b at full width, cut to LM_LAYERS layers: random variational
+    weights drawn on the card from a seed, converted to PFP."""
+    import torch
+    from repro_torch.bayes.convert import svi_to_pfp
+    from repro_torch.models import lm
+    cfg = lm_config()
+    variational = lm.init_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(0),
+        device=device)
+    model = svi_to_pfp(variational, calibration_factor=CALIBRATION)
+    del variational
+    return cfg, model
+
+
+def _lm_requests(cfg, device):
+    import torch
+    return [torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                          generator=torch.Generator().manual_seed(100 + i))
+            .to(device) for i in range(LM_REQUESTS)]
+
+
+def phase_lm(device):
+    """The LM path: granite-8b PFP forwards with the kernels, next token and
+    Eq. 1-3 at the last position, logits held against the eager impl."""
+    import torch
+    from repro_torch.bayes import metrics
+    from repro_torch.core.modes import Mode
+    from repro_torch.kernels._launch import LAUNCHES, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.nn.module import Context
+
+    t0 = time.perf_counter()
+    cfg, model = _lm_model(device)
+    torch.cuda.synchronize()
+    n_weights = cfg.param_count()
+    print(f"[lm] {cfg.name}: d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, {cfg.num_layers} layers (cut from 36); "
+          f"{n_weights / 1e6:.1f} M weights drawn on the card and converted "
+          f"in {time.perf_counter() - t0:.2f} s")
+    requests = _lm_requests(cfg, device)
+    ctx = Context(mode=Mode.PFP, impl="kernel", formulation="srm",
+                  device=device)
+    answers, first = [], None
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for tokens in requests:
+        logits, _, _ = lm.forward(model, cfg, {"tokens": tokens}, ctx)
+        last_mu, last_var = logits.mean[:, -1], logits.var[:, -1]
+        gen = torch.Generator(device=device).manual_seed(1)
+        unc = metrics.pfp_predictive_metrics(gen, last_mu, last_var, 100)
+        answers.append((torch.argmax(last_mu, dim=-1), unc))
+        if first is None:
+            first = logits
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] for k in LM_KERNELS}
+    print(f"[lm] {LM_REQUESTS} requests of {LM_BATCH} x {LM_SEQ} tokens in "
+          f"{seconds:.3f} s (first calls included); launches {launches}")
+    per_forward = {}
+    for kernel, _ in lm_path_calls(cfg):
+        per_forward[kernel] = per_forward.get(kernel, 0) + 1
+    want = {k: LM_REQUESTS * per_forward[k] for k in LM_KERNELS}
+    if launches != want:
+        fail(f"LM launches {launches}, expected {want} "
+             f"({LM_REQUESTS} forwards)")
+    for i, (next_tok, unc) in enumerate(answers):
+        print(f"[lm] request {i}: next tokens {next_tok.tolist()}, MI "
+              + ", ".join(f"{float(v):.4e}" for v in unc["mi"])
+              + ", total entropy "
+              + ", ".join(f"{float(v):.4f}" for v in unc["total"]))
+
+    ref_out, _, _ = lm.forward(
+        model, cfg, {"tokens": requests[0]},
+        Context(mode=Mode.PFP, impl="eager", formulation="srm", device=device))
+    errs = {}
+    for part in ("mean", "var"):
+        got, want = getattr(first, part), getattr(ref_out, part)
+        rtol, atol = MODEL_TOL[part]
+        if tuple(got.shape) != (LM_BATCH, LM_SEQ, cfg.vocab_size) or \
+                not torch.isfinite(got).all():
+            fail(f"LM {part}: bad logits {tuple(got.shape)}")
+        err = float((got - want).abs().max())
+        errs[part] = (err, err / float(want.abs().max()))
+        if not torch.allclose(got, want, rtol=rtol, atol=atol):
+            fail(f"LM {part} kernel vs eager: max abs err {err:.3e}")
+    if float(first.var.min()) <= 0:
+        fail("LM: non-positive logit variance")
+    print(f"[lm] kernel vs eager logits: max abs err mean {errs['mean'][0]:.3e}"
+          f" ({errs['mean'][1]:.2e} of max |mean|), var {errs['var'][0]:.3e}"
+          f" ({errs['var'][1]:.2e} of max var)")
+    info = {"seconds": seconds, "errors": errs,
+            "next_tokens": [a[0].tolist() for a in answers],
+            "mi": [a[1]["mi"].tolist() for a in answers]}
+    return launches, info, cfg, model
+
+
+def _time_row(label, kernel, shape, device, inner=10, replays=5,
+              call_iters=30):
+    """Device ms of the kernel, its plain version and the library call at
+    one shape, its bound, and its time per eager call."""
+    args = operands(kernel, shape, 1, device)
+    lib = library_call(kernel, args)
+    row = {
+        "batch": label, "kernel": kernel, "shape": list(shape),
+        "ms": device_ms(lambda: run_kernel(kernel, args), inner, replays),
+        "plain_ms": device_ms(lambda: run_plain(kernel, args), inner,
+                              replays),
+        "library_ms": device_ms(lib, inner, replays) if lib else None,
+        "call_ms": time_ms(lambda: run_kernel(kernel, args), call_iters,
+                           min(3, call_iters)),
+    }
+    row["bound_ms"], row["bound_by"] = bound_ms(kernel, shape)
+    lib_s = "-" if lib is None else f"{row['library_ms']:.4f}"
+    print(f"[times] B={label:<5} {kernel:18s} {str(shape):36s} kernel "
+          f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f}  library {lib_s}"
+          f"  bound {row['bound_ms']:.5f} ({row['bound_by']})  eager call "
+          f"{row['call_ms']:.4f}")
+    return row
+
+
+def phase_times(device, lm_cfg, lm_model):
+    """Per-(kernel, shape) times at each batch of the CNN path and at the
+    LM's shapes, and whole-model forwards.
 
     ``ms``, ``plain_ms`` and ``library_ms`` are device times (CUDA graph
     replays); ``call_ms`` is the kernel's time per eager call, host work
     included."""
     import torch
     from repro_torch.core.modes import Mode
+    from repro_torch.models import lm
     from repro_torch.nn.module import Context
     rows = []
     for batch in BATCHES:
         seen = set()
         for formulation in ("srm", "var"):
             for kernel, shape in main_path_calls(batch, formulation):
-                if (kernel, shape) in seen:
-                    continue
-                seen.add((kernel, shape))
-                args = operands(kernel, shape, 1, device)
-                lib = library_call(kernel, args)
-                row = {
-                    "batch": batch, "kernel": kernel, "shape": list(shape),
-                    "ms": device_ms(lambda: run_kernel(kernel, args)),
-                    "plain_ms": device_ms(lambda: run_plain(kernel, args)),
-                    "library_ms": device_ms(lib) if lib else None,
-                    "call_ms": time_ms(lambda: run_kernel(kernel, args)),
-                }
-                row["bound_ms"], row["bound_by"] = bound_ms(kernel, shape)
-                rows.append(row)
-                lib_s = "-" if lib is None else f"{row['library_ms']:.4f}"
-                print(f"[times] B={batch:<5d} {kernel:18s} "
-                      f"{str(shape):20s} kernel {row['ms']:.4f} ms  plain "
-                      f"{row['plain_ms']:.4f}  library {lib_s}  bound "
-                      f"{row['bound_ms']:.5f} ({row['bound_by']})  "
-                      f"eager call {row['call_ms']:.4f}")
-                del args, lib
+                if (kernel, shape) not in seen:
+                    seen.add((kernel, shape))
+                    rows.append(_time_row(batch, kernel, shape, device))
+    seen = set()
+    for kernel, shape in lm_path_calls(lm_cfg) + [("layernorm", (
+            LM_BATCH * LM_SEQ, lm_cfg.d_model))]:
+        if (kernel, shape) in seen:
+            continue
+        seen.add((kernel, shape))
+        big = kernel == "dense"   # up to 2.5 TFLOP a call at these shapes
+        rows.append(_time_row("lm", kernel, shape, device,
+                              inner=2 if big else 10, replays=2 if big else 5,
+                              call_iters=3 if big else 30))
     models = _models(device)
     forwards = []
     for batch in BATCHES:
@@ -496,16 +831,66 @@ def phase_times(device):
             print(f"[times] forward {name:6s} B={batch:<5d} kernel "
                   f"{row['kernel_ms']:.4f} ms  eager {row['eager_ms']:.4f} ms"
                   f"  kernel in a CUDA graph {row['kernel_graph_ms']:.4f} ms")
+    del models
+    tokens = _lm_requests(lm_cfg, device)[0]
+    row = {"batch": LM_BATCH, "seq": LM_SEQ, "model": lm_cfg.name}
+    for impl, iters in (("kernel", 3), ("eager", 2)):
+        ctx = Context(mode=Mode.PFP, impl=impl, device=device)
+        row[f"{impl}_ms"] = time_ms(
+            lambda: lm.forward(lm_model, lm_cfg, {"tokens": tokens}, ctx),
+            iters=iters, warmup=1)
+    ctx = Context(mode=Mode.PFP, impl="kernel", device=device)
+    row["kernel_graph_ms"] = device_ms(
+        lambda: lm.forward(lm_model, lm_cfg, {"tokens": tokens}, ctx),
+        inner=1, replays=3)
+    forwards.append(row)
+    print(f"[times] forward {lm_cfg.name} ({lm_cfg.num_layers} layers) "
+          f"B={LM_BATCH} T={LM_SEQ} kernel {row['kernel_ms']:.2f} ms  eager "
+          f"{row['eager_ms']:.2f} ms  kernel in a CUDA graph "
+          f"{row['kernel_graph_ms']:.2f} ms")
     return rows, forwards
 
 
-def phase_profile(device, reps=10):
-    """torch.profiler over ``reps`` kernel-impl forwards of each model at
-    each batch: device busy share and the kernels that take the device
-    time. The wall time includes the profiler's own cost."""
+def _profile(label, fn, reps, warmup):
+    """torch.profiler over ``reps`` calls of ``fn``: wall and device-busy
+    ms per call and the kernels that take the device time. The wall time
+    includes the profiler's own cost."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms == 0:
+        print("[profile] the profiler saw no device time")
+        return None
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"[profile] {label}, {reps} forwards: wall {wall_ms / reps:.4f} ms, "
+          f"device busy {busy_ms / reps:.4f} ms per forward "
+          f"({100 * busy_ms / wall_ms:.1f}% busy)")
+    for e in top:
+        print(f"[profile]   {e.self_device_time_total / 1e3 / reps:9.4f}"
+              f" ms x{e.count // reps:<3d} {e.key[:80]}")
+    return {"wall_ms": wall_ms / reps, "busy_ms": busy_ms / reps,
+            "top": [(e.key, e.self_device_time_total / 1e3 / reps,
+                     e.count // reps) for e in top]}
+
+
+def phase_profile(device, lm_cfg, lm_model, reps=10):
+    """The profiler over kernel-impl forwards of each CNN at each batch
+    and of the LM."""
+    import torch
     from repro_torch.core.modes import Mode
+    from repro_torch.models import lm
     from repro_torch.nn.module import Context
     models = _models(device)
     ctx = Context(mode=Mode.PFP, impl="kernel", device=device)
@@ -515,63 +900,60 @@ def phase_profile(device, reps=10):
                        .manual_seed(3)).to(device)
         for name, model in models.items():
             xin = _requests(name, x)
-            for _ in range(3):
-                model(xin, ctx)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(reps):
-                    model(xin, ctx)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            kernels = [e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA]
-            busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-            if busy_ms == 0:
-                print("[profile] the profiler saw no device time")
+            row = _profile(f"{name:6s} B={batch:<5d}", lambda: model(xin, ctx),
+                           reps, 3)
+            if row is None:
                 return []
-            top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
-            out.append({"model": name, "batch": batch,
-                        "wall_ms": wall_ms / reps, "busy_ms": busy_ms / reps,
-                        "top": [(e.key, e.self_device_time_total / 1e3 / reps,
-                                 e.count // reps) for e in top]})
-            print(f"[profile] {name:6s} B={batch:<5d} {reps} forwards: wall "
-                  f"{wall_ms / reps:.4f} ms, device busy "
-                  f"{busy_ms / reps:.4f} ms per forward "
-                  f"({100 * busy_ms / wall_ms:.1f}% busy)")
-            for e in top[:3]:
-                print(f"[profile]   {e.self_device_time_total / 1e3 / reps:8.4f}"
-                      f" ms x{e.count // reps:<3d} {e.key[:80]}")
+            out.append({"model": name, "batch": batch, **row})
+    tokens = _lm_requests(lm_cfg, device)[0]
+    row = _profile(f"{lm_cfg.name} B={LM_BATCH} T={LM_SEQ}",
+                   lambda: lm.forward(lm_model, lm_cfg, {"tokens": tokens},
+                                      ctx), 2, 1)
+    if row is not None:
+        out.append({"model": lm_cfg.name, "batch": LM_BATCH, **row})
     return out
 
 
-def kernel_summary(rows, launches, errs):
-    """Per kernel: its main-path calls at batch 100, times and bounds summed
-    over one LeNet-5 and one MLP forward (Eq. 12 forwards; Eq. 7 for
-    dense_var)."""
-    by_key = {(r["kernel"], tuple(r["shape"])): r for r in rows
-              if r["batch"] == MAIN_BATCH}
+def kernel_summary(rows, launches, errs, lm_cfg):
+    """Per kernel: for the CNN path's kernels, its calls at batch 100,
+    times and bounds summed over one LeNet-5 and one MLP forward (Eq. 12
+    forwards; Eq. 7 for dense_var); for the LM's norm, GLU and attention,
+    its calls in one LM forward (layernorm, on no path: one call at the
+    LM's norm shape). ``launches`` sums the paths' runs."""
+    cnn = {(r["kernel"], tuple(r["shape"])): r for r in rows
+           if r["batch"] == MAIN_BATCH}
+    lmr = {(r["kernel"], tuple(r["shape"])): r for r in rows
+           if r["batch"] == "lm"}
     out = []
     for kernel, (source, replaces) in KERNELS.items():
-        formulation = "var" if kernel == "dense_var" else "srm"
-        calls = [by_key[(k, s)] for k, s in
-                 main_path_calls(MAIN_BATCH, formulation) if k == kernel]
+        if kernel in CNN_KERNELS:
+            formulation = "var" if kernel == "dense_var" else "srm"
+            calls = [cnn[(k, s)] for k, s in
+                     main_path_calls(MAIN_BATCH, formulation) if k == kernel]
+        elif kernel == "layernorm":
+            calls = [lmr[(kernel, (LM_BATCH * LM_SEQ, lm_cfg.d_model))]]
+        else:
+            calls = [lmr[(k, s)] for k, s in lm_path_calls(lm_cfg)
+                     if k == kernel]
         t_bytes = t_ops = 0.0
         for r in calls:
             nbytes, ops = work(kernel, tuple(r["shape"]))
             t_bytes += nbytes / PEAK_BYTES * 1e3
             t_ops += ops / PEAK_FP32 * 1e3
         lib = [r["library_ms"] for r in calls]
+        by_path = {path: counts.get(kernel, 0)
+                   for path, counts in launches.items()}
         out.append({
             "name": kernel, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[kernel],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": errs[kernel],
             "ms": sum(r["ms"] for r in calls),
             "plain_ms": sum(r["plain_ms"] for r in calls),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None if None in lib else sum(lib),
+            "library": LIBRARY.get(kernel),
         })
     return out
 
@@ -589,13 +971,15 @@ def main():
     card = phase_card()
     build = phase_build()
     errs = phase_kernels(device)
-    launches = phase_serving(device)
-    rows, forwards = phase_times(device)
-    profile = phase_profile(device)
-    kernels = kernel_summary(rows, launches, errs)
+    launches = {"cnn": phase_serving(device)}
+    launches["lm"], lm_info, lm_cfg, lm_model = phase_lm(device)
+    rows, forwards = phase_times(device, lm_cfg, lm_model)
+    profile = phase_profile(device, lm_cfg, lm_model)
+    del lm_model
+    kernels = kernel_summary(rows, launches, errs, lm_cfg)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build": build, "kernels": kernels, "times": rows,
-         "forwards": forwards, "profile": profile,
+         "forwards": forwards, "profile": profile, "lm": lm_info,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -20,12 +20,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return torch.device(device)
 
 
-def cpu_generator(generator: Optional[torch.Generator], seed: int = 0):
-    """The CPU generator random initialisation draws from (a fresh one
-    seeded with ``seed`` when none is given), so a seed gives the same
-    weights whatever device they are moved to."""
+def init_generator(generator: Optional[torch.Generator], seed: int = 0):
+    """The generator random initialisation draws from: ``generator`` itself,
+    or a fresh CPU one seeded with ``seed``. Weights are drawn on the
+    generator's device, so a seeded CPU generator gives the same weights
+    whatever device they are moved to, and a CUDA generator draws a large
+    model on the card."""
     if generator is None:
         return torch.Generator().manual_seed(seed)
-    if generator.device.type != "cpu":
-        raise ValueError("initialisation draws from a CPU torch.Generator")
     return generator

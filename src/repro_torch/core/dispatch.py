@@ -1,9 +1,10 @@
 """Impl-dispatch registry for the port's PFP operators.
 
 Counterpart of ``repro/core/dispatch.py``, limited to the ops of the
-paper's MLP and LeNet-5: ``dense``, ``conv2d_im2col``, ``activation`` and
-``maxpool2d``. Each op is registered with two impls operating on
-:class:`GaussianTensor`:
+paper's MLP and LeNet-5 (``dense``, ``conv2d_im2col``, ``activation``,
+``maxpool2d``) and of the dense transformer LM (``rmsnorm``, ``layernorm``,
+``glu_product``, ``attention``, ``embedding``, ``residual``). Each op is
+registered with two impls:
 
   * ``eager``  : pure torch from ``core/pfp_layers.py`` (the JAX package's
     ``xla`` impl);
@@ -13,15 +14,18 @@ paper's MLP and LeNet-5: ``dense``, ``conv2d_im2col``, ``activation`` and
 
 The representation contract (compute layers consume SRM and emit VAR,
 activations consume VAR and emit SRM) is enforced here by the public
-functions, as in the reference.
+functions, as in the reference. The embedding gather and the residual add
+have no kernel in the reference either: both impls share one function.
+The reference's opt-in ``norm_dense_act`` fusion pass is not ported yet.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
 from repro_torch.core import pfp_layers
-from repro_torch.core.gaussian import SRM, VAR, GaussianTensor, is_gaussian
-from repro_torch.kernels import ops
+from repro_torch.core.gaussian import (SRM, VAR, GaussianTensor, as_gaussian,
+                                       is_gaussian)
+from repro_torch.kernels import ops, ref
 
 IMPLS = ("eager", "kernel")
 FORMULATIONS = ("srm", "var")
@@ -177,3 +181,117 @@ def pfp_maxpool2d(x: GaussianTensor, window: int = 2,
                   impl: Optional[str] = None) -> GaussianTensor:
     """PFP max pool (NHWC). Consumes VAR, emits VAR."""
     return get_op("maxpool2d", impl)(x.to_var(), window)
+
+
+# ---------------------------------------------------------------------------
+# attention — mean-field joint mean/variance softmax attention
+# ---------------------------------------------------------------------------
+@register("attention", "eager")
+def _attention_eager(q_mu, k_mu, v_mu, v_var, scale, causal):
+    return ref.pfp_attention_ref(q_mu, k_mu, v_mu, v_var, scale, causal)
+
+
+@register("attention", "kernel")
+def _attention_kernel(q_mu, k_mu, v_mu, v_var, scale, causal):
+    return ops.pfp_attention(q_mu, k_mu, v_mu, v_var, scale=scale,
+                             causal=causal)
+
+
+def pfp_attention(q_mu, k_mu, v_mu, v_var, *, scale: float,
+                  causal: bool = True, impl: Optional[str] = None):
+    """Mean-field PFP attention: q (B, H, Tq, D), kv (B, Hkv, Tk, D),
+    H % Hkv == 0 -> (mean, var) at H heads. Tensor-level, as in the
+    reference: the layer assembles score means and value variances. Causal
+    masking is right-aligned by index; callers with remapped positions or
+    windows keep the chunked core of ``nn/attention.py``."""
+    dtype = q_mu.dtype
+    mu, var = get_op("attention", impl)(q_mu, k_mu, v_mu, v_var, scale, causal)
+    return mu.to(dtype), var.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms — delta-method RMSNorm / LayerNorm, optional activation epilogue
+# ---------------------------------------------------------------------------
+@register("rmsnorm", "eager")
+def _rmsnorm_eager(x, gain, eps, act):
+    out = pfp_layers.pfp_rmsnorm(x, gain, eps=eps)
+    return pfp_layers.pfp_activation(out, act) if act is not None else out
+
+
+@register("rmsnorm", "kernel")
+def _rmsnorm_kernel(x, gain, eps, act):
+    mu, sec = ops.pfp_rmsnorm(x.mean, x.second, gain, rep=x.rep, eps=eps,
+                              act=act)
+    rep = SRM if act is not None else VAR
+    return GaussianTensor(mu.to(x.dtype), sec.to(x.dtype), rep)
+
+
+def pfp_rmsnorm(x: GaussianTensor, gain, *, eps: float = 1e-6,
+                act: Optional[str] = None,
+                impl: Optional[str] = None) -> GaussianTensor:
+    """RMSNorm under PFP. Emits VAR; with ``act`` the following activation
+    runs as the norm's epilogue and the op emits SRM."""
+    return get_op("rmsnorm", impl)(x, gain, eps, act)
+
+
+@register("layernorm", "eager")
+def _layernorm_eager(x, gain, bias, eps, act):
+    out = pfp_layers.pfp_layernorm(x, gain, bias=bias, eps=eps)
+    return pfp_layers.pfp_activation(out, act) if act is not None else out
+
+
+@register("layernorm", "kernel")
+def _layernorm_kernel(x, gain, bias, eps, act):
+    mu, sec = ops.pfp_layernorm(x.mean, x.second, gain, bias, rep=x.rep,
+                                eps=eps, act=act)
+    rep = SRM if act is not None else VAR
+    return GaussianTensor(mu.to(x.dtype), sec.to(x.dtype), rep)
+
+
+def pfp_layernorm(x: GaussianTensor, gain, bias=None, *, eps: float = 1e-6,
+                  act: Optional[str] = None,
+                  impl: Optional[str] = None) -> GaussianTensor:
+    """LayerNorm under PFP. Emits VAR (SRM with ``act``)."""
+    return get_op("layernorm", impl)(x, gain, bias, eps, act)
+
+
+# ---------------------------------------------------------------------------
+# glu_product — exact gated product (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+@register("glu_product", "eager")
+def _glu_eager(a, b):
+    return pfp_layers.pfp_glu_product(a, b)
+
+
+@register("glu_product", "kernel")
+def _glu_kernel(a, b):
+    mu, srm = ops.pfp_glu_product(a.mean, a.srm, b.mean, b.srm)
+    return GaussianTensor(mu.to(a.dtype), srm.to(a.dtype), SRM)
+
+
+def pfp_glu_product(a: GaussianTensor, b: GaussianTensor,
+                    impl: Optional[str] = None) -> GaussianTensor:
+    """Product of independent Gaussians. Consumes SRM, emits SRM (exact)."""
+    return get_op("glu_product", impl)(a.to_srm(), b.to_srm())
+
+
+# ---------------------------------------------------------------------------
+# embedding / residual — one function for both impls
+# ---------------------------------------------------------------------------
+register("embedding", "eager")(pfp_layers.pfp_embedding)
+register("embedding", "kernel")(pfp_layers.pfp_embedding)
+
+
+def pfp_embedding(table: GaussianTensor, ids,
+                  impl: Optional[str] = None) -> GaussianTensor:
+    """Bayesian embedding gather. Emits VAR."""
+    return get_op("embedding", impl)(table, ids)
+
+
+register("residual", "eager")(pfp_layers.pfp_residual)
+register("residual", "kernel")(pfp_layers.pfp_residual)
+
+
+def pfp_residual(x, y, impl: Optional[str] = None) -> GaussianTensor:
+    """Residual add of independent Gaussians. Emits VAR."""
+    return get_op("residual", impl)(as_gaussian(x), as_gaussian(y))

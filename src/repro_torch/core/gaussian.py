@@ -29,6 +29,11 @@ class GaussianTensor:
     second: torch.Tensor
     rep: str = VAR
 
+    @classmethod
+    def deterministic(cls, x: torch.Tensor) -> "GaussianTensor":
+        """A point mass: variance 0."""
+        return cls(x, torch.zeros_like(x), VAR)
+
     @property
     def shape(self):
         return self.mean.shape
@@ -77,3 +82,8 @@ class GaussianTensor:
 
 def is_gaussian(x: Any) -> bool:
     return isinstance(x, GaussianTensor)
+
+
+def as_gaussian(x: Any) -> GaussianTensor:
+    """Lift a plain tensor to a point mass; pass GaussianTensors through."""
+    return x if is_gaussian(x) else GaussianTensor.deterministic(x)

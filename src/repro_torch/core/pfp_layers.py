@@ -76,6 +76,50 @@ def pfp_dense(x, w: GaussianTensor, b: Optional[GaussianTensor] = None,
     return out
 
 
+def pfp_embedding(table: GaussianTensor, ids) -> GaussianTensor:
+    """Bayesian embedding lookup. Emits VAR. The rows are gathered first and
+    their variance formed after: elementwise the same as converting the
+    whole table, without touching the rows no token reads."""
+    return GaussianTensor(table.mean[ids], table.second[ids],
+                          table.rep).to_var()
+
+
+def pfp_rmsnorm(x: GaussianTensor, gain, eps: float = 1e-6) -> GaussianTensor:
+    """RMSNorm by the delta method: E[rms^2] = mean_j E[x_j^2] = mean(SRM)
+    is taken as a deterministic per-token scalar, so the layer is affine.
+    Emits VAR."""
+    norm = torch.rsqrt(torch.mean(x.srm, dim=-1, keepdim=True) + eps)
+    scale = norm * gain
+    return GaussianTensor(x.mean * scale, x.var * torch.square(scale), VAR)
+
+
+def pfp_layernorm(x: GaussianTensor, gain, bias=None,
+                  eps: float = 1e-6) -> GaussianTensor:
+    """LayerNorm by the delta method on the token's mean and spread, the
+    spread in its centred form mean_j(var_j + (mu_j - mu_tok)^2). Emits
+    VAR."""
+    mu_tok = torch.mean(x.mean, dim=-1, keepdim=True)
+    spread = torch.mean(x.var + torch.square(x.mean - mu_tok), dim=-1,
+                        keepdim=True)
+    scale = torch.rsqrt(spread + eps) * gain
+    mean = (x.mean - mu_tok) * scale
+    if bias is not None:
+        mean = mean + bias
+    return GaussianTensor(mean, x.var * torch.square(scale), VAR)
+
+
+def pfp_glu_product(a: GaussianTensor, b: GaussianTensor) -> GaussianTensor:
+    """Gated product a * b of independent Gaussians, exact in SRM form.
+    Emits SRM."""
+    mean, srm = pfp_math.product_srm(a.mean, a.srm, b.mean, b.srm)
+    return GaussianTensor(mean, srm, SRM)
+
+
+def pfp_residual(x: GaussianTensor, y: GaussianTensor) -> GaussianTensor:
+    """Residual add of independent Gaussians: means add, variances add."""
+    return GaussianTensor(x.mean + y.mean, x.var + y.var, VAR)
+
+
 def pfp_maxpool2d(x: GaussianTensor, window: int = 2) -> GaussianTensor:
     """PFP 2x2/2 max pool (NHWC) as a tournament of Clark pairwise maxes:
     W pairs, then H pairs. VAR in, VAR out."""

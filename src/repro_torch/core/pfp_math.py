@@ -7,6 +7,8 @@ Counterpart of ``repro/core/pfp_math.py``; every function works on raw
   * Clark (1961) max of two independent Gaussians         [exact 2 moments]
   * 8-node Gauss-Hermite moments for gelu/silu/tanh/sigmoid
   * joint dense moments, Eqs. (7), (12), (13)
+  * exact products of independent Gaussians (the GLU gate)
+  * probit-corrected softmax scores (``variance_corrected`` attention)
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.core.gaussian import VAR_EPS
 _SQRT_2 = math.sqrt(2.0)
 _SQRT_2PI = math.sqrt(2.0 * math.pi)
 _INV_SQRT_PI = 1.0 / math.sqrt(math.pi)
+_PROBIT_LAMBDA_SQ = math.pi / 8.0
 
 
 def normal_pdf(x):
@@ -52,16 +55,17 @@ def relu_moments(mean, var):
 
 
 @functools.lru_cache(maxsize=None)
-def _gh_nodes(num_nodes: int):
+def _gh_nodes(num_nodes: int, dtype: torch.dtype, device: torch.device):
+    """Nodes and weights (divided by sqrt(pi)) on ``device``, made once per
+    device: a host-to-device copy cannot run inside a CUDA graph capture."""
     nodes, weights = np.polynomial.hermite.hermgauss(num_nodes)
-    return nodes, weights * _INV_SQRT_PI
+    return (torch.as_tensor(nodes, dtype=dtype, device=device),
+            torch.as_tensor(weights * _INV_SQRT_PI, dtype=dtype, device=device))
 
 
 def gauss_hermite_moments(f: Callable, mean, var, num_nodes: int = 8):
     """E[f(X)], E[f(X)^2] for X ~ N(mean, var); returns ``(mean, srm)``."""
-    nodes_np, weights_np = _gh_nodes(num_nodes)
-    nodes = torch.as_tensor(nodes_np, dtype=mean.dtype, device=mean.device)
-    weights = torch.as_tensor(weights_np, dtype=mean.dtype, device=mean.device)
+    nodes, weights = _gh_nodes(num_nodes, mean.dtype, mean.device)
     std = torch.sqrt(torch.clamp(var, min=0.0))
     x = mean[..., None] + (_SQRT_2 * std)[..., None] * nodes
     fx = f(x)
@@ -89,6 +93,21 @@ def tanh_moments(mean, var, num_nodes: int = 8):
 
 def sigmoid_moments(mean, var, num_nodes: int = 8):
     return gauss_hermite_moments(torch.sigmoid, mean, var, num_nodes)
+
+
+def product_moments(mean_a, var_a, mean_b, var_b):
+    """Moments of X*Y for independent Gaussians (exact). Returns
+    ``(mean, var)``."""
+    mean = mean_a * mean_b
+    var = (torch.square(mean_a) * var_b + torch.square(mean_b) * var_a
+           + var_a * var_b)
+    return mean, var
+
+
+def product_srm(mean_a, srm_a, mean_b, srm_b):
+    """The same product in SRM form: E[XY] = mu_a mu_b, E[(XY)^2] =
+    E[X^2] E[Y^2]. Returns ``(mean, srm)``."""
+    return mean_a * mean_b, srm_a * srm_b
 
 
 def clark_max_moments(mean_a, var_a, mean_b, var_b):
@@ -132,3 +151,10 @@ def dense_moments_var(mean_x, var_x, mean_w, var_w):
 def dense_moments_first_layer(x, mean_w, var_w):
     """First-layer simplification for deterministic inputs (Eq. 13)."""
     return x @ mean_w, torch.square(x) @ var_w
+
+
+def probit_corrected_logits(mean, var):
+    """Scale logits by 1/sqrt(1 + pi/8 var): the identity at var = 0; the
+    ``variance_corrected`` attention mode folds score uncertainty into the
+    attention weights with it."""
+    return mean / torch.sqrt(1.0 + _PROBIT_LAMBDA_SQ * var)

@@ -1,79 +1,26 @@
-// Moment-matched activation kernel for Hopper: (mu, var) -> (mean, srm).
+// Elementwise PFP kernels for Hopper: the moment-matched activation and the
+// GLU gated product.
 //
-// Replaces repro/kernels/pfp_activations.py: pfp_activation_pallas
-// (_make_kernel over MOMENT_FNS): ReLU by the closed form of Eq. 8/9 with
-// its point-mass branch, gelu/silu/tanh/sigmoid by 8-node Gauss-Hermite.
+// Replaces repro/kernels/pfp_activations.py:
+//  * pfp_activation_pallas (_make_kernel over MOMENT_FNS): (mu, var) ->
+//    (mean, srm), ReLU by the closed form of Eq. 8/9 with its point-mass
+//    branch, gelu/silu/tanh/sigmoid by 8-node Gauss-Hermite (the moment
+//    functions live in pfp_moments.cuh, shared with the norm kernel's
+//    activation epilogue);
+//  * pfp_glu_pallas (_glu_product_kernel): the exact SRM product of two
+//    independent Gaussians, mean = mu_a mu_b, srm = srm_a srm_b.
 //
-// What bounds it on the H100: bytes. Each element reads two floats and
-// writes two (16 bytes) for a few dozen flops and two transcendentals, far
-// below the card's flop-per-byte balance. The design is the TPU's
-// joint-operator idea in its elementwise form: one pass reads mu and var
-// once and writes both outputs, one thread per element, neighbouring
-// threads on neighbouring addresses so every load and store is coalesced.
-// erff/expf/sqrtf/tanhf are the accurate library versions (no fast math).
-#include "pfp_common.cuh"
+// What bounds them on the H100: bytes. The activation reads two floats and
+// writes two (16 bytes) per element for a few dozen flops; the GLU reads
+// four and writes two (24 bytes) for two multiplies. The design is the
+// TPU's joint-operator idea in its elementwise form: one pass reads every
+// operand once and writes both outputs, neighbouring threads on
+// neighbouring addresses so every load and store is coalesced. The GLU
+// moves 16 bytes per load and store (float4) when all six arrays are
+// 16-byte aligned, the rest one float at a time.
+#include "pfp_moments.cuh"
 
 namespace {
-
-enum Kind { kRelu = 0, kGelu = 1, kSilu = 2, kTanh = 3, kSigmoid = 4 };
-
-__device__ __forceinline__ void relu_moments(float mu, float var,
-                                             float* mean_out, float* srm_out) {
-  const float safe_var = fmaxf(var, pfp::kVarEps);
-  const float sd = sqrtf(safe_var);
-  const float cdf = 0.5f * (1.0f + erff(mu / (sd * pfp::kSqrt2)));
-  const float pdf = sd * expf(-0.5f * (mu * mu) / safe_var) / pfp::kSqrt2Pi;
-  float mean = mu * cdf + pdf;                                // Eq. (8)
-  float srm = (safe_var + mu * mu) * cdf + mu * pdf;          // Eq. (9)
-  if (var <= pfp::kVarEps) {  // point mass: relu of a constant
-    mean = fmaxf(mu, 0.0f);
-    srm = mean * mean;
-  } else {
-    srm = fmaxf(srm, 0.0f);
-  }
-  *mean_out = mean;
-  *srm_out = srm;
-}
-
-template <int KIND>
-__device__ __forceinline__ float act(float x) {
-  if constexpr (KIND == kGelu) {
-    // jax.nn.gelu's default (approximate=True): the tanh form.
-    const float c = 0.79788456080286535588f;  // sqrt(2 / pi)
-    return 0.5f * x * (1.0f + tanhf(c * (x + 0.044715f * x * x * x)));
-  } else if constexpr (KIND == kSilu) {
-    return x / (1.0f + expf(-x));
-  } else if constexpr (KIND == kTanh) {
-    return tanhf(x);
-  } else {
-    return 1.0f / (1.0f + expf(-x));
-  }
-}
-
-// E[f(X)], E[f(X)^2] for X ~ N(mu, var): 8 Gauss-Hermite nodes, weights
-// already divided by sqrt(pi) (numpy.polynomial.hermite.hermgauss(8)).
-template <int KIND>
-__device__ __forceinline__ void gh_moments(float mu, float var,
-                                           float* mean_out, float* srm_out) {
-  constexpr float kNodes[8] = {
-      -2.930637420257244f, -1.981656756695843f, -1.1571937124467802f,
-      -0.3811869902073221f, 0.3811869902073221f, 1.1571937124467802f,
-      1.981656756695843f, 2.930637420257244f};
-  constexpr float kWeights[8] = {
-      0.0001126145383753679f, 0.009635220120788263f, 0.117239907661759f,
-      0.3730122576790775f, 0.3730122576790775f, 0.117239907661759f,
-      0.009635220120788263f, 0.0001126145383753679f};
-  const float scale = sqrtf(fmaxf(var, 0.0f)) * pfp::kSqrt2;
-  float acc_m = 0.0f, acc_s = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float fx = act<KIND>(mu + scale * kNodes[i]);
-    acc_m += kWeights[i] * fx;
-    acc_s += kWeights[i] * (fx * fx);
-  }
-  *mean_out = acc_m;
-  *srm_out = acc_s;
-}
 
 template <int KIND>
 __global__ void __launch_bounds__(256)
@@ -84,11 +31,7 @@ pfp_activation_kernel(const float* __restrict__ mu,
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (i >= n) return;
-  if constexpr (KIND == kRelu) {
-    relu_moments(mu[i], var[i], &mean_out[i], &srm_out[i]);
-  } else {
-    gh_moments<KIND>(mu[i], var[i], &mean_out[i], &srm_out[i]);
-  }
+  pfp::activation_moments<KIND>(mu[i], var[i], &mean_out[i], &srm_out[i]);
 }
 
 template <int KIND>
@@ -97,6 +40,39 @@ void launch(const float* mu, const float* var, float* mean_out,
   const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
   pfp_activation_kernel<KIND><<<blocks, 256, 0, stream>>>(mu, var, mean_out,
                                                           srm_out, n);
+}
+
+// One thread per four consecutive elements. VEC: float4 loads and stores
+// for every full group of four (all pointers 16-byte aligned).
+template <bool VEC>
+__global__ void __launch_bounds__(256)
+pfp_glu_kernel(const float* __restrict__ mu_a, const float* __restrict__ srm_a,
+               const float* __restrict__ mu_b, const float* __restrict__ srm_b,
+               float* __restrict__ mu_out, float* __restrict__ srm_out,
+               long long n) {
+  const long long i = 4 * (static_cast<long long>(blockIdx.x) * blockDim.x +
+                           threadIdx.x);
+  if (i >= n) return;
+  if (VEC && i + 4 <= n) {
+    const float4 ma = *reinterpret_cast<const float4*>(mu_a + i);
+    const float4 sa = *reinterpret_cast<const float4*>(srm_a + i);
+    const float4 mb = *reinterpret_cast<const float4*>(mu_b + i);
+    const float4 sb = *reinterpret_cast<const float4*>(srm_b + i);
+    *reinterpret_cast<float4*>(mu_out + i) =
+        make_float4(ma.x * mb.x, ma.y * mb.y, ma.z * mb.z, ma.w * mb.w);
+    *reinterpret_cast<float4*>(srm_out + i) =
+        make_float4(sa.x * sb.x, sa.y * sb.y, sa.z * sb.z, sa.w * sb.w);
+    return;
+  }
+  const long long end = i + 4 < n ? i + 4 : n;
+  for (long long j = i; j < end; ++j) {
+    mu_out[j] = mu_a[j] * mu_b[j];
+    srm_out[j] = srm_a[j] * srm_b[j];
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -114,12 +90,36 @@ PFP_EXPORT int pfp_activation_launch(int kind, const void* mu,
   auto* os = static_cast<float*>(srm_out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (kind) {
-    case kRelu: launch<kRelu>(pm, pv, om, os, n, s); break;
-    case kGelu: launch<kGelu>(pm, pv, om, os, n, s); break;
-    case kSilu: launch<kSilu>(pm, pv, om, os, n, s); break;
-    case kTanh: launch<kTanh>(pm, pv, om, os, n, s); break;
-    case kSigmoid: launch<kSigmoid>(pm, pv, om, os, n, s); break;
+    case pfp::kRelu: launch<pfp::kRelu>(pm, pv, om, os, n, s); break;
+    case pfp::kGelu: launch<pfp::kGelu>(pm, pv, om, os, n, s); break;
+    case pfp::kSilu: launch<pfp::kSilu>(pm, pv, om, os, n, s); break;
+    case pfp::kTanh: launch<pfp::kTanh>(pm, pv, om, os, n, s); break;
+    case pfp::kSigmoid: launch<pfp::kSigmoid>(pm, pv, om, os, n, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return pfp::launch_status();
+}
+
+// (mu_a, srm_a) x (mu_b, srm_b) -> (mu_out, srm_out); n >= 1 contiguous
+// fp32 elements in each array.
+PFP_EXPORT int pfp_glu_launch(const void* mu_a, const void* srm_a,
+                              const void* mu_b, const void* srm_b,
+                              void* mu_out, void* srm_out, long long n,
+                              void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long threads = (n + 3) / 4;
+  const unsigned blocks = static_cast<unsigned>((threads + 255) / 256);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* ma = static_cast<const float*>(mu_a);
+  const auto* sa = static_cast<const float*>(srm_a);
+  const auto* mb = static_cast<const float*>(mu_b);
+  const auto* sb = static_cast<const float*>(srm_b);
+  auto* mo = static_cast<float*>(mu_out);
+  auto* so = static_cast<float*>(srm_out);
+  if (aligned16(ma) && aligned16(sa) && aligned16(mb) && aligned16(sb) &&
+      aligned16(mo) && aligned16(so))
+    pfp_glu_kernel<true><<<blocks, 256, 0, s>>>(ma, sa, mb, sb, mo, so, n);
+  else
+    pfp_glu_kernel<false><<<blocks, 256, 0, s>>>(ma, sa, mb, sb, mo, so, n);
   return pfp::launch_status();
 }

@@ -31,10 +31,16 @@ BUILD_INFO: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "pfp_dense_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "pfp_activation_launch": [_I, _P, _P, _P, _P, ctypes.c_longlong, _P],
+    "pfp_activation_launch": [_I, _P, _P, _P, _P, _L, _P],
+    "pfp_glu_launch": [_P, _P, _P, _P, _P, _P, _L, _P],
     "pfp_maxpool2d_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "pfp_norm_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "pfp_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _F, _I, _P],
 }
 
 

@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 
 LAUNCHES = {"dense": 0, "dense_first_layer": 0, "dense_var": 0,
-            "activation": 0, "maxpool2d": 0}
+            "activation": 0, "maxpool2d": 0, "rmsnorm": 0, "layernorm": 0,
+            "glu_product": 0, "attention": 0}
 
 
 def reset_launch_counts() -> None:

@@ -17,10 +17,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.pfp_activations import pfp_activation_cuda
+from repro_torch.kernels.pfp_activations import (pfp_activation_cuda,
+                                                 pfp_glu_cuda)
+from repro_torch.kernels.pfp_attention import pfp_attention_cuda
 from repro_torch.kernels.pfp_dense import (MODE_FIRST_LAYER, MODE_SRM,
                                            MODE_VAR, pfp_dense_cuda)
 from repro_torch.kernels.pfp_maxpool import pfp_maxpool2d_cuda
+from repro_torch.kernels.pfp_norms import pfp_norm_cuda
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -67,3 +70,42 @@ def pfp_maxpool2d(mu, var):
     if _on_cuda(mu):
         return pfp_maxpool2d_cuda(mu, var)
     return ref.pfp_maxpool2d_ref(mu, var)
+
+
+def pfp_rmsnorm(mu, second, gain, *, rep: str = "var", eps: float = 1e-6,
+                act=None):
+    """PFP RMSNorm over the last axis, any leading shape. Returns
+    (mean, var), or (mean, srm) with the activation epilogue ``act``."""
+    if _on_cuda(mu):
+        return pfp_norm_cuda(mu, second, gain, norm="rmsnorm", rep=rep,
+                             eps=eps, act=act)
+    return ref.pfp_rmsnorm_ref(mu, second, gain, rep=rep, eps=eps, act=act)
+
+
+def pfp_layernorm(mu, second, gain, bias=None, *, rep: str = "var",
+                  eps: float = 1e-6, act=None):
+    """PFP LayerNorm over the last axis, any leading shape. Returns
+    (mean, var), or (mean, srm) with the activation epilogue ``act``."""
+    if _on_cuda(mu):
+        return pfp_norm_cuda(mu, second, gain, bias, norm="layernorm",
+                             rep=rep, eps=eps, act=act)
+    return ref.pfp_layernorm_ref(mu, second, gain, bias, rep=rep, eps=eps,
+                                 act=act)
+
+
+def pfp_glu_product(mu_a, srm_a, mu_b, srm_b):
+    """Exact SRM product of independent Gaussians, any shape. Returns
+    (mean, srm)."""
+    if _on_cuda(mu_a):
+        return pfp_glu_cuda(mu_a, srm_a, mu_b, srm_b)
+    return ref.pfp_glu_ref(mu_a, srm_a, mu_b, srm_b)
+
+
+def pfp_attention(q_mu, k_mu, v_mu, v_var, *, scale: float,
+                  causal: bool = True):
+    """Mean-field PFP attention, q (B, H, Tq, D) x k, v (B, Hkv, Tk, D),
+    H % Hkv == 0, right-aligned causality. Returns (mean, var)."""
+    if _on_cuda(q_mu):
+        return pfp_attention_cuda(q_mu, k_mu, v_mu, v_var, scale=scale,
+                                  causal=causal)
+    return ref.pfp_attention_ref(q_mu, k_mu, v_mu, v_var, scale, causal)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import pfp_math
+from repro_torch.core.masking import attention_valid_mask, mask_scores
 
 _F32 = torch.float32
 
@@ -65,3 +66,72 @@ def pfp_maxpool2d_ref(mu, var):
     m, s = pfp_math.clark_max_moments(m_w[:, 0::2], v_w[:, 0::2],
                                       m_w[:, 1::2], v_w[:, 1::2])
     return m, torch.clamp(s - torch.square(m), min=0.0)
+
+
+def _var_srm(mu, second, rep):
+    if rep == "var":
+        return second, second + torch.square(mu)
+    if rep == "srm":
+        return second - torch.square(mu), second
+    raise ValueError(f"unknown rep {rep!r}")
+
+
+def _epilogue(mean, var, act):
+    """The optional activation after a norm: VAR -> SRM."""
+    if act is None:
+        return mean, var
+    return pfp_activation_ref(mean, var, act)
+
+
+def pfp_rmsnorm_ref(mu, second, gain, *, rep: str = "var", eps: float = 1e-6,
+                    act=None):
+    """Delta-method RMSNorm over the last axis: (mean, var) out, or
+    (mean, srm) after the activation ``act``."""
+    mu, second = mu.to(_F32), second.to(_F32)
+    var, srm = _var_srm(mu, second, rep)
+    norm = torch.rsqrt(torch.mean(srm, dim=-1, keepdim=True) + eps)
+    scale = norm * gain.to(_F32)
+    return _epilogue(mu * scale, var * torch.square(scale), act)
+
+
+def pfp_layernorm_ref(mu, second, gain, bias=None, *, rep: str = "var",
+                      eps: float = 1e-6, act=None):
+    """Delta-method LayerNorm over the last axis, the token spread in its
+    centred form: (mean, var) out, or (mean, srm) after ``act``."""
+    mu, second = mu.to(_F32), second.to(_F32)
+    var, _ = _var_srm(mu, second, rep)
+    mu_tok = torch.mean(mu, dim=-1, keepdim=True)
+    spread = torch.mean(var + torch.square(mu - mu_tok), dim=-1, keepdim=True)
+    scale = torch.rsqrt(spread + eps) * gain.to(_F32)
+    mean = (mu - mu_tok) * scale
+    if bias is not None:
+        mean = mean + bias.to(_F32)
+    return _epilogue(mean, var * torch.square(scale), act)
+
+
+def pfp_glu_ref(mu_a, srm_a, mu_b, srm_b):
+    """Exact SRM product of independent Gaussians: (mean, srm) out."""
+    return pfp_math.product_srm(mu_a.to(_F32), srm_a.to(_F32),
+                                mu_b.to(_F32), srm_b.to(_F32))
+
+
+def pfp_attention_ref(q_mu, k_mu, v_mu, v_var, scale: float,
+                      causal: bool = True):
+    """Mean-field PFP attention, q (B, H, Tq, D) x kv (B, Hkv, Tk, D).
+
+    Query head h reads KV head h // (H / Hkv) (kv-major grouping). Causality
+    is right-aligned: query row i sits at position i + Tk - Tq. A query row
+    with no valid key comes out 0, as in the flash kernel (its normaliser
+    is 0 and is clamped), not as a uniform average."""
+    group = q_mu.shape[1] // k_mu.shape[1]
+    k_mu, v_mu, v_var = (a.to(_F32).repeat_interleave(group, dim=1)
+                         for a in (k_mu, v_mu, v_var))
+    s = torch.einsum("bhqd,bhkd->bhqk", q_mu.to(_F32), k_mu) * scale
+    tq, tk = s.shape[-2], s.shape[-1]
+    q_idx = torch.arange(tq, device=s.device)[:, None] + (tk - tq)
+    valid = attention_valid_mask(q_idx, torch.arange(tk, device=s.device),
+                                 causal=causal)
+    p = torch.softmax(mask_scores(s, valid), dim=-1) * valid
+    out_mu = torch.einsum("bhqk,bhkd->bhqd", p, v_mu)
+    out_var = torch.einsum("bhqk,bhkd->bhqd", torch.square(p), v_var)
+    return out_mu, out_var

@@ -3,8 +3,8 @@
 Counterpart of ``repro/models/simple.py``. Both run DETERMINISTIC and PFP
 over one set of Bayesian leaves; images are NHWC and conv weights HWIO at
 the public functions, as in the reference. Random initialisation draws
-from a CPU ``torch.Generator`` (a fresh one seeded with 0 when none is
-given) and the weights are then moved to ``device``.
+from a ``torch.Generator`` (a fresh CPU one seeded with 0 when none is
+given) on its own device, and the weights are then moved to ``device``.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import dispatch
-from repro_torch.core.device import DeviceLike, cpu_generator, resolve_device
+from repro_torch.core.device import DeviceLike, init_generator, resolve_device
 from repro_torch.core.gaussian import GaussianTensor, is_gaussian
 from repro_torch.nn.layers import activation_apply, bias_init, dense_init
 from repro_torch.nn.module import BayesParam, Context, init_bayes, resolve_weight
@@ -35,7 +35,7 @@ class MLP(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device: DeviceLike = None):
         super().__init__()
-        g = cpu_generator(generator)
+        g = init_generator(generator)
         dims = [d_in] + [d_hidden] * num_hidden + [d_out]
         self.num_hidden = num_hidden
         for i in range(num_hidden + 1):
@@ -100,7 +100,7 @@ class LeNet5(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device: DeviceLike = None):
         super().__init__()
-        g = cpu_generator(generator)
+        g = init_generator(generator)
         kw = dict(sigma_init=sigma_init, generator=g, device=device)
         self.conv0 = conv_init(5, 5, in_channels, 6, **kw)
         self.conv1 = conv_init(5, 5, 6, 16, **kw)

@@ -9,9 +9,10 @@ leaf flavours:
   converted PFP (VAR): ``mu``, ``var``
 
 so a model's buffer names are the reference's parameter paths
-(``dense0.w.mu``, ``conv1.b.rho``, ...). ``resolve_weight`` turns a leaf
-into what the active mode needs: a tensor (DETERMINISTIC) or a
-:class:`GaussianTensor` (PFP).
+(``dense0.w.mu``, ``conv1.b.rho``, ...). Deterministic leaves (norm gains
+``g``, LayerNorm biases ``b``) are plain buffers of the layer module.
+``resolve_weight`` turns a leaf into what the active mode needs: a tensor
+(DETERMINISTIC) or a :class:`GaussianTensor` (PFP).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.core.device import DeviceLike, cpu_generator, resolve_device
+from repro_torch.core.device import DeviceLike, init_generator, resolve_device
 from repro_torch.core.gaussian import SRM, VAR, GaussianTensor
 from repro_torch.core.modes import Mode
 
@@ -64,6 +65,7 @@ class Context:
 
     mode: Mode
     formulation: str = "srm"          # 'srm' (Eq. 12) | 'var' (Eq. 7)
+    attention_mode: str = "mean_field"  # | 'variance_corrected'
     # 'eager' | 'kernel' | None (core/dispatch.py's DEFAULT_IMPL, 'kernel').
     impl: Optional[str] = None
     device: DeviceLike = None         # None: the CUDA card
@@ -107,34 +109,57 @@ def init_bayes(shape, *, generator: Optional[torch.Generator] = None,
                dtype=torch.float32, device: DeviceLike = None) -> BayesParam:
     """Variational Gaussian weight. Default: mu from a normal truncated at
     +-2 and scaled by fan_in**-0.5; sigma = sigma_init (the paper's 1e-4).
-    Draws from a CPU ``generator``, then moves to ``device``."""
+    Draws on the device of ``generator`` (a CPU one seeded with 0 when none
+    is given), then moves to ``device``."""
     device = resolve_device(device)
     shape = tuple(shape)
     if mu_init is not None:
-        mu = torch.full(shape, mu_init, dtype=dtype)
+        mu = torch.full(shape, mu_init, dtype=dtype, device=device)
     else:
         if scale is None:
             scale = (fan_in if fan_in is not None else shape[0]) ** -0.5
-        mu = torch.empty(shape, dtype=dtype)
-        nn.init.trunc_normal_(mu, 0.0, 1.0, -2.0, 2.0,
-                              generator=cpu_generator(generator))
-        mu = mu * scale
-    rho = torch.full(shape, math.log(sigma_init), dtype=dtype)
-    return BayesParam(mu=mu.to(device), rho=rho.to(device))
+        g = init_generator(generator)
+        mu = torch.empty(shape, dtype=dtype, device=g.device)
+        nn.init.trunc_normal_(mu, 0.0, 1.0, -2.0, 2.0, generator=g)
+        mu = mu.mul_(scale).to(device)
+    rho = torch.full(shape, math.log(sigma_init), dtype=dtype, device=device)
+    return BayesParam(mu=mu, rho=rho)
 
 
 def load_numpy_params(module: nn.Module, tree: Mapping) -> nn.Module:
     """Fill ``module`` from the reference's parameter tree: nested dicts of
-    numpy arrays with ``{'mu','rho'}``, ``{'mu','srm'}`` or ``{'mu','var'}``
-    leaves. Each leaf replaces the module's :class:`BayesParam` of the same
-    path (on the same device), so the key set follows the tree. Returns
-    ``module``."""
+    numpy arrays.
+
+    * A ``{'mu','rho'}``, ``{'mu','srm'}`` or ``{'mu','var'}`` leaf replaces
+      the module's :class:`BayesParam` of the same path (on the same
+      device), so the key set follows the tree.
+    * A plain array (a norm gain ``g``, a LayerNorm bias ``b``) replaces the
+      buffer of that name.
+    * Under an ``nn.ModuleList`` child the tree is stacked, as the
+      reference stacks scanned layer groups (``params['stack']``): every
+      array carries a leading axis of the list's length, and entry ``i``
+      fills the list's module ``i``.
+
+    Returns ``module``."""
     children = dict(module.named_children())
-    if set(tree) != set(children):
+    buffers = dict(module.named_buffers(recurse=False))
+    if set(tree) != set(children) | set(buffers):
         raise KeyError(f"tree has {sorted(tree)}, module has "
-                       f"{sorted(children)}")
+                       f"{sorted(set(children) | set(buffers))}")
     for name, sub in tree.items():
+        if name in buffers:
+            old = buffers[name]
+            new = torch.tensor(np.asarray(sub), device=old.device)
+            if new.shape != old.shape:
+                raise ValueError(f"{name}: shape {tuple(new.shape)} vs "
+                                 f"{tuple(old.shape)}")
+            setattr(module, name, new)
+            continue
         child = children[name]
+        if isinstance(child, nn.ModuleList):
+            for i, layer in enumerate(child):
+                load_numpy_params(layer, _layer_of(sub, i, len(child)))
+            continue
         if not is_bayes_leaf(sub):
             load_numpy_params(child, sub)
             continue
@@ -148,3 +173,13 @@ def load_numpy_params(module: nn.Module, tree: Mapping) -> nn.Module:
                              f"vs {tuple(child.shape)}")
         setattr(module, name, BayesParam(**tensors))
     return module
+
+
+def _layer_of(tree, i: int, n: int):
+    """Entry ``i`` of a stacked tree whose arrays lead with an axis of n."""
+    if isinstance(tree, Mapping):
+        return {k: _layer_of(v, i, n) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if arr.ndim == 0 or arr.shape[0] != n:
+        raise ValueError(f"stacked leaf of shape {arr.shape} for {n} layers")
+    return arr[i]
