@@ -94,6 +94,7 @@ LIBRARY = {
     "dense": "torch.bmm of the stacked fp32 operand pairs (products only)",
     "dense_first_layer": "torch.bmm of the stacked fp32 operand pairs",
     "dense_var": "torch.bmm of the stacked fp32 operand pairs",
+    "glu_product": "torch.mul of the stacked (mu, srm) operand pairs",
     "attention": "scaled_dot_product_attention on the means: mean half only",
 }
 
@@ -307,14 +308,20 @@ def library_call(kernel, args):
     kernels: one fp32 torch.bmm (TF32 off) over the stacked operand pairs of
     the formulation, without the final elementwise combine. For attention:
     scaled_dot_product_attention on the means, which is the mean half only
-    (no variance output). No single call computes a PFP norm or the GLU
-    pair of products."""
+    (no variance output). For the GLU: one torch.mul of the stacked
+    (mu, srm) pairs. No single call computes a PFP norm: F.rms_norm and
+    F.layer_norm have no delta-method variance."""
     import torch
     if kernel == "attention":
         q, k, vm, _, scale, causal = args
         sdpa = torch.nn.functional.scaled_dot_product_attention
         return lambda: sdpa(q, k, vm, is_causal=causal, scale=scale,
                             enable_gqa=True)
+    if kernel == "glu_product":
+        mu_a, srm_a, mu_b, srm_b = args
+        a = torch.stack([mu_a, srm_a])
+        b = torch.stack([mu_b, srm_b])
+        return lambda: torch.mul(a, b)
     if not kernel.startswith("dense"):
         return None
     xa, xb, wa, wb = args
@@ -512,7 +519,7 @@ def lm_kernel_checks(device, errs):
                   (2, 4, 2, 37, 37, dh, True),      # ragged
                   (2, 4, 2, 5, 37, dh, True),       # Tq < Tk
                   (2, 4, 2, 37, 37, 16, True),      # reduced head_dim
-                  (2, 4, 2, 37, 16, 64, True)):     # rows without a key
+                  (2, 4, 2, 37, 16, dh, True)):     # rows without a key
         seed += 1
         args = operands("attention", shape, seed, device)
         got = run_kernel("attention", args)

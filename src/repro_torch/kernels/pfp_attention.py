@@ -15,7 +15,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._launch import LAUNCHES, cuda_operands, stream_ptr
 from repro_torch.kernels.ref import pfp_attention_ref  # noqa: F401
 
-HEAD_DIMS = (16, 64, 128, 256)
+# The reduced test config and granite-8b; 64 (musicgen) and 256 (gemma)
+# come with the paths that serve those models.
+HEAD_DIMS = (16, 128)
 
 
 def pfp_attention_cuda(q_mu, k_mu, v_mu, v_var, *, scale: float,

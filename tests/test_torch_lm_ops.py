@@ -390,8 +390,8 @@ def test_glu_kernel_matches_plain_on_card(cuda, shape):
 @pytest.mark.parametrize("b,h,hkv,tq,tk,d,causal", [
     (4, 32, 8, 512, 512, 128, True), (4, 32, 8, 512, 512, 128, False),
     (2, 4, 2, 37, 37, 16, True), (2, 4, 2, 5, 37, 128, True),
-    (2, 4, 2, 37, 16, 64, True), (1, 2, 1, 70, 70, 256, True),
-    (2, 4, 4, 33, 33, 64, False),
+    (2, 4, 2, 37, 16, 128, True), (1, 2, 1, 70, 70, 16, True),
+    (2, 4, 4, 33, 33, 128, False),
 ])
 def test_attention_kernel_matches_plain_on_card(cuda, b, h, hkv, tq, tk, d,
                                                 causal):
