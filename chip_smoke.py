@@ -24,18 +24,35 @@ Phases, each printing its own lines; any failure exits non-zero:
               position. The logits are held against impl="eager", and the
               norm, GLU, attention, dense and activation kernels must have
               launched during this phase
-  6. times  : device times (CUDA graph replays between CUDA events) of
-              each kernel at batch 10, 100 and 1024 and at the LM's shapes,
-              beside its plain version, a one-call PyTorch yardstick and its
+  6. decode : granite-8b at the same width serves DECODE_REQUESTS requests
+              (prompts of 256-512 token ids, 16-32 new tokens, both drawn
+              from --seed) through DECODE_SLOTS slots with impl="kernel":
+              the Batcher fills and evicts the slots, greedy tokens come
+              with their MI and abstain flag from uncertainty_decode. Run
+              twice: on DecodeStatePool (each prompt prefilled on its own,
+              then lockstep decode with per-slot positions and cache_len)
+              and on PagedDecodeStatePool (page size 16, prompts prefilled
+              in chunks of 128 through decode_step and the page table).
+              Both runs must give the same tokens and bit-identical
+              last-step logits, launch the cache and paged attention
+              kernels, keep the pools' invariants and leave no slot or page
+              live; teacher-forced decode logits are held against
+              impl="eager"
+  7. times  : device times (CUDA graph replays between CUDA events) of
+              each kernel at batch 10, 100 and 1024 and at the LM's shapes
+              (the cache kernels at a decode and a prefill shape), beside
+              its plain version, a one-call PyTorch yardstick and its
               bound, plus its time per eager call; whole-model forwards,
               eager and captured in a CUDA graph
-  7. profile: torch.profiler over each model's forwards: device busy share
-              and the kernels that take the device time
+  8. profile: torch.profiler over each model's forwards and one decode
+              step: device busy share and the kernels that take the device
+              time
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and a last JSON line ``{"ok": true, "device": {...}}``. Full numbers go to
 chiprun_out/chip_smoke.json.
 """
+import argparse
 import json
 import re
 import subprocess
@@ -68,6 +85,32 @@ LM_BATCH, LM_SEQ, LM_REQUESTS = 4, 512, 2
 CNN_KERNELS = ("dense", "dense_first_layer", "dense_var", "activation",
                "maxpool2d")
 LM_KERNELS = ("dense", "activation", "rmsnorm", "glu_product", "attention")
+# The decode phase: DECODE_REQUESTS requests through DECODE_SLOTS slots of
+# DECODE_MAX_LEN cache rows, on the contiguous and on the paged pool.
+DECODE_SLOTS, DECODE_REQUESTS, DECODE_MAX_LEN = 4, 8, 1024
+PROMPT_LENS, NEW_TOKENS = (256, 512), (16, 32)
+PAGE_SIZE, PREFILL_CHUNK = 16, 128
+TEACHER_FORCED = (2, 8)   # requests, tokens fed after the prompt
+DECODE_KERNELS = ("dense", "activation", "rmsnorm", "glu_product",
+                  "attention_cache", "attention_paged")
+CACHE_KERNELS = ("attention_cache", "attention_paged")
+# Cache attention shapes: (B, H, Hkv, Tq, S, D, q_start, kv_len, window);
+# a paged shape appends the page size. S is the cache length (the logical
+# one when paged).
+CACHE_DECODE = (4, 32, 8, 1, 1024, 128, (0, 340, 681, 1023),
+                (1, 341, 682, 1024), None)
+CACHE_PREFILL = (4, 32, 8, 512, 1024, 128, (0, 256, 0, 256),
+                 (512, 768, 512, 768), None)
+CACHE_CHECKS = {
+    "decode": CACHE_DECODE,
+    "prefill chunk": CACHE_PREFILL,
+    "window": (4, 32, 8, 64, 1024, 128, (100, 500, 0, 900),
+               (164, 564, 64, 964), 128),
+    "kv_len 0": (4, 32, 8, 1, 1024, 128, (0, 10, 0, 500), (0, 11, 0, 501),
+                 None),
+    "head_dim 16": (2, 4, 2, 7, 100, 16, (0, 50), (7, 57), None),
+}
+CHECK_PAGE_SIZES = (1, 16, 24)
 
 KERNELS = {
     "dense": ("src/repro_torch/csrc/pfp_dense.cu",
@@ -88,6 +131,10 @@ KERNELS = {
                   "src/repro/kernels/pfp_norms.py:101"),
     "attention": ("src/repro_torch/csrc/pfp_attention.cu",
                   "src/repro/kernels/pfp_attention.py:171"),
+    "attention_cache": ("src/repro_torch/csrc/pfp_attention.cu",
+                        "src/repro/kernels/pfp_attention.py:345"),
+    "attention_paged": ("src/repro_torch/csrc/pfp_attention.cu",
+                        "src/repro/kernels/pfp_attention.py:420"),
 }
 # What ``library_ms`` times, where one PyTorch call computes the same work.
 LIBRARY = {
@@ -96,6 +143,10 @@ LIBRARY = {
     "dense_var": "torch.bmm of the stacked fp32 operand pairs",
     "glu_product": "torch.mul of the stacked (mu, srm) operand pairs",
     "attention": "scaled_dot_product_attention on the means: mean half only",
+    "attention_cache": "scaled_dot_product_attention on the means with a "
+                       "boolean mask: mean half only",
+    "attention_paged": "none: no single call (a gather of the pages and "
+                       "SDPA are two)",
 }
 
 
@@ -170,9 +221,33 @@ def _valid_pairs(tq, tk, causal):
     return sum(min(tk, max(0, i + tk - tq + 1)) for i in range(tq))
 
 
+def _cache_pairs(shape):
+    """For the cache kernels: (keys read, valid (query row, key) pairs)
+    over the batch, from this shape's q_start, kv_len and window. A key
+    is read if it is valid for some query row of its batch row."""
+    _, _, _, tq, s, _, q_start, kv_len, window = shape[:9]
+    keys = pairs = 0
+    for qs, kl in zip(q_start, kv_len):
+        kl = min(max(kl, 0), s)
+        first = 0 if window is None else max(0, qs - window + 1)
+        keys += max(0, min(kl, qs + tq) - first)
+        for pos in range(qs, qs + tq):
+            lo = 0 if window is None else max(0, pos - window + 1)
+            pairs += max(0, min(kl, pos + 1) - lo)
+    return keys, pairs
+
+
 def work(kernel, shape):
     """(bytes, fp32 operations) the function needs: each input read once,
-    each output written once; attention counts the valid scores only."""
+    each output written once; attention counts the valid scores only, and
+    the cache kernels the K / V rows that some query row can see."""
+    if kernel in CACHE_KERNELS:
+        b, h, hkv, tq, s, d = shape[:6]
+        keys, pairs = _cache_pairs(shape)
+        nbytes = 4 * (3 * b * h * tq * d + 3 * hkv * keys * d + 2 * b)
+        if kernel == "attention_paged":
+            nbytes += 4 * b * -(-s // shape[9])   # the page table
+        return nbytes, h * pairs * (6 * d + SOFTMAX_OPS_PER_SCORE)
     if kernel == "attention":
         b, h, hkv, tq, tk, d, causal = shape
         nbytes = 4 * (3 * b * h * tq * d + 3 * b * hkv * tk * d)
@@ -227,9 +302,47 @@ def gaussian(shape, seed, device, scale=1.0):
     return mu.to(device), var.to(device)
 
 
+def paged_from_cache(caches, kv_len, ps, seed, device):
+    """Shuffled page pools holding the rows of contiguous caches
+    (B, Hkv, S, D): logical page j of batch b at pool row table[b, j];
+    table slots past a row's kv_len point at the trash page 0, and page 0
+    and two spare pages hold junk. Returns (pools, table)."""
+    import torch
+    b, hkv, s, d = caches[0].shape
+    p = -(-s // ps)
+    used = torch.zeros((b, p), dtype=torch.bool)
+    for bi, n in enumerate(kv_len):
+        used[bi, :(n + ps - 1) // ps] = True
+    g = torch.Generator().manual_seed(seed)
+    n_used = int(used.sum())
+    table = torch.zeros((b, p), dtype=torch.int32)
+    table[used] = (torch.randperm(n_used + 2, generator=g)[:n_used] + 1).int()
+    table, used = table.to(device), used.to(device)
+    pools = []
+    for cache in caches:
+        rows = torch.nn.functional.pad(cache, (0, 0, 0, p * ps - s))
+        pages = rows.reshape(b, hkv, p, ps, d).transpose(1, 2)
+        pool = torch.randn((n_used + 3, hkv, ps, d), generator=g).to(device)
+        pool[table[used].long()] = pages[used]
+        pools.append(pool)
+    return pools, table
+
+
 def operands(kernel, shape, seed, device):
     """Kernel arguments on ``device`` for one call."""
     import torch
+    if kernel in CACHE_KERNELS:
+        b, h, hkv, tq, s, d, q_start, kv_len, window = shape[:9]
+        q, _ = gaussian((b, h, tq, d), seed, device)
+        k, _ = gaussian((b, hkv, s, d), seed + 1, device)
+        vm, vv = gaussian((b, hkv, s, d), seed + 2, device)
+        ints = [torch.tensor(v, dtype=torch.int32, device=device)
+                for v in (q_start, kv_len)]
+        if kernel == "attention_cache":
+            return (q, k, vm, vv, *ints, d ** -0.5, window)
+        pools, table = paged_from_cache((k, vm, vv), kv_len, shape[9],
+                                        seed + 3, device)
+        return (q, *pools, table, *ints, d ** -0.5, window)
     if kernel == "attention":
         b, h, hkv, tq, tk, d, causal = shape
         q, _ = gaussian((b, h, tq, d), seed, device)
@@ -279,6 +392,12 @@ def run_kernel(kernel, args):
         return ops.pfp_glu_product(*args)
     if kernel == "attention":
         return ops.pfp_attention(*args[:4], scale=args[4], causal=args[5])
+    if kernel == "attention_cache":
+        return ops.pfp_attention_cache(*args[:6], scale=args[6],
+                                       window=args[7])
+    if kernel == "attention_paged":
+        return ops.pfp_attention_paged(*args[:7], scale=args[7],
+                                       window=args[8])
     return ops.pfp_maxpool2d(*args)
 
 
@@ -300,6 +419,10 @@ def run_plain(kernel, args):
         return ref.pfp_glu_ref(*args)
     if kernel == "attention":
         return ref.pfp_attention_ref(*args)
+    if kernel == "attention_cache":
+        return ref.pfp_attention_cache_ref(*args[:7], window=args[7])
+    if kernel == "attention_paged":
+        return ref.pfp_attention_paged_ref(*args[:8], window=args[8])
     return ref.pfp_maxpool2d_ref(*args)
 
 
@@ -309,9 +432,23 @@ def library_call(kernel, args):
     the formulation, without the final elementwise combine. For attention:
     scaled_dot_product_attention on the means, which is the mean half only
     (no variance output). For the GLU: one torch.mul of the stacked
-    (mu, srm) pairs. No single call computes a PFP norm: F.rms_norm and
-    F.layer_norm have no delta-method variance."""
+    (mu, srm) pairs. For the KV-cache kernel: the same SDPA with a boolean
+    mask of the valid (query, key) pairs. No single call computes a PFP
+    norm (F.rms_norm and F.layer_norm have no delta-method variance) or
+    paged attention (a gather of the pages and SDPA are two)."""
     import torch
+    if kernel == "attention_cache":
+        q, k, vm, _, q_start, kv_len, scale, window = args
+        tq, s = q.shape[2], k.shape[2]
+        pos = q_start[:, None] + torch.arange(tq, device=q.device)
+        j = torch.arange(s, device=q.device)
+        mask = (j <= pos[..., None]) & (j < kv_len[:, None, None])
+        if window is not None:
+            mask &= j > pos[..., None] - window
+        mask = mask[:, None]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        return lambda: sdpa(q, k, vm, attn_mask=mask, scale=scale,
+                            enable_gqa=True)
     if kernel == "attention":
         q, k, vm, _, scale, causal = args
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -472,6 +609,7 @@ def phase_kernels(device):
               f"{_max_err(got, want):.3e}")
     cancellation_check(device)
     lm_kernel_checks(device, errs)
+    cache_kernel_checks(device, errs)
     layernorm_offset_check(device)
     return errs
 
@@ -529,6 +667,45 @@ def lm_kernel_checks(device, errs):
         if causal and tq > tk and float(got[0][:, :, :tq - tk].abs().max()
                                         + got[1][:, :, :tq - tk].abs().max()):
             fail(f"attention{shape}: rows without a valid key are not 0")
+
+
+def cache_kernel_checks(device, errs):
+    """The KV-cache kernel against its plain version at each shape of
+    CACHE_CHECKS, and the paged kernel at page sizes 1, 16 and 24 (shuffled
+    pages, trash-page padding) against its plain version and, bit for bit,
+    against the cache kernel on the same keys; updates ``errs``."""
+    import torch
+    for seed, (label, shape) in enumerate(CACHE_CHECKS.items(), start=700):
+        args = operands("attention_cache", shape, seed, device)
+        got = run_kernel("attention_cache", args)
+        torch.cuda.synchronize()
+        want = run_plain("attention_cache", args)
+        _check_close(f"attention_cache[{label}]", got, want, NORM_TOL)
+        err = _max_err(got, want)
+        errs["attention_cache"] = max(errs["attention_cache"], err)
+        dead = args[5] == 0
+        if dead.any() and float(got[0][dead].abs().max()
+                                + got[1][dead].abs().max()):
+            fail(f"attention_cache[{label}]: a slot without keys is not 0")
+        print(f"[kernels] attention_cache    {label:44s} max_abs_err "
+              f"{err:.3e}")
+        for ps in CHECK_PAGE_SIZES:
+            pools, table = paged_from_cache(args[1:4], shape[7], ps, seed,
+                                            device)
+            pargs = (args[0], *pools, table, *args[4:])
+            paged = run_kernel("attention_paged", pargs)
+            torch.cuda.synchronize()
+            want = run_plain("attention_paged", pargs)
+            _check_close(f"attention_paged[{label}, ps {ps}]", paged, want,
+                         NORM_TOL)
+            perr = _max_err(paged, want)
+            errs["attention_paged"] = max(errs["attention_paged"], perr)
+            same = all(torch.equal(a, c) for a, c in zip(paged, got))
+            if not same:
+                fail(f"attention_paged[{label}, ps {ps}] differs from the "
+                     f"cache kernel on the same keys")
+            print(f"[kernels] attention_paged    {label + f', ps {ps}':44s} "
+                  f"max_abs_err {perr:.3e}, bitwise the cache kernel's")
 
 
 def layernorm_offset_check(device):
@@ -768,6 +945,296 @@ def phase_lm(device):
     return launches, info, cfg, model
 
 
+def _decode_requests(cfg, seed):
+    """DECODE_REQUESTS requests: prompt lengths, new-token counts and token
+    ids drawn from ``seed``."""
+    import numpy as np
+    from repro_torch.serving.batcher import Request
+    rng = np.random.default_rng(seed)
+    out = []
+    for uid in range(DECODE_REQUESTS):
+        n = int(rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1))
+        out.append(Request(
+            uid=uid, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+            max_new_tokens=int(rng.integers(NEW_TOKENS[0],
+                                            NEW_TOKENS[1] + 1))))
+    return out
+
+
+class _Timer:
+    """CUDA-event pairs around device work; ``ms()`` after a sync."""
+
+    def __init__(self):
+        self.pairs = []
+
+    def __enter__(self):
+        import torch
+        self.pairs.append((torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)))
+        self.pairs[-1][0].record()
+
+    def __exit__(self, *exc):
+        self.pairs[-1][1].record()
+
+    def ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.pairs]
+
+
+def _serve(cfg, model, requests, device, paged, seed):
+    """Serve ``requests`` through DECODE_SLOTS slots with impl="kernel":
+    the Batcher admits into free slots, each admission is prefilled (the
+    whole prompt in one pass on the contiguous pool; chunks of
+    PREFILL_CHUNK through decode_step on the paged one), then every live
+    slot decodes one token per lockstep step. Returns the run's record."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.core.modes import Mode
+    from repro_torch.models import lm
+    from repro_torch.nn.module import Context
+    from repro_torch.serving.batcher import Batcher
+    from repro_torch.serving.decode import uncertainty_decode
+    from repro_torch.serving.engine import (DecodeStatePool,
+                                            PagedDecodeStatePool)
+
+    ctx = Context(mode=Mode.PFP, impl="kernel", device=device)
+    if paged:
+        pool = PagedDecodeStatePool(cfg, DECODE_SLOTS, DECODE_MAX_LEN,
+                                    PAGE_SIZE, device=device)
+    else:
+        pool = DecodeStatePool(cfg, DECODE_SLOTS, DECODE_MAX_LEN,
+                               device=device)
+    batcher = Batcher(DECODE_SLOTS, DECODE_MAX_LEN)
+    for req in requests:
+        batcher.submit(copy.deepcopy(req))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    last_token = np.zeros(DECODE_SLOTS, np.int64)
+    prefill_t, step_t = _Timer(), _Timer()
+    finished, steps, last_logits = [], 0, None
+
+    def record(slot, out, row):
+        done = batcher.record(slot, int(out.token[row]),
+                              float(out.mutual_info[row]),
+                              bool(out.abstain[row]))
+        last_token[slot] = int(out.token[row])
+        if done is not None:
+            pool.evict(slot)
+            finished.append(done)
+
+    def prefill(slot, prompt):
+        n = len(prompt)
+        if not paged:
+            last, sub = lm.prefill(model, cfg, {"tokens": prompt[None]}, ctx,
+                                   DECODE_MAX_LEN)
+            pool.write_slot(slot, sub)
+            return last
+        for c0 in range(0, n, PREFILL_CHUNK):
+            chunk = np.zeros((1, PREFILL_CHUNK), np.int32)
+            part = prompt[c0:c0 + PREFILL_CHUNK]
+            chunk[0, :len(part)] = part
+            end = c0 + len(part)
+            if not pool.ensure_capacity(slot, end):
+                fail("decode: the page pool ran out of pages")
+            logits, pool.states = lm.decode_step(model, cfg, {
+                "tokens": chunk,
+                "positions": (c0 + np.arange(PREFILL_CHUNK))[None],
+                "cache_len": np.asarray([end]),
+                "page_table": pool.device_table(np.asarray([slot])),
+            }, pool.states, ctx)
+        i = (n - 1) % PREFILL_CHUNK
+        return type(logits)(logits.mean[:, i:i + 1], logits.second[:, i:i + 1],
+                            logits.rep)
+
+    while not batcher.idle:
+        for slot, req in batcher.fill_slots():
+            if pool.alloc(req.uid) != slot:
+                fail("decode: pool and batcher disagree on the slot")
+            with prefill_t:
+                last = prefill(slot, req.prompt)
+            pool.positions[slot] = len(req.prompt)
+            record(slot, uncertainty_decode(last.mean, last.var, gen), 0)
+        live = [slot for slot, _ in batcher.active()]
+        if not live:
+            continue
+        positions = np.asarray(pool.positions, np.int64)
+        active = np.zeros(DECODE_SLOTS, bool)
+        active[live] = True
+        inputs = {"tokens": np.where(active, last_token, 0)[:, None],
+                  "positions": np.where(active, positions, 0)[:, None],
+                  "cache_len": np.where(active, positions + 1, 0)}
+        if paged:
+            for slot in live:
+                if not pool.ensure_capacity(slot, int(positions[slot]) + 1):
+                    fail("decode: the page pool ran out of pages")
+            inputs["page_table"] = pool.device_table()
+        with step_t:
+            logits, pool.states = lm.decode_step(model, cfg, inputs,
+                                                 pool.states, ctx)
+        steps += 1
+        out = uncertainty_decode(logits.mean, logits.var, gen)
+        last_logits = (logits.mean.clone(), logits.var.clone())
+        for slot in live:
+            pool.positions[slot] += 1
+            record(slot, out, slot)
+        pool.check_invariants()
+    pool.check_invariants()
+    if pool.live or (paged and pool.live_pages):
+        fail(f"decode: slots {pool.live} / pages "
+             f"{pool.live_pages if paged else 0} live after the drain")
+    return {"pool": "paged" if paged else "contiguous",
+            "finished": sorted(finished, key=lambda r: r.uid),
+            "steps": steps, "prefill_ms": prefill_t.ms(),
+            "step_ms": step_t.ms(), "last_logits": last_logits}
+
+
+def _teacher_forced(cfg, model, requests, device):
+    """Prefill and TEACHER_FORCED[1] fed tokens of the first
+    TEACHER_FORCED[0] requests under both impls: max abs error of the
+    kernel impl's logits against the eager impl's, (mean, var)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.modes import Mode
+    from repro_torch.models import lm
+    from repro_torch.nn.module import Context
+    errs = [0.0, 0.0]
+    n_req, n_tok = TEACHER_FORCED
+    for req in requests[:n_req]:
+        fed = np.asarray(req.generated[:n_tok], np.int64)
+        outs = {}
+        for impl in ("kernel", "eager"):
+            ctx = Context(mode=Mode.PFP, impl=impl, device=device)
+            last, states = lm.prefill(model, cfg,
+                                      {"tokens": req.prompt[None]}, ctx,
+                                      DECODE_MAX_LEN)
+            logits = [last]
+            for i, tok in enumerate(fed):
+                pos = len(req.prompt) + i
+                step, states = lm.decode_step(
+                    model, cfg, {"tokens": np.asarray([[tok]]),
+                                 "positions": np.asarray([[pos]])},
+                    states, ctx)
+                logits.append(step)
+            outs[impl] = logits
+        for got, want in zip(outs["kernel"], outs["eager"]):
+            for i, part in enumerate(("mean", "var")):
+                g, w = getattr(got, part), getattr(want, part)
+                rtol, atol = MODEL_TOL[part]
+                if not torch.isfinite(g).all() or \
+                        not torch.allclose(g, w, rtol=rtol, atol=atol):
+                    fail(f"decode uid {req.uid}: kernel vs eager {part} "
+                         f"logits, max abs err "
+                         f"{float((g - w).abs().max()):.3e}")
+                errs[i] = max(errs[i], float((g - w).abs().max()))
+    return errs
+
+
+def phase_decode(device, cfg, model, seed):
+    """The decode path through both pools; launch counts per run, the
+    paged-vs-contiguous and kernel-vs-eager checks, times and a profile of
+    one decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.core.modes import Mode
+    from repro_torch.kernels._launch import LAUNCHES, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.nn.module import Context
+
+    requests = _decode_requests(cfg, seed)
+    # Every decode step streams each dense weight's mean and SRM once (the
+    # embedding is gathered, not streamed): the dense kernels' bound.
+    weight_bytes = 8 * (cfg.param_count() - cfg.vocab_size * cfg.d_model)
+    print(f"[decode] a decode step reads {weight_bytes / 1e9:.3f} GB of "
+          f"dense weight means and SRMs: bound "
+          f"{weight_bytes / PEAK_BYTES * 1e3:.4f} ms")
+    print(f"[decode] {DECODE_REQUESTS} requests, prompts "
+          f"{[len(r.prompt) for r in requests]}, new tokens "
+          f"{[r.max_new_tokens for r in requests]}; {DECODE_SLOTS} slots of "
+          f"{DECODE_MAX_LEN} rows")
+    runs, launches = {}, {}
+    for paged in (False, True):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        run = _serve(cfg, model, requests, device, paged, seed)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: LAUNCHES[k] for k in DECODE_KERNELS}
+        name = run["pool"]
+        runs[name], launches[name] = run, counts
+        tokens = sum(len(r.generated) for r in run["finished"])
+        print(f"[decode] {name}: {len(run['finished'])} requests finished "
+              f"({', '.join(sorted({r.finish_reason for r in run['finished']}))}"
+              f"), {tokens} tokens in {run['steps']} lockstep steps, "
+              f"{seconds:.2f} s; step {np.mean(run['step_ms']):.3f} ms mean "
+              f"(CUDA events, {len(run['step_ms'])} steps), prefill "
+              f"{np.mean(run['prefill_ms']):.2f} ms per prompt; launches "
+              f"{counts}")
+        if len(run["finished"]) != DECODE_REQUESTS:
+            fail(f"decode {name}: {len(run['finished'])} of "
+                 f"{DECODE_REQUESTS} requests finished")
+    cont, paged = runs["contiguous"], runs["paged"]
+    if launches["contiguous"]["attention_cache"] == 0 or \
+            launches["paged"]["attention_paged"] == 0:
+        fail(f"decode: cache kernels not launched: {launches}")
+    for a, b in zip(cont["finished"], paged["finished"]):
+        if a.generated != b.generated:
+            fail(f"decode uid {a.uid}: paged tokens {b.generated} != "
+                 f"contiguous {a.generated}")
+    if not all(torch.equal(a, b) for a, b in zip(cont["last_logits"],
+                                                 paged["last_logits"])):
+        fail("decode: paged and contiguous last-step logits differ")
+    print("[decode] paged and contiguous: identical tokens, bit-identical "
+          "last-step logits")
+    for r in cont["finished"]:
+        print(f"[decode]   uid {r.uid}: {len(r.prompt)} + "
+              f"{len(r.generated)} tokens ({r.finish_reason}), mean MI "
+              f"{np.mean(r.mi_trace):.4e}, first tokens {r.generated[:6]}")
+    tf = _teacher_forced(cfg, model, cont["finished"], device)
+    print(f"[decode] teacher-forced kernel vs eager logits ("
+          f"{TEACHER_FORCED[0]} requests, prefill + {TEACHER_FORCED[1]} "
+          f"tokens): max abs err mean {tf[0]:.3e}, var {tf[1]:.3e}")
+
+    # Launches in one lockstep decode step and one prefill of each pool,
+    # and a profile of one decode step (stale cache rows: only the time
+    # is read).
+    ctx = Context(mode=Mode.PFP, impl="kernel", device=device)
+    pos = np.asarray([300, 400, 500, 540])
+    step_inputs = {"tokens": np.ones((DECODE_SLOTS, 1), np.int64),
+                   "positions": pos[:, None], "cache_len": pos + 1}
+    states = lm.init_decode_state(cfg, DECODE_SLOTS, DECODE_MAX_LEN,
+                                  device=device)
+    per_step = {}
+    reset_launch_counts()
+    lm.decode_step(model, cfg, step_inputs, states, ctx)
+    per_step["decode_step"] = {k: v for k, v in LAUNCHES.items() if v}
+    reset_launch_counts()
+    lm.prefill(model, cfg, {"tokens": requests[0].prompt[None]}, ctx,
+               DECODE_MAX_LEN)
+    per_step["prefill"] = {k: v for k, v in LAUNCHES.items() if v}
+    print(f"[decode] launches per contiguous decode step "
+          f"{per_step['decode_step']}; per prefill {per_step['prefill']}")
+    profile = _profile(f"{cfg.name} decode step B={DECODE_SLOTS}",
+                       lambda: lm.decode_step(model, cfg, step_inputs, states,
+                                              ctx), 5, 2)
+    info = {
+        "requests": [{"uid": r.uid, "prompt": len(r.prompt),
+                      "new": r.max_new_tokens, "generated": r.generated,
+                      "mi": r.mi_trace, "finish": r.finish_reason}
+                     for r in cont["finished"]],
+        "step_ms": {k: v["step_ms"] for k, v in runs.items()},
+        "prefill_ms": {k: v["prefill_ms"] for k, v in runs.items()},
+        "launches": launches, "per_call_launches": per_step,
+        "teacher_forced_err": tf, "profile": profile,
+        "step_weight_bytes": weight_bytes,
+        "step_bound_ms": weight_bytes / PEAK_BYTES * 1e3,
+    }
+    total = {k: launches["contiguous"][k] + launches["paged"][k]
+             for k in DECODE_KERNELS}
+    return total, info
+
+
 def _time_row(label, kernel, shape, device, inner=10, replays=5,
               call_iters=30):
     """Device ms of the kernel, its plain version and the library call at
@@ -821,6 +1288,11 @@ def phase_times(device, lm_cfg, lm_model):
         rows.append(_time_row("lm", kernel, shape, device,
                               inner=2 if big else 10, replays=2 if big else 5,
                               call_iters=3 if big else 30))
+    for kernel in CACHE_KERNELS:
+        paged = (PAGE_SIZE,) if kernel == "attention_paged" else ()
+        for label, shape in (("decode", CACHE_DECODE),
+                             ("prefill", CACHE_PREFILL)):
+            rows.append(_time_row(label, kernel, shape + paged, device))
     models = _models(device)
     forwards = []
     for batch in BATCHES:
@@ -926,14 +1398,27 @@ def kernel_summary(rows, launches, errs, lm_cfg):
     times and bounds summed over one LeNet-5 and one MLP forward (Eq. 12
     forwards; Eq. 7 for dense_var); for the LM's norm, GLU and attention,
     its calls in one LM forward (layernorm, on no path: one call at the
-    LM's norm shape). ``launches`` sums the paths' runs."""
+    LM's norm shape); for the cache kernels, their calls in one decode
+    step at CACHE_DECODE, with one call at CACHE_PREFILL beside.
+    ``launches`` sums the paths' runs."""
     cnn = {(r["kernel"], tuple(r["shape"])): r for r in rows
            if r["batch"] == MAIN_BATCH}
     lmr = {(r["kernel"], tuple(r["shape"])): r for r in rows
            if r["batch"] == "lm"}
+    cache = {(r["kernel"], r["batch"]): r for r in rows
+             if r["kernel"] in CACHE_KERNELS}
     out = []
     for kernel, (source, replaces) in KERNELS.items():
-        if kernel in CNN_KERNELS:
+        extra = {}
+        if kernel in CACHE_KERNELS:
+            # One decode step: one call per layer at the decode shape; the
+            # prefill shape beside it.
+            calls = [cache[(kernel, "decode")]] * lm_cfg.num_layers
+            pre = cache[(kernel, "prefill")]
+            extra["prefill_per_call"] = {
+                k: pre[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")}
+        elif kernel in CNN_KERNELS:
             formulation = "var" if kernel == "dense_var" else "srm"
             calls = [cnn[(k, s)] for k, s in
                      main_path_calls(MAIN_BATCH, formulation) if k == kernel]
@@ -961,12 +1446,17 @@ def kernel_summary(rows, launches, errs, lm_cfg):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None if None in lib else sum(lib),
             "library": LIBRARY.get(kernel),
+            **extra,
         })
     return out
 
 
 def main():
     import torch
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the decode phase's requests")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -980,6 +1470,8 @@ def main():
     errs = phase_kernels(device)
     launches = {"cnn": phase_serving(device)}
     launches["lm"], lm_info, lm_cfg, lm_model = phase_lm(device)
+    launches["decode"], decode_info = phase_decode(device, lm_cfg, lm_model,
+                                                   args.seed)
     rows, forwards = phase_times(device, lm_cfg, lm_model)
     profile = phase_profile(device, lm_cfg, lm_model)
     del lm_model
@@ -987,6 +1479,7 @@ def main():
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build": build, "kernels": kernels, "times": rows,
          "forwards": forwards, "profile": profile, "lm": lm_info,
+         "decode": decode_info,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

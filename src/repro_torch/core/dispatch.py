@@ -3,8 +3,8 @@
 Counterpart of ``repro/core/dispatch.py``, limited to the ops of the
 paper's MLP and LeNet-5 (``dense``, ``conv2d_im2col``, ``activation``,
 ``maxpool2d``) and of the dense transformer LM (``rmsnorm``, ``layernorm``,
-``glu_product``, ``attention``, ``embedding``, ``residual``). Each op is
-registered with two impls:
+``glu_product``, ``attention``, ``attention_cache``, ``attention_paged``,
+``embedding``, ``residual``). Each op is registered with two impls:
 
   * ``eager``  : pure torch from ``core/pfp_layers.py`` (the JAX package's
     ``xla`` impl);
@@ -206,6 +206,71 @@ def pfp_attention(q_mu, k_mu, v_mu, v_var, *, scale: float,
     windows keep the chunked core of ``nn/attention.py``."""
     dtype = q_mu.dtype
     mu, var = get_op("attention", impl)(q_mu, k_mu, v_mu, v_var, scale, causal)
+    return mu.to(dtype), var.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention_cache / attention_paged — KV-cache decode attention
+# ---------------------------------------------------------------------------
+@register("attention_cache", "eager")
+def _attention_cache_eager(q_mu, k_mu, v_mu, v_var, q_start, kv_len, scale,
+                           causal, window):
+    return ref.pfp_attention_cache_ref(q_mu, k_mu, v_mu, v_var, q_start,
+                                       kv_len, scale, causal=causal,
+                                       window=window)
+
+
+@register("attention_cache", "kernel")
+def _attention_cache_kernel(q_mu, k_mu, v_mu, v_var, q_start, kv_len, scale,
+                            causal, window):
+    return ops.pfp_attention_cache(q_mu, k_mu, v_mu, v_var, q_start, kv_len,
+                                   scale=scale, causal=causal, window=window)
+
+
+def pfp_attention_cache(q_mu, k_mu, v_mu, v_var, q_start, kv_len, *,
+                        scale: float, causal: bool = True, window=None,
+                        impl: Optional[str] = None):
+    """KV-cache PFP attention: q (B, H, Tq, D) x cache (B, Hkv, S, D),
+    q_start / kv_len (B,) integer tensors. Query row i of batch b sits at
+    absolute position ``q_start[b] + i`` (the cache-insert contract: a
+    caller's positions are contiguous from each row's start); key j is real
+    iff ``j < kv_len[b]``; optional sliding ``window``."""
+    dtype = q_mu.dtype
+    mu, var = get_op("attention_cache", impl)(q_mu, k_mu, v_mu, v_var,
+                                              q_start, kv_len, scale, causal,
+                                              window)
+    return mu.to(dtype), var.to(dtype)
+
+
+@register("attention_paged", "eager")
+def _attention_paged_eager(q_mu, k_pages, v_pages, vv_pages, page_table,
+                           q_start, kv_len, scale, causal, window):
+    return ref.pfp_attention_paged_ref(q_mu, k_pages, v_pages, vv_pages,
+                                       page_table, q_start, kv_len, scale,
+                                       causal=causal, window=window)
+
+
+@register("attention_paged", "kernel")
+def _attention_paged_kernel(q_mu, k_pages, v_pages, vv_pages, page_table,
+                            q_start, kv_len, scale, causal, window):
+    return ops.pfp_attention_paged(q_mu, k_pages, v_pages, vv_pages,
+                                   page_table, q_start, kv_len, scale=scale,
+                                   causal=causal, window=window)
+
+
+def pfp_attention_paged(q_mu, k_pages, v_pages, vv_pages, page_table,
+                        q_start, kv_len, *, scale: float, causal: bool = True,
+                        window=None, impl: Optional[str] = None):
+    """Paged-KV PFP attention: q (B, H, Tq, D) against page pools
+    (NP, Hkv, page_size, D) read through ``page_table`` (B, P). The kernel
+    reads each key row through the table in place; the eager impl gathers
+    the pages into a contiguous cache first. Masking as in
+    :func:`pfp_attention_cache`: ``kv_len`` also masks the padded table
+    slots."""
+    dtype = q_mu.dtype
+    mu, var = get_op("attention_paged", impl)(q_mu, k_pages, v_pages,
+                                              vv_pages, page_table, q_start,
+                                              kv_len, scale, causal, window)
     return mu.to(dtype), var.to(dtype)
 
 

@@ -1,8 +1,8 @@
 """Attention validity masking (counterpart of ``repro/core/masking.py``).
 
 One definition of which (query, key) score positions are real, shared by
-the chunked core of ``nn/attention.py`` and the plain attention version in
-``kernels/ref.py``; the CUDA kernel applies the same rule by index.
+the chunked core of ``nn/attention.py`` and the plain attention versions in
+``kernels/ref.py``; the CUDA kernels apply the same rule by index.
 """
 from __future__ import annotations
 
@@ -16,11 +16,12 @@ NEG_INF = -1e30
 
 
 def attention_valid_mask(q_idx, k_idx, *, causal: bool = True,
-                         window: Optional[int] = None):
+                         window: Optional[int] = None, kv_len=None):
     """Boolean mask of valid score positions from absolute indices that
     broadcast against each other (trailing dims (Tq, Tk)). ``window``: keys
-    must satisfy ``k_idx > q_idx - window``. (The reference's per-row
-    ``kv_len`` comes with the KV cache.)"""
+    must satisfy ``k_idx > q_idx - window``. ``kv_len``: per-row valid key
+    count, broadcastable against the index grid (key j is real iff
+    ``k_idx < kv_len``): the per-batch ``cache_len`` of KV-cache decode."""
     if causal:
         m = q_idx >= k_idx
     else:
@@ -28,6 +29,8 @@ def attention_valid_mask(q_idx, k_idx, *, causal: bool = True,
                        dtype=torch.bool, device=q_idx.device)
     if window is not None:
         m = m & (k_idx > q_idx - window)
+    if kv_len is not None:
+        m = m & (k_idx < kv_len)
     return m
 
 

@@ -11,7 +11,8 @@ import torch
 
 LAUNCHES = {"dense": 0, "dense_first_layer": 0, "dense_var": 0,
             "activation": 0, "maxpool2d": 0, "rmsnorm": 0, "layernorm": 0,
-            "glu_product": 0, "attention": 0}
+            "glu_product": 0, "attention": 0, "attention_cache": 0,
+            "attention_paged": 0}
 
 
 def reset_launch_counts() -> None:
@@ -29,6 +30,13 @@ def cuda_operands(*tensors: torch.Tensor):
         if t.device != device:
             raise ValueError(f"operands on {device} and {t.device}")
     return tuple(t.to(torch.float32).contiguous() for t in tensors)
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data does not start on a 16-byte
+    boundary (a view into another tensor): kernels that load float4
+    need the alignment."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -19,7 +19,9 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.pfp_activations import (pfp_activation_cuda,
                                                  pfp_glu_cuda)
-from repro_torch.kernels.pfp_attention import pfp_attention_cuda
+from repro_torch.kernels.pfp_attention import (pfp_attention_cache_cuda,
+                                               pfp_attention_cuda,
+                                               pfp_attention_paged_cuda)
 from repro_torch.kernels.pfp_dense import (MODE_FIRST_LAYER, MODE_SRM,
                                            MODE_VAR, pfp_dense_cuda)
 from repro_torch.kernels.pfp_maxpool import pfp_maxpool2d_cuda
@@ -109,3 +111,34 @@ def pfp_attention(q_mu, k_mu, v_mu, v_var, *, scale: float,
         return pfp_attention_cuda(q_mu, k_mu, v_mu, v_var, scale=scale,
                                   causal=causal)
     return ref.pfp_attention_ref(q_mu, k_mu, v_mu, v_var, scale, causal)
+
+
+def pfp_attention_cache(q_mu, k_mu, v_mu, v_var, q_start, kv_len, *,
+                        scale: float, causal: bool = True, window=None):
+    """KV-cache PFP attention, q (B, H, Tq, D) x cache (B, Hkv, S, D);
+    q_start / kv_len (B,): query row i of batch b at position
+    ``q_start[b] + i``, key j real iff ``j < kv_len[b]``; optional sliding
+    ``window``. Returns (mean, var)."""
+    if _on_cuda(q_mu):
+        return pfp_attention_cache_cuda(q_mu, k_mu, v_mu, v_var, q_start,
+                                        kv_len, scale=scale, causal=causal,
+                                        window=window)
+    return ref.pfp_attention_cache_ref(q_mu, k_mu, v_mu, v_var, q_start,
+                                       kv_len, scale, causal=causal,
+                                       window=window)
+
+
+def pfp_attention_paged(q_mu, k_pages, v_pages, vv_pages, page_table,
+                        q_start, kv_len, *, scale: float, causal: bool = True,
+                        window=None):
+    """Paged KV-cache PFP attention: q (B, H, Tq, D) against page pools
+    (NP, Hkv, page_size, D) read through ``page_table`` (B, P); masking as
+    in :func:`pfp_attention_cache`. Returns (mean, var)."""
+    if _on_cuda(q_mu):
+        return pfp_attention_paged_cuda(q_mu, k_pages, v_pages, vv_pages,
+                                        page_table, q_start, kv_len,
+                                        scale=scale, causal=causal,
+                                        window=window)
+    return ref.pfp_attention_paged_ref(q_mu, k_pages, v_pages, vv_pages,
+                                       page_table, q_start, kv_len, scale,
+                                       causal=causal, window=window)

@@ -1,19 +1,32 @@
 """Flash-style mean-field PFP attention on Hopper: out_mu = P.mu_v and
 out_var = P^2.var_v from one online softmax.
 
-Replaces ``repro/kernels/pfp_attention.py``: ``pfp_attention_pallas``, the
-full-sequence kernel without a KV cache. The kernel is
-``csrc/pfp_attention.cu``, one block per (batch x head, 64 query rows),
-bound by fp32 operations; its source says how it is built. The plain
-version is ``pfp_attention_ref`` (``kernels/ref.py``).
+Replaces the three entry points of ``repro/kernels/pfp_attention.py``:
+
+  * ``pfp_attention_pallas``, without a KV cache: ``pfp_attention_cuda``,
+    one block per (batch x head, 64 query rows), bound by fp32 operations;
+  * ``pfp_attention_cache_pallas``, the KV cache with per-batch
+    ``q_start`` / ``kv_len``: ``pfp_attention_cache_cuda``;
+  * ``pfp_attention_paged_pallas``, the paged cache read through a page
+    table: ``pfp_attention_paged_cuda``.
+
+The two cache kernels are one template of ``csrc/pfp_attention.cu`` that
+differs only in a key row's address; one block per (batch x KV head,
+query rows), the G query heads of a KV head packed into its rows; bound by
+bytes at decode. The source says how they are built. The plain versions
+are ``pfp_attention_ref``, ``pfp_attention_cache_ref`` and
+``pfp_attention_paged_ref`` (``kernels/ref.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import LAUNCHES, cuda_operands, stream_ptr
-from repro_torch.kernels.ref import pfp_attention_ref  # noqa: F401
+from repro_torch.kernels._launch import (LAUNCHES, aligned16, cuda_operands,
+                                         stream_ptr)
+from repro_torch.kernels.ref import (pfp_attention_cache_ref,  # noqa: F401
+                                     pfp_attention_paged_ref,
+                                     pfp_attention_ref)
 
 # The reduced test config and granite-8b; 64 (musicgen) and 256 (gemma)
 # come with the paths that serve those models.
@@ -54,3 +67,85 @@ def pfp_attention_cuda(q_mu, k_mu, v_mu, v_var, *, scale: float,
     _build.check(status, "pfp_attention_launch")
     LAUNCHES["attention"] += 1
     return out_mu, out_var
+
+
+def _window(window) -> int:
+    """The kernels' window argument: 0 for none."""
+    if window is None:
+        return 0
+    if window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    return int(window)
+
+
+def _kv_launch(paged, q_mu, k, v_mu, v_var, page_table, q_start, kv_len, *,
+               scale, causal, window, s_rows, num_pages):
+    """Checks shared by both cache kernels, then one launch."""
+    if q_mu.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"attention takes 4-D tensors, got "
+                         f"{tuple(q_mu.shape)} and {tuple(k.shape)}")
+    b, h, tq, d = q_mu.shape
+    hkv = k.shape[1]
+    if (k.shape[3] != d or v_mu.shape != k.shape or v_var.shape != k.shape
+            or h % hkv):
+        raise ValueError(f"attention shapes q {tuple(q_mu.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v_mu.shape)}, v_var "
+                         f"{tuple(v_var.shape)}")
+    if tuple(q_start.shape) != (b,) or tuple(kv_len.shape) != (b,):
+        raise ValueError(f"q_start {tuple(q_start.shape)} and kv_len "
+                         f"{tuple(kv_len.shape)} must be ({b},)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"no attention kernel for head_dim {d}; built for "
+                         f"{HEAD_DIMS}")
+    if b * hkv > 65535:
+        raise ValueError(f"B * Hkv = {b * hkv} is above the grid's 65535")
+    q_mu, k, v_mu, v_var = (aligned16(t) for t in (q_mu, k, v_mu, v_var))
+    ints = [t.to(device=q_mu.device, dtype=torch.int32).contiguous()
+            for t in (page_table, q_start, kv_len)]
+    out_mu = torch.empty_like(q_mu)
+    out_var = torch.empty_like(q_mu)
+    if q_mu.numel() == 0:
+        return out_mu, out_var
+    lib = _build.load()
+    with torch.cuda.device(q_mu.device):
+        status = lib.pfp_attention_kv_launch(
+            int(paged), q_mu.data_ptr(), k.data_ptr(), v_mu.data_ptr(),
+            v_var.data_ptr(), ints[0].data_ptr(), ints[1].data_ptr(),
+            ints[2].data_ptr(), out_mu.data_ptr(), out_var.data_ptr(), b, h,
+            hkv, tq, s_rows, ints[0].shape[-1], num_pages, d, scale,
+            int(causal), _window(window), stream_ptr(q_mu.device))
+    _build.check(status, "pfp_attention_kv_launch")
+    LAUNCHES["attention_paged" if paged else "attention_cache"] += 1
+    return out_mu, out_var
+
+
+def pfp_attention_cache_cuda(q_mu, k_mu, v_mu, v_var, q_start, kv_len, *,
+                             scale: float, causal: bool = True, window=None):
+    """Launch the KV-cache kernel: q (B, H, Tq, D) x cache (B, Hkv, S, D)
+    CUDA tensors, q_start / kv_len (B,) integer tensors on the same card
+    (read there: no host sync). Returns fp32 (mean, var) of q's shape."""
+    q_mu, k_mu, v_mu, v_var = cuda_operands(q_mu, k_mu, v_mu, v_var)
+    if k_mu.dim() != 4 or k_mu.shape[0] != q_mu.shape[0]:
+        raise ValueError(f"cache {tuple(k_mu.shape)} does not match the "
+                         f"query batch {q_mu.shape[0]}")
+    return _kv_launch(False, q_mu, k_mu, v_mu, v_var, q_start.new_zeros(1),
+                      q_start, kv_len, scale=scale, causal=causal,
+                      window=window, s_rows=k_mu.shape[2], num_pages=0)
+
+
+def pfp_attention_paged_cuda(q_mu, k_pages, v_pages, vv_pages, page_table,
+                             q_start, kv_len, *, scale: float,
+                             causal: bool = True, window=None):
+    """Launch the paged kernel: q (B, H, Tq, D) x page pools
+    (NP, Hkv, page_size, D) CUDA tensors read through ``page_table``
+    (B, P); q_start / kv_len (B,). Returns fp32 (mean, var) of q's shape."""
+    q_mu, k_pages, v_pages, vv_pages = cuda_operands(q_mu, k_pages, v_pages,
+                                                     vv_pages)
+    if page_table.dim() != 2 or page_table.shape[0] != q_mu.shape[0] \
+            or page_table.shape[1] < 1:
+        raise ValueError(f"page_table {tuple(page_table.shape)} must be "
+                         f"({q_mu.shape[0]}, P >= 1)")
+    return _kv_launch(True, q_mu, k_pages, v_pages, vv_pages, page_table,
+                      q_start, kv_len, scale=scale, causal=causal,
+                      window=window, s_rows=k_pages.shape[2],
+                      num_pages=k_pages.shape[0])

@@ -135,3 +135,53 @@ def pfp_attention_ref(q_mu, k_mu, v_mu, v_var, scale: float,
     out_mu = torch.einsum("bhqk,bhkd->bhqd", p, v_mu)
     out_var = torch.einsum("bhqk,bhkd->bhqd", torch.square(p), v_var)
     return out_mu, out_var
+
+
+def pfp_attention_cache_ref(q_mu, k_mu, v_mu, v_var, q_start, kv_len,
+                            scale: float, causal: bool = True, window=None):
+    """KV-cache PFP attention, q (B, H, Tq, D) x cache (B, Hkv, S, D).
+
+    Query row i of batch b sits at absolute position ``q_start[b] + i``;
+    key j is real iff ``j < kv_len[b]`` (and, with ``window``, iff
+    ``j > position - window``). Query head h reads KV head h // (H / Hkv)
+    in groups, without repeating K/V. A query row with no valid key (a slot
+    with ``kv_len`` 0) comes out 0, as in the kernel, not as a uniform
+    average."""
+    b, h, tq, d = q_mu.shape
+    hkv, tk = k_mu.shape[1], k_mu.shape[2]
+    q = q_mu.to(_F32).reshape(b, hkv, h // hkv, tq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", q, k_mu.to(_F32)) * scale
+    q_idx = (q_start.to(s.device).long()[:, None]
+             + torch.arange(tq, device=s.device))                  # (B, Tq)
+    valid = attention_valid_mask(
+        q_idx[:, :, None], torch.arange(tk, device=s.device)[None, None, :],
+        causal=causal, window=window,
+        kv_len=kv_len.to(s.device).long()[:, None, None])[:, None, None]
+    p = torch.softmax(mask_scores(s, valid), dim=-1) * valid
+    out_mu = torch.einsum("bhgqk,bhkd->bhgqd", p, v_mu.to(_F32))
+    out_var = torch.einsum("bhgqk,bhkd->bhgqd", torch.square(p),
+                           v_var.to(_F32))
+    return out_mu.reshape(b, h, tq, d), out_var.reshape(b, h, tq, d)
+
+
+def gather_kv_pages(pages, page_table):
+    """(NP, Hkv, ps, D) x (B, P) -> contiguous (B, Hkv, P * ps, D)."""
+    b, p = page_table.shape
+    _, hkv, ps, d = pages.shape
+    flat = pages[page_table.reshape(-1).long()]           # (B * P, Hkv, ps, D)
+    return flat.reshape(b, p, hkv, ps, d).transpose(1, 2).reshape(
+        b, hkv, p * ps, d)
+
+
+def pfp_attention_paged_ref(q_mu, k_pages, v_pages, vv_pages, page_table,
+                            q_start, kv_len, scale: float, causal: bool = True,
+                            window=None):
+    """Paged KV-cache PFP attention: q (B, H, Tq, D) against a pool of
+    pages (NP, Hkv, page_size, D), logical page j of batch b at pool row
+    ``page_table[b, j]``. The pages are gathered into a contiguous cache
+    and attended as by :func:`pfp_attention_cache_ref`; padded table slots
+    (trash page 0) lie at or past ``kv_len`` and are masked."""
+    k, vm, vv = (gather_kv_pages(a, page_table)
+                 for a in (k_pages, v_pages, vv_pages))
+    return pfp_attention_cache_ref(q_mu, k, vm, vv, q_start, kv_len, scale,
+                                   causal=causal, window=window)
