@@ -47,6 +47,21 @@ Phases, each printing its own lines; any failure exits non-zero:
   8. profile: torch.profiler over each model's forwards and one decode
               step: device busy share and the kernels that take the device
               time
+  9. moe    : deepseek-moe-16b at full width (d_model 2048, 16 heads of
+              128, 64 routed experts top-6 plus 2 shared, d_ff 1408, vocab
+              102400; the one cut: 3 of 28 layers, layer 0 dense and layers
+              1-2 MoE), random weights drawn on the card from a seed.
+              (a) 2 requests of 4 x 512 token ids, one PFP forward each
+              with impl="kernel" (Eq. 12), logits held against
+              impl="eager" after the two impls' routing is compared;
+              (b) the same with formulation="var" (Eq. 7); the batched
+              expert kernel must launch in each. (c) decode: 8 requests
+              with prompts of PREFILL_CHUNK tokens (one prefill call of the
+              same shape on both pools) through 4 slots on both pools, as
+              in phase 6, with drop counts per pool. Then the batched
+              kernels' times at the MoE shapes, the MoE forward eager and
+              in a CUDA graph, and a profile of one forward and one decode
+              step. Peak device memory is printed.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and a last JSON line ``{"ok": true, "device": {...}}``. Full numbers go to
@@ -111,6 +126,22 @@ CACHE_CHECKS = {
     "head_dim 16": (2, 4, 2, 7, 100, 16, (0, 50), (7, 57), None),
 }
 CHECK_PAGE_SIZES = (1, 16, 24)
+# The MoE phase: deepseek-moe-16b at full width, cut to MOE_LAYERS layers
+# (layer 0 dense, the rest MoE), requests as in the LM phase.
+MOE_ARCH = "deepseek-moe-16b"
+MOE_LAYERS = 3
+MOE_KERNELS = ("dense", "activation", "rmsnorm", "glu_product", "attention",
+               "dense_batched")
+MOE_DECODE_KERNELS = ("dense", "activation", "rmsnorm", "glu_product",
+                      "attention_cache", "attention_paged", "dense_batched")
+BATCHED_KERNELS = ("dense_batched", "dense_batched_first_layer",
+                   "dense_batched_var")
+# Batched dense shapes (E, C, K, N): the expert up / gate and down products
+# at 4 x 512 tokens (capacity 240) and at a 4-slot decode step (capacity 6).
+MOE_UP, MOE_DOWN = (64, 240, 2048, 1408), (64, 240, 1408, 2048)
+MOE_DECODE_UP, MOE_DECODE_DOWN = (64, 6, 2048, 1408), (64, 6, 1408, 2048)
+MOE_SHAPES = (MOE_UP, MOE_DOWN, MOE_DECODE_UP, MOE_DECODE_DOWN)
+NEAR_TIE = 1e-4   # a routing mismatch at a larger top-k margin is a fault
 
 KERNELS = {
     "dense": ("src/repro_torch/csrc/pfp_dense.cu",
@@ -135,6 +166,12 @@ KERNELS = {
                         "src/repro/kernels/pfp_attention.py:345"),
     "attention_paged": ("src/repro_torch/csrc/pfp_attention.cu",
                         "src/repro/kernels/pfp_attention.py:420"),
+    "dense_batched": ("src/repro_torch/csrc/pfp_dense.cu",
+                      "src/repro/kernels/pfp_moe.py:210"),
+    "dense_batched_first_layer": ("src/repro_torch/csrc/pfp_dense.cu",
+                                  "src/repro/kernels/pfp_moe.py:210"),
+    "dense_batched_var": ("src/repro_torch/csrc/pfp_dense.cu",
+                          "src/repro/kernels/pfp_moe.py:291"),
 }
 # What ``library_ms`` times, where one PyTorch call computes the same work.
 LIBRARY = {
@@ -147,6 +184,12 @@ LIBRARY = {
                        "boolean mask: mean half only",
     "attention_paged": "none: no single call (a gather of the pages and "
                        "SDPA are two)",
+    "dense_batched": "torch.bmm of the stacked fp32 operand pairs of all "
+                     "experts (products only)",
+    "dense_batched_first_layer": "torch.bmm of the stacked fp32 operand "
+                                 "pairs of all experts",
+    "dense_batched_var": "torch.bmm of the stacked fp32 operand pairs of all "
+                         "experts",
 }
 
 
@@ -260,6 +303,10 @@ def work(kernel, shape):
     if kernel == "glu_product":
         rows, n = shape
         return 24 * rows * n, 2 * rows * n
+    if kernel in BATCHED_KERNELS:
+        e, c, k, n = shape
+        nbytes, ops = work(kernel.replace("_batched", ""), (c, k, n))
+        return e * nbytes, e * ops
     if kernel.startswith("dense"):
         m, k, n = shape
         if kernel == "dense_first_layer":
@@ -294,11 +341,14 @@ def bound_ms(kernel, shape):
 # ---------------------------------------------------------------------------
 # Inputs
 # ---------------------------------------------------------------------------
-def gaussian(shape, seed, device, scale=1.0):
+def gaussian(shape, seed, device, scale=1.0, on_device=False):
+    """(mean, var) drawn from ``seed`` on the CPU, or on ``device``."""
     import torch
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    mu = scale * torch.randn(shape, generator=g)
-    var = scale * torch.nn.functional.softplus(torch.randn(shape, generator=g))
+    g = torch.Generator(device=device if on_device else "cpu").manual_seed(
+        seed)
+    mu = scale * torch.randn(shape, generator=g, device=g.device)
+    var = scale * torch.nn.functional.softplus(
+        torch.randn(shape, generator=g, device=g.device))
     return mu.to(device), var.to(device)
 
 
@@ -361,9 +411,17 @@ def operands(kernel, shape, seed, device):
         mu_b, var_b = gaussian(shape, seed + 1, device)
         return (mu_a, var_a + mu_a * mu_a, mu_b, var_b + mu_b * mu_b)
     if kernel.startswith("dense"):
-        m, k, n = shape
-        mx, vx = gaussian((m, k), seed, device)
-        mw, vw = gaussian((k, n), seed + 1, device, 0.1)
+        if kernel in BATCHED_KERNELS:
+            e, m, k, n = shape
+            # Drawn on the card: the expert stacks hold 10^8 weights.
+            mx, vx = gaussian((e, m, k), seed, device, on_device=True)
+            mw, vw = gaussian((e, k, n), seed + 1, device, 0.1,
+                              on_device=True)
+        else:
+            m, k, n = shape
+            mx, vx = gaussian((m, k), seed, device)
+            mw, vw = gaussian((k, n), seed + 1, device, 0.1)
+        kernel = kernel.replace("_batched", "")
         if kernel == "dense":
             return (mx, vx + mx * mx, mw, vw + mw * mw)
         if kernel == "dense_var":
@@ -376,6 +434,12 @@ def operands(kernel, shape, seed, device):
 
 def run_kernel(kernel, args):
     from repro_torch.kernels import ops
+    if kernel == "dense_batched":
+        return ops.pfp_dense_batched(*args)
+    if kernel == "dense_batched_first_layer":
+        return ops.pfp_dense_batched(*args, first_layer=True)
+    if kernel == "dense_batched_var":
+        return ops.pfp_dense_batched_var(*args)
     if kernel == "dense":
         return ops.pfp_dense(*args)
     if kernel == "dense_first_layer":
@@ -403,6 +467,8 @@ def run_kernel(kernel, args):
 
 def run_plain(kernel, args):
     from repro_torch.kernels import ref
+    if kernel in BATCHED_KERNELS:   # the same plain versions, batched by @
+        kernel = kernel.replace("_batched", "")
     if kernel == "dense":
         return ref.pfp_dense_ref(*args)
     if kernel == "dense_first_layer":
@@ -462,15 +528,15 @@ def library_call(kernel, args):
     if not kernel.startswith("dense"):
         return None
     xa, xb, wa, wb = args
+    kernel = kernel.replace("_batched", "")
     if kernel == "dense":
-        a = torch.stack([xa, xb, xa * xa])
-        b = torch.stack([wa, wb, wa * wa])
+        a, b = [xa, xb, xa * xa], [wa, wb, wa * wa]
     elif kernel == "dense_var":
-        a = torch.stack([xa, xb, xa * xa, xb])
-        b = torch.stack([wa, wa * wa, wb, wb])
+        a, b = [xa, xb, xa * xa, xb], [wa, wa * wa, wb, wb]
     else:
-        a = torch.stack([xa, xa * xa])
-        b = torch.stack([wa, wb])
+        a, b = [xa, xa * xa], [wa, wb]
+    # One batch of products; a batched kernel's expert axis joins it.
+    a, b = (torch.stack(t).flatten(0, -3) for t in (a, b))
     return lambda: torch.bmm(a, b)
 
 
@@ -611,7 +677,38 @@ def phase_kernels(device):
     lm_kernel_checks(device, errs)
     cache_kernel_checks(device, errs)
     layernorm_offset_check(device)
+    moe_kernel_checks(device, errs)
     return errs
+
+
+def moe_kernel_checks(device, errs):
+    """The batched expert kernel in its three modes against its plain
+    version at the MoE shapes and a ragged one, and bit for bit against the
+    single dense kernel on every expert's slice; updates ``errs``."""
+    import torch
+    from repro_torch.kernels.pfp_dense import (MODE_FIRST_LAYER, MODE_SRM,
+                                               MODE_VAR, pfp_dense_cuda)
+    modes = dict(zip(BATCHED_KERNELS, (MODE_SRM, MODE_FIRST_LAYER, MODE_VAR)))
+    for seed, shape in enumerate(MOE_SHAPES + ((3, 7, 130, 5),), start=900):
+        for kernel in BATCHED_KERNELS:
+            args = operands(kernel, shape, seed, device)
+            got = run_kernel(kernel, args)
+            torch.cuda.synchronize()
+            want = run_plain(kernel, args)
+            _check_close(f"{kernel}{shape}", got, want, DENSE_TOL)
+            err = _max_err(got, want)
+            errs[kernel] = max(errs[kernel], err)
+            del want
+            for e in range(shape[0]):
+                one = pfp_dense_cuda(*(a[e] for a in args),
+                                     mode=modes[kernel])
+                if not (torch.equal(one[0], got[0][e])
+                        and torch.equal(one[1], got[1][e])):
+                    fail(f"{kernel}{shape}: expert {e} differs from the "
+                         f"single dense kernel on its slice")
+            print(f"[kernels] {kernel:25s} {str(shape):20s} max_abs_err "
+                  f"{err:.3e}, every expert bitwise the dense kernel's")
+            del args, got
 
 
 def lm_kernel_checks(device, errs):
@@ -740,25 +837,31 @@ def cancellation_check(device):
     than 4x the fp32 plain version's (TF32 would be ~1000x worse)."""
     import torch
     from repro_torch.kernels import ops, ref
-    for m, k, n in ((100, 784, 100), (19600, 150, 16)):
-        g = torch.Generator(device="cpu").manual_seed(m + k + n)
-        mx = torch.relu(torch.randn((m, k), generator=g)) + 0.1
-        mw = 0.05 * torch.randn((k, n), generator=g)
-        sx = mx * mx + 1e-6 * torch.rand((m, k), generator=g)
+    # (M, K, N) for the dense kernel; (E, C, K, N) for the batched one.
+    for shape in ((100, 784, 100), (19600, 150, 16), (8, 240, 2048, 128)):
+        *lead, k, n = shape
+        g = torch.Generator(device="cpu").manual_seed(sum(shape))
+        mx = torch.relu(torch.randn((*lead, k), generator=g)) + 0.1
+        mw = 0.05 * torch.randn((*lead[:-1], k, n), generator=g)
+        sx = mx * mx + 1e-6 * torch.rand((*lead, k), generator=g)
         sw = mw * mw + 4e-7                       # sigma_init 1e-3, cal 0.4
         mx, mw, sx, sw = (a.to(device) for a in (mx, mw, sx, sw))
-        _, var_k = ops.pfp_dense(mx, sx, mw, sw)
-        _, var_p = ref.pfp_dense_ref(mx, sx, mw, sw)
+        if len(shape) == 4:
+            _, var_k = ops.pfp_dense_batched(mx, sx, mw, sw)
+            _, var_p = ref.pfp_dense_batched_ref(mx, sx, mw, sw)
+        else:
+            _, var_k = ops.pfp_dense(mx, sx, mw, sw)
+            _, var_p = ref.pfp_dense_ref(mx, sx, mw, sw)
         d = [a.double() for a in (mx, sx, mw, sw)]
         var_64 = d[1] @ d[3] - (d[0] * d[0]) @ (d[2] * d[2])
         torch.cuda.synchronize()
         err_k = float((var_k.double() - var_64).abs().max())
         err_p = float((var_p.double() - var_64).abs().max())
         scale = float(var_64.abs().max())
-        print(f"[kernels] eq12 cancellation {(m, k, n)}: max var {scale:.3e}, "
+        print(f"[kernels] eq12 cancellation {shape}: max var {scale:.3e}, "
               f"kernel err {err_k:.3e}, fp32 plain err {err_p:.3e}")
         if err_k > 4 * max(err_p, 1e-12):
-            fail(f"Eq. 12 cancellation at {(m, k, n)}: kernel err {err_k:.3e} "
+            fail(f"Eq. 12 cancellation at {shape}: kernel err {err_k:.3e} "
                  f"> 4 x plain err {err_p:.3e}")
 
 
@@ -945,15 +1048,52 @@ def phase_lm(device):
     return launches, info, cfg, model
 
 
-def _decode_requests(cfg, seed):
-    """DECODE_REQUESTS requests: prompt lengths, new-token counts and token
-    ids drawn from ``seed``."""
+def compare_routes(label, got, want, seq):
+    """The kernel impl's routing (``got``, a list of ``Routing`` per MoE
+    call) against the eager impl's (``want``), before any logits are
+    compared. Token t of a call lies in batch row t // ``seq``. A token
+    whose expert ids differ at a top-k margin above NEAR_TIE fails the run;
+    at a near tie it is printed and its row returned, to be left out of the
+    logits comparison, with the rows whose keep mask changed because of it.
+    Returns (set of rows, smallest top-k margin)."""
+    import torch
+    from repro_torch.nn.moe import top_k_margin
+    if len(got) != len(want):
+        fail(f"{label}: {len(got)} vs {len(want)} MoE calls")
+    rows, smallest = set(), float("inf")
+    for call, (a, b) in enumerate(zip(got, want)):
+        k = a.expert_idx.shape[-1]
+        margin = torch.minimum(top_k_margin(a.probs, k),
+                               top_k_margin(b.probs, k))
+        smallest = min(smallest, float(margin.min()))
+        ids = (a.expert_idx != b.expert_idx).any(-1)
+        for t in ids.nonzero().flatten().tolist():
+            m = float(margin[t])
+            if m > NEAR_TIE:
+                fail(f"{label}: routing mismatch in MoE call {call} at token "
+                     f"{t}: kernel {a.expert_idx[t].tolist()}, eager "
+                     f"{b.expert_idx[t].tolist()}, top-{k} margin {m:.3e} "
+                     f"> {NEAR_TIE}")
+            print(f"[routing] {label}: MoE call {call}, token {t}: experts "
+                  f"differ at a near tie (top-{k} margin {m:.3e})")
+            rows.add(t // seq)
+        keep = (a.keep != b.keep).reshape(-1, k).any(-1)
+        if keep.any() and not ids.any():
+            fail(f"{label}: keep masks differ in MoE call {call} with the "
+                 f"same expert ids")
+        rows |= {t // seq for t in keep.nonzero().flatten().tolist()}
+    return rows, smallest
+
+
+def _decode_requests(cfg, seed, prompt_lens=PROMPT_LENS):
+    """DECODE_REQUESTS requests: prompt lengths (in ``prompt_lens``),
+    new-token counts and token ids drawn from ``seed``."""
     import numpy as np
     from repro_torch.serving.batcher import Request
     rng = np.random.default_rng(seed)
     out = []
     for uid in range(DECODE_REQUESTS):
-        n = int(rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1))
+        n = int(rng.integers(prompt_lens[0], prompt_lens[1] + 1))
         out.append(Request(
             uid=uid, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
             max_new_tokens=int(rng.integers(NEW_TOKENS[0],
@@ -995,6 +1135,7 @@ def _serve(cfg, model, requests, device, paged, seed):
     from repro_torch.core.modes import Mode
     from repro_torch.models import lm
     from repro_torch.nn.module import Context
+    from repro_torch.nn.moe import record_routing
     from repro_torch.serving.batcher import Batcher
     from repro_torch.serving.decode import uncertainty_decode
     from repro_torch.serving.engine import (DecodeStatePool,
@@ -1014,6 +1155,7 @@ def _serve(cfg, model, requests, device, paged, seed):
     last_token = np.zeros(DECODE_SLOTS, np.int64)
     prefill_t, step_t = _Timer(), _Timer()
     finished, steps, last_logits = [], 0, None
+    routes = {"prefill": [], "step": []}   # MoE routing, for drop counts
 
     def record(slot, out, row):
         done = batcher.record(slot, int(out.token[row]),
@@ -1052,8 +1194,9 @@ def _serve(cfg, model, requests, device, paged, seed):
         for slot, req in batcher.fill_slots():
             if pool.alloc(req.uid) != slot:
                 fail("decode: pool and batcher disagree on the slot")
-            with prefill_t:
+            with prefill_t, record_routing() as log:
                 last = prefill(slot, req.prompt)
+            routes["prefill"] += log
             pool.positions[slot] = len(req.prompt)
             record(slot, uncertainty_decode(last.mean, last.var, gen), 0)
         live = [slot for slot, _ in batcher.active()]
@@ -1067,12 +1210,14 @@ def _serve(cfg, model, requests, device, paged, seed):
                   "cache_len": np.where(active, positions + 1, 0)}
         if paged:
             for slot in live:
-                if not pool.ensure_capacity(slot, int(positions[slot]) + 1):
+                if not pool.ensure_capacity(slot,
+                                            int(positions[slot]) + 1):
                     fail("decode: the page pool ran out of pages")
             inputs["page_table"] = pool.device_table()
-        with step_t:
+        with step_t, record_routing() as log:
             logits, pool.states = lm.decode_step(model, cfg, inputs,
                                                  pool.states, ctx)
+        routes["step"] += log
         steps += 1
         out = uncertainty_decode(logits.mean, logits.var, gen)
         last_logits = (logits.mean.clone(), logits.var.clone())
@@ -1084,10 +1229,15 @@ def _serve(cfg, model, requests, device, paged, seed):
     if pool.live or (paged and pool.live_pages):
         fail(f"decode: slots {pool.live} / pages "
              f"{pool.live_pages if paged else 0} live after the drain")
+    # MoE drop accounting (assignments dropped past capacity, of those
+    # routed) over the prefills and over the decode steps.
+    drops = {k: (sum(int((~r.keep).sum()) for r in v),
+                 sum(r.keep.numel() for r in v)) for k, v in routes.items()}
     return {"pool": "paged" if paged else "contiguous",
             "finished": sorted(finished, key=lambda r: r.uid),
             "steps": steps, "prefill_ms": prefill_t.ms(),
-            "step_ms": step_t.ms(), "last_logits": last_logits}
+            "step_ms": step_t.ms(), "last_logits": last_logits,
+            "moe_drops": drops}
 
 
 def _teacher_forced(cfg, model, requests, device):
@@ -1099,25 +1249,38 @@ def _teacher_forced(cfg, model, requests, device):
     from repro_torch.core.modes import Mode
     from repro_torch.models import lm
     from repro_torch.nn.module import Context
+    from repro_torch.nn.moe import record_routing
     errs = [0.0, 0.0]
     n_req, n_tok = TEACHER_FORCED
+    compared = 0
     for req in requests[:n_req]:
         fed = np.asarray(req.generated[:n_tok], np.int64)
-        outs = {}
+        outs, routes = {}, {}
         for impl in ("kernel", "eager"):
             ctx = Context(mode=Mode.PFP, impl=impl, device=device)
-            last, states = lm.prefill(model, cfg,
-                                      {"tokens": req.prompt[None]}, ctx,
-                                      DECODE_MAX_LEN)
-            logits = [last]
-            for i, tok in enumerate(fed):
-                pos = len(req.prompt) + i
-                step, states = lm.decode_step(
-                    model, cfg, {"tokens": np.asarray([[tok]]),
-                                 "positions": np.asarray([[pos]])},
-                    states, ctx)
-                logits.append(step)
+            with record_routing() as routes[impl]:
+                last, states = lm.prefill(model, cfg,
+                                          {"tokens": req.prompt[None]}, ctx,
+                                          DECODE_MAX_LEN)
+                logits = [last]
+                for i, tok in enumerate(fed):
+                    pos = len(req.prompt) + i
+                    step, states = lm.decode_step(
+                        model, cfg, {"tokens": np.asarray([[tok]]),
+                                     "positions": np.asarray([[pos]])},
+                        states, ctx)
+                    logits.append(step)
             outs[impl] = logits
+        # Each call's routing is over this one request's tokens (batch 1).
+        flipped = set()
+        for call, (a, b) in enumerate(zip(routes["kernel"], routes["eager"])):
+            flipped |= compare_routes(f"decode uid {req.uid} call {call}",
+                                      [a], [b], a.expert_idx.shape[0])[0]
+        if flipped:
+            print(f"[decode] uid {req.uid}: routing flipped at a near tie; "
+                  f"its logits are not compared")
+            continue
+        compared += 1
         for got, want in zip(outs["kernel"], outs["eager"]):
             for i, part in enumerate(("mean", "var")):
                 g, w = getattr(got, part), getattr(want, part)
@@ -1128,13 +1291,18 @@ def _teacher_forced(cfg, model, requests, device):
                          f"logits, max abs err "
                          f"{float((g - w).abs().max()):.3e}")
                 errs[i] = max(errs[i], float((g - w).abs().max()))
+    if not compared:
+        fail("decode: no teacher-forced request left to compare")
     return errs
 
 
-def phase_decode(device, cfg, model, seed):
+def phase_decode(device, cfg, model, seed, *, prompt_lens=PROMPT_LENS,
+                 kernels=DECODE_KERNELS, tag="decode"):
     """The decode path through both pools; launch counts per run, the
     paged-vs-contiguous and kernel-vs-eager checks, times and a profile of
-    one decode step."""
+    one decode step. Every kernel of ``kernels`` must launch in each pool's
+    run (the cache kernel in the contiguous one, the paged kernel in the
+    paged one)."""
     import numpy as np
     import torch
     from repro_torch.core.modes import Mode
@@ -1142,14 +1310,14 @@ def phase_decode(device, cfg, model, seed):
     from repro_torch.models import lm
     from repro_torch.nn.module import Context
 
-    requests = _decode_requests(cfg, seed)
+    requests = _decode_requests(cfg, seed, prompt_lens)
     # Every decode step streams each dense weight's mean and SRM once (the
     # embedding is gathered, not streamed): the dense kernels' bound.
     weight_bytes = 8 * (cfg.param_count() - cfg.vocab_size * cfg.d_model)
-    print(f"[decode] a decode step reads {weight_bytes / 1e9:.3f} GB of "
+    print(f"[{tag}] a decode step reads {weight_bytes / 1e9:.3f} GB of "
           f"dense weight means and SRMs: bound "
           f"{weight_bytes / PEAK_BYTES * 1e3:.4f} ms")
-    print(f"[decode] {DECODE_REQUESTS} requests, prompts "
+    print(f"[{tag}] {DECODE_REQUESTS} requests, prompts "
           f"{[len(r.prompt) for r in requests]}, new tokens "
           f"{[r.max_new_tokens for r in requests]}; {DECODE_SLOTS} slots of "
           f"{DECODE_MAX_LEN} rows")
@@ -1160,39 +1328,47 @@ def phase_decode(device, cfg, model, seed):
         run = _serve(cfg, model, requests, device, paged, seed)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = {k: LAUNCHES[k] for k in DECODE_KERNELS}
+        counts = {k: LAUNCHES[k] for k in kernels}
         name = run["pool"]
         runs[name], launches[name] = run, counts
         tokens = sum(len(r.generated) for r in run["finished"])
-        print(f"[decode] {name}: {len(run['finished'])} requests finished "
+        print(f"[{tag}] {name}: {len(run['finished'])} requests finished "
               f"({', '.join(sorted({r.finish_reason for r in run['finished']}))}"
               f"), {tokens} tokens in {run['steps']} lockstep steps, "
               f"{seconds:.2f} s; step {np.mean(run['step_ms']):.3f} ms mean "
               f"(CUDA events, {len(run['step_ms'])} steps), prefill "
               f"{np.mean(run['prefill_ms']):.2f} ms per prompt; launches "
               f"{counts}")
+        if "dense_batched" in kernels:
+            print(f"[{tag}] {name}: moe_dropped / moe_assignments: prefills "
+                  f"{run['moe_drops']['prefill']}, decode steps "
+                  f"{run['moe_drops']['step']}")
         if len(run["finished"]) != DECODE_REQUESTS:
-            fail(f"decode {name}: {len(run['finished'])} of "
+            fail(f"{tag} {name}: {len(run['finished'])} of "
                  f"{DECODE_REQUESTS} requests finished")
     cont, paged = runs["contiguous"], runs["paged"]
-    if launches["contiguous"]["attention_cache"] == 0 or \
-            launches["paged"]["attention_paged"] == 0:
-        fail(f"decode: cache kernels not launched: {launches}")
+    for name, other in (("contiguous", "attention_paged"),
+                        ("paged", "attention_cache")):
+        missing = [k for k in kernels if k != other
+                   and launches[name][k] == 0]
+        if missing:
+            fail(f"{tag}: kernels never launched on the {name} pool: "
+                 f"{missing}")
     for a, b in zip(cont["finished"], paged["finished"]):
         if a.generated != b.generated:
-            fail(f"decode uid {a.uid}: paged tokens {b.generated} != "
+            fail(f"{tag} uid {a.uid}: paged tokens {b.generated} != "
                  f"contiguous {a.generated}")
     if not all(torch.equal(a, b) for a, b in zip(cont["last_logits"],
                                                  paged["last_logits"])):
-        fail("decode: paged and contiguous last-step logits differ")
-    print("[decode] paged and contiguous: identical tokens, bit-identical "
-          "last-step logits")
+        fail(f"{tag}: paged and contiguous last-step logits differ")
+    print(f"[{tag}] paged and contiguous: identical tokens, "
+          f"bit-identical last-step logits")
     for r in cont["finished"]:
-        print(f"[decode]   uid {r.uid}: {len(r.prompt)} + "
+        print(f"[{tag}]   uid {r.uid}: {len(r.prompt)} + "
               f"{len(r.generated)} tokens ({r.finish_reason}), mean MI "
               f"{np.mean(r.mi_trace):.4e}, first tokens {r.generated[:6]}")
     tf = _teacher_forced(cfg, model, cont["finished"], device)
-    print(f"[decode] teacher-forced kernel vs eager logits ("
+    print(f"[{tag}] teacher-forced kernel vs eager logits ("
           f"{TEACHER_FORCED[0]} requests, prefill + {TEACHER_FORCED[1]} "
           f"tokens): max abs err mean {tf[0]:.3e}, var {tf[1]:.3e}")
 
@@ -1213,7 +1389,7 @@ def phase_decode(device, cfg, model, seed):
     lm.prefill(model, cfg, {"tokens": requests[0].prompt[None]}, ctx,
                DECODE_MAX_LEN)
     per_step["prefill"] = {k: v for k, v in LAUNCHES.items() if v}
-    print(f"[decode] launches per contiguous decode step "
+    print(f"[{tag}] launches per contiguous decode step "
           f"{per_step['decode_step']}; per prefill {per_step['prefill']}")
     profile = _profile(f"{cfg.name} decode step B={DECODE_SLOTS}",
                        lambda: lm.decode_step(model, cfg, step_inputs, states,
@@ -1230,9 +1406,202 @@ def phase_decode(device, cfg, model, seed):
         "step_weight_bytes": weight_bytes,
         "step_bound_ms": weight_bytes / PEAK_BYTES * 1e3,
     }
+    info["moe_drops"] = {k: v["moe_drops"] for k, v in runs.items()}
     total = {k: launches["contiguous"][k] + launches["paged"][k]
-             for k in DECODE_KERNELS}
+             for k in kernels}
     return total, info
+
+
+def moe_config():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS,
+                               sigma_init=1e-3)
+
+
+def _moe_model(device):
+    """deepseek-moe-16b at full width, cut to MOE_LAYERS layers: random
+    variational weights drawn on the card from a seed, converted to PFP."""
+    import torch
+    from repro_torch.bayes.convert import svi_to_pfp
+    from repro_torch.models import lm
+    cfg = moe_config()
+    variational = lm.init_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(0),
+        device=device)
+    model = svi_to_pfp(variational, calibration_factor=CALIBRATION)
+    del variational
+    return cfg, model
+
+
+def _moe_forward_check(label, cfg, model, tokens, device, formulation,
+                       kernel_out, kernel_routes):
+    """The eager impl on the same tokens: routing compared first, then the
+    logits of the rows the routing left comparable, at model tolerance.
+    Returns (max abs err mean, var, rows left out, smallest margin)."""
+    import torch
+    from repro_torch.core.modes import Mode
+    from repro_torch.models import lm
+    from repro_torch.nn.module import Context
+    from repro_torch.nn.moe import record_routing
+    ctx = Context(mode=Mode.PFP, impl="eager", formulation=formulation,
+                  device=device)
+    with record_routing() as eager_routes:
+        ref_out, _, _ = lm.forward(model, cfg, {"tokens": tokens}, ctx)
+    rows, margin = compare_routes(label, kernel_routes, eager_routes,
+                                  tokens.shape[1])
+    keep = [b for b in range(tokens.shape[0]) if b not in rows]
+    if not keep:
+        fail(f"{label}: no batch row left with the same routing")
+    errs = []
+    for part in ("mean", "var"):
+        got, want = getattr(kernel_out, part), getattr(ref_out, part)
+        if tuple(got.shape) != (*tokens.shape, cfg.vocab_size) or \
+                not torch.isfinite(got).all():
+            fail(f"{label} {part}: bad logits {tuple(got.shape)}")
+        got, want = got[keep], want[keep]
+        rtol, atol = MODEL_TOL[part]
+        err = float((got - want).abs().max())
+        errs.append(err)
+        if not torch.allclose(got, want, rtol=rtol, atol=atol):
+            fail(f"{label} {part} kernel vs eager: max abs err {err:.3e}")
+    if float(kernel_out.var.min()) <= 0:
+        fail(f"{label}: non-positive logit variance")
+    print(f"[moe] {label}: routing equal in {len(kernel_routes)} MoE calls"
+          f"{f' but rows {sorted(rows)}' if rows else ''} (smallest top-"
+          f"{cfg.top_k} margin {margin:.3e}); kernel vs eager logits of rows "
+          f"{keep}: max abs err mean {errs[0]:.3e}, var {errs[1]:.3e}")
+    return errs[0], errs[1], sorted(rows), margin
+
+
+def phase_moe(device):
+    """The MoE path: (a) deepseek-moe-16b PFP forwards (Eq. 12) with the
+    kernels, next token and Eq. 1-3 at the last position; (b) one forward
+    with formulation="var" (Eq. 7). Each held against impl="eager" after
+    the routing comparison; the batched expert kernel must launch."""
+    import torch
+    from repro_torch.bayes import metrics
+    from repro_torch.core.modes import Mode
+    from repro_torch.kernels._launch import LAUNCHES, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.nn.module import Context
+    from repro_torch.nn.moe import record_routing
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model = _moe_model(device)
+    torch.cuda.synchronize()
+    moe_layers = sum(cfg.layer_kind(i) == "moe" for i in range(cfg.num_layers))
+    print(f"[moe] {cfg.name}: d_model {cfg.d_model}, {cfg.num_heads} heads "
+          f"of {cfg.head_dim}, {cfg.num_experts} routed experts top-"
+          f"{cfg.top_k} + {cfg.num_shared_experts} shared, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, {cfg.num_layers} layers (cut from 28: "
+          f"layer 0 dense, {moe_layers} MoE); {cfg.param_count() / 1e6:.1f} "
+          f"M weights drawn on the card and converted in "
+          f"{time.perf_counter() - t0:.2f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    requests = _lm_requests(cfg, device)
+    info = {"formulations": {}}
+    launches = {}
+    for formulation, reqs in (("srm", requests), ("var", requests[:1])):
+        # Eq. 7 runs the dense kernels' var modes.
+        path = [k + "_var" if formulation == "var" and k.startswith("dense")
+                else k for k in MOE_KERNELS]
+        kernel = path[-1]
+        ctx = Context(mode=Mode.PFP, impl="kernel", formulation=formulation,
+                      device=device)
+        outs = []
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with record_routing() as routes:
+            for tokens in reqs:
+                logits, aux, _ = lm.forward(model, cfg, {"tokens": tokens},
+                                            ctx)
+                last_mu, last_var = logits.mean[:, -1], logits.var[:, -1]
+                gen = torch.Generator(device=device).manual_seed(1)
+                unc = metrics.pfp_predictive_metrics(gen, last_mu, last_var,
+                                                     100)
+                outs.append((logits, aux, torch.argmax(last_mu, dim=-1),
+                             unc))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: v for k, v in LAUNCHES.items() if v}
+        launches[formulation] = counts
+        missing = [k for k in path if counts.get(k, 0) == 0]
+        want = len(reqs) * 3 * moe_layers
+        print(f"[moe] {formulation}: {len(reqs)} requests of {LM_BATCH} x "
+              f"{LM_SEQ} tokens in {seconds:.3f} s (first calls included); "
+              f"launches {counts}")
+        if missing or counts.get(kernel) != want:
+            fail(f"MoE {formulation}: kernels never launched {missing}, or "
+                 f"{kernel} launched {counts.get(kernel)} times, not {want}")
+        for i, (_, aux, next_tok, unc) in enumerate(outs):
+            print(f"[moe] {formulation} request {i}: next tokens "
+                  f"{next_tok.tolist()}, MI "
+                  + ", ".join(f"{float(v):.4e}" for v in unc["mi"])
+                  + f"; moe_dropped {float(aux['moe_dropped']):.0f} of "
+                  f"{float(aux['moe_assignments']):.0f} assignments, loss "
+                  f"{float(aux['loss']):.4f}")
+        # Request i's MoE calls are entries i * moe_layers onwards of the
+        # log; every request is held against eager.
+        checks = [_moe_forward_check(
+            f"{formulation} request {i}", cfg, model, tokens, device,
+            formulation, out[0], routes[i * moe_layers:(i + 1) * moe_layers])
+            for i, (tokens, out) in enumerate(zip(reqs, outs))]
+        info["formulations"][formulation] = {
+            "seconds": seconds, "launches": counts,
+            "errors": [c[:2] for c in checks],
+            "rows_left_out": [c[2] for c in checks],
+            "smallest_margin": min(c[3] for c in checks),
+            "next_tokens": [o[2].tolist() for o in outs],
+            "mi": [o[3]["mi"].tolist() for o in outs],
+            "moe_dropped": [float(o[1]["moe_dropped"]) for o in outs],
+            "moe_assignments": [float(o[1]["moe_assignments"])
+                                for o in outs]}
+        del outs
+    info["peak_gb_forward"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[moe] peak memory after the forwards "
+          f"{info['peak_gb_forward']:.2f} GB")
+    return launches, info, cfg, model
+
+
+def phase_moe_times(device, cfg, model):
+    """The batched kernels at the MoE shapes (device times beside plain,
+    library and bound, and the eager call), and the MoE forward eager and
+    in a CUDA graph."""
+    import torch
+    from repro_torch.core.modes import Mode
+    from repro_torch.models import lm
+    from repro_torch.nn.module import Context
+    rows = []
+    for kernel in BATCHED_KERNELS:
+        for shape in MOE_SHAPES:
+            big = shape[1] > 100    # ~0.27 TFLOP a call
+            rows.append(_time_row("moe", kernel, shape, device,
+                                  inner=2 if big else 10,
+                                  replays=2 if big else 5,
+                                  call_iters=3 if big else 30))
+    tokens = _lm_requests(cfg, device)[0]
+    row = {"batch": LM_BATCH, "seq": LM_SEQ, "model": cfg.name}
+    for impl, iters in (("kernel", 3), ("eager", 2)):
+        ctx = Context(mode=Mode.PFP, impl=impl, device=device)
+        row[f"{impl}_ms"] = time_ms(
+            lambda: lm.forward(model, cfg, {"tokens": tokens}, ctx),
+            iters=iters, warmup=1)
+    ctx = Context(mode=Mode.PFP, impl="kernel", device=device)
+    row["kernel_graph_ms"] = device_ms(
+        lambda: lm.forward(model, cfg, {"tokens": tokens}, ctx),
+        inner=1, replays=3)
+    row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[times] forward {cfg.name} ({cfg.num_layers} layers) B={LM_BATCH}"
+          f" T={LM_SEQ} kernel {row['kernel_ms']:.2f} ms  eager "
+          f"{row['eager_ms']:.2f} ms  kernel in a CUDA graph "
+          f"{row['kernel_graph_ms']:.2f} ms; peak memory {row['peak_gb']:.2f}"
+          f" GB")
+    profile = _profile(f"{cfg.name} B={LM_BATCH} T={LM_SEQ}",
+                       lambda: lm.forward(model, cfg, {"tokens": tokens},
+                                          ctx), 2, 1)
+    return rows, row, profile
 
 
 def _time_row(label, kernel, shape, device, inner=10, replays=5,
@@ -1350,7 +1719,7 @@ def _profile(label, fn, reps, warmup):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
-        print("[profile] the profiler saw no device time")
+        print(f"[profile] {label}: the profiler saw no device time")
         return None
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     print(f"[profile] {label}, {reps} forwards: wall {wall_ms / reps:.4f} ms, "
@@ -1381,9 +1750,8 @@ def phase_profile(device, lm_cfg, lm_model, reps=10):
             xin = _requests(name, x)
             row = _profile(f"{name:6s} B={batch:<5d}", lambda: model(xin, ctx),
                            reps, 3)
-            if row is None:
-                return []
-            out.append({"model": name, "batch": batch, **row})
+            if row is not None:
+                out.append({"model": name, "batch": batch, **row})
     tokens = _lm_requests(lm_cfg, device)[0]
     row = _profile(f"{lm_cfg.name} B={LM_BATCH} T={LM_SEQ}",
                    lambda: lm.forward(lm_model, lm_cfg, {"tokens": tokens},
@@ -1393,13 +1761,23 @@ def phase_profile(device, lm_cfg, lm_model, reps=10):
     return out
 
 
-def kernel_summary(rows, launches, errs, lm_cfg):
+def moe_path_calls(cfg, shapes):
+    """The batched expert kernel's calls in one MoE forward or decode step:
+    up, gate and down per MoE layer; ``shapes`` is (up, down)."""
+    moe_layers = sum(cfg.layer_kind(i) == "moe" for i in range(cfg.num_layers))
+    return [shapes[0], shapes[0], shapes[1]] * moe_layers
+
+
+def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg):
     """Per kernel: for the CNN path's kernels, its calls at batch 100,
     times and bounds summed over one LeNet-5 and one MLP forward (Eq. 12
     forwards; Eq. 7 for dense_var); for the LM's norm, GLU and attention,
     its calls in one LM forward (layernorm, on no path: one call at the
     LM's norm shape); for the cache kernels, their calls in one decode
-    step at CACHE_DECODE, with one call at CACHE_PREFILL beside.
+    step at CACHE_DECODE, with one call at CACHE_PREFILL beside; for the
+    batched expert kernels, their calls in one MoE forward of 4 x 512
+    tokens (dense_batched_first_layer, on no path: one call at the expert
+    up shape), with one MoE decode step's calls beside.
     ``launches`` sums the paths' runs."""
     cnn = {(r["kernel"], tuple(r["shape"])): r for r in rows
            if r["batch"] == MAIN_BATCH}
@@ -1407,10 +1785,37 @@ def kernel_summary(rows, launches, errs, lm_cfg):
            if r["batch"] == "lm"}
     cache = {(r["kernel"], r["batch"]): r for r in rows
              if r["kernel"] in CACHE_KERNELS}
+    moer = {(r["kernel"], tuple(r["shape"])): r for r in rows
+            if r["batch"] == "moe"}
+
+    def summed(kernel, calls):
+        """Times, library time and bound summed over ``calls``."""
+        lib = [r["library_ms"] for r in calls]
+        out = {"ms": sum(r["ms"] for r in calls),
+               "plain_ms": sum(r["plain_ms"] for r in calls),
+               "library_ms": None if None in lib else sum(lib)}
+        t_bytes = t_ops = 0.0
+        for r in calls:
+            nbytes, ops = work(kernel, tuple(r["shape"]))
+            t_bytes += nbytes / PEAK_BYTES * 1e3
+            t_ops += ops / PEAK_FP32 * 1e3
+        out["bound_ms"] = max(t_bytes, t_ops)
+        out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        return out
+
     out = []
     for kernel, (source, replaces) in KERNELS.items():
         extra = {}
-        if kernel in CACHE_KERNELS:
+        if kernel in BATCHED_KERNELS:
+            if kernel == "dense_batched_first_layer":
+                calls = [moer[(kernel, MOE_UP)]]
+            else:
+                calls = [moer[(kernel, sh)] for sh in
+                         moe_path_calls(moe_cfg, (MOE_UP, MOE_DOWN))]
+            extra["decode_step"] = summed(kernel, [
+                moer[(kernel, sh)] for sh in
+                moe_path_calls(moe_cfg, (MOE_DECODE_UP, MOE_DECODE_DOWN))])
+        elif kernel in CACHE_KERNELS:
             # One decode step: one call per layer at the decode shape; the
             # prefill shape beside it.
             calls = [cache[(kernel, "decode")]] * lm_cfg.num_layers
@@ -1427,12 +1832,6 @@ def kernel_summary(rows, launches, errs, lm_cfg):
         else:
             calls = [lmr[(k, s)] for k, s in lm_path_calls(lm_cfg)
                      if k == kernel]
-        t_bytes = t_ops = 0.0
-        for r in calls:
-            nbytes, ops = work(kernel, tuple(r["shape"]))
-            t_bytes += nbytes / PEAK_BYTES * 1e3
-            t_ops += ops / PEAK_FP32 * 1e3
-        lib = [r["library_ms"] for r in calls]
         by_path = {path: counts.get(kernel, 0)
                    for path, counts in launches.items()}
         out.append({
@@ -1440,11 +1839,7 @@ def kernel_summary(rows, launches, errs, lm_cfg):
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": errs[kernel],
-            "ms": sum(r["ms"] for r in calls),
-            "plain_ms": sum(r["plain_ms"] for r in calls),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None if None in lib else sum(lib),
+            **summed(kernel, calls),
             "library": LIBRARY.get(kernel),
             **extra,
         })
@@ -1475,11 +1870,28 @@ def main():
     rows, forwards = phase_times(device, lm_cfg, lm_model)
     profile = phase_profile(device, lm_cfg, lm_model)
     del lm_model
-    kernels = kernel_summary(rows, launches, errs, lm_cfg)
+    torch.cuda.empty_cache()
+    moe_launches, moe_info, moe_cfg, moe_model = phase_moe(device)
+    launches["moe"], launches["moe_var"] = (moe_launches["srm"],
+                                            moe_launches["var"])
+    launches["moe_decode"], moe_decode_info = phase_decode(
+        device, moe_cfg, moe_model, args.seed,
+        prompt_lens=(PREFILL_CHUNK, PREFILL_CHUNK),
+        kernels=MOE_DECODE_KERNELS, tag="moe decode")
+    moe_rows, moe_forward, moe_profile = phase_moe_times(device, moe_cfg,
+                                                         moe_model)
+    del moe_model
+    rows += moe_rows
+    forwards.append(moe_forward)
+    if moe_profile is not None:
+        profile.append({"model": moe_cfg.name, "batch": LM_BATCH,
+                        **moe_profile})
+    kernels = kernel_summary(rows, launches, errs, lm_cfg, moe_cfg)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build": build, "kernels": kernels, "times": rows,
          "forwards": forwards, "profile": profile, "lm": lm_info,
-         "decode": decode_info,
+         "decode": decode_info, "moe": moe_info,
+         "moe_decode": moe_decode_info,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

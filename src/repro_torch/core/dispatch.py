@@ -2,9 +2,10 @@
 
 Counterpart of ``repro/core/dispatch.py``, limited to the ops of the
 paper's MLP and LeNet-5 (``dense``, ``conv2d_im2col``, ``activation``,
-``maxpool2d``) and of the dense transformer LM (``rmsnorm``, ``layernorm``,
+``maxpool2d``), of the transformer LM (``rmsnorm``, ``layernorm``,
 ``glu_product``, ``attention``, ``attention_cache``, ``attention_paged``,
-``embedding``, ``residual``). Each op is registered with two impls:
+``embedding``, ``residual``) and of its MoE blocks (``dense_batched``).
+Each op is registered with two impls:
 
   * ``eager``  : pure torch from ``core/pfp_layers.py`` (the JAX package's
     ``xla`` impl);
@@ -16,7 +17,9 @@ The representation contract (compute layers consume SRM and emit VAR,
 activations consume VAR and emit SRM) is enforced here by the public
 functions, as in the reference. The embedding gather and the residual add
 have no kernel in the reference either: both impls share one function.
-The reference's opt-in ``norm_dense_act`` fusion pass is not ported yet.
+The reference's opt-in ``norm_dense_act`` fusion pass and its general
+``einsum`` op (with the depthwise lift onto ``dense_batched``) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -111,6 +114,38 @@ def _add_bias(out: GaussianTensor, b) -> GaussianTensor:
     if is_gaussian(b):
         return GaussianTensor(out.mean + b.mean, out.var + b.var, VAR)
     return GaussianTensor(out.mean + b, out.var, VAR)
+
+
+# ---------------------------------------------------------------------------
+# dense_batched — one PFP dense per expert (the MoE expert MLP)
+# ---------------------------------------------------------------------------
+@register("dense_batched", "eager")
+def _dense_batched_eager(x, w, formulation):
+    return pfp_layers.pfp_einsum("eck,ekn->ecn", x, w, formulation=formulation)
+
+
+@register("dense_batched", "kernel")
+def _dense_batched_kernel(x, w, formulation):
+    dtype = x.dtype
+    if not is_gaussian(x):
+        # Eq. 13 with a leading expert axis, whatever the formulation.
+        mu, var = ops.pfp_dense_batched(x, x, w.mean, w.var, first_layer=True)
+    elif formulation == "var":
+        mu, var = ops.pfp_dense_batched_var(x.mean, x.var, w.mean, w.var)
+    else:
+        mu, var = ops.pfp_dense_batched(x.mean, x.srm, w.mean, w.srm)
+    return GaussianTensor(mu.to(dtype), var.to(dtype), VAR)
+
+
+def pfp_dense_batched(x, w: GaussianTensor, *, formulation: str = "srm",
+                      impl: Optional[str] = None) -> GaussianTensor:
+    """Batched-expert PFP dense: (E, C, K) x (E, K, N) -> (E, C, N), one
+    independent PFP dense per leading index (the MoE expert MLP's
+    'ecd,edf->ecf'). Consumes SRM (VAR for Eq. 7), emits VAR. The kernel
+    impl is one launch over all experts."""
+    _check_formulation(formulation)
+    return get_op("dense_batched", impl)(_to_compute_rep(x, formulation), w,
+                                         formulation)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,12 @@
 // Joint PFP dense kernels for Hopper: Eq. 12 (SRM), Eq. 13 (first layer)
-// and Eq. 7 (var formulation), (M,K) x (K,N) -> mean (M,N), variance (M,N).
+// and Eq. 7 (var formulation), (M,K) x (K,N) -> mean (M,N), variance (M,N),
+// and the same for E independent problems (E,M,K) x (E,K,N) -> (E,M,N).
 //
 // Replaces repro/kernels/pfp_dense.py: pfp_dense_pallas (_dense_kernel,
-// _first_layer_kernel) and pfp_dense_var_pallas (_var_formulation_kernel).
+// _first_layer_kernel) and pfp_dense_var_pallas (_var_formulation_kernel);
+// and repro/kernels/pfp_moe.py: pfp_dense_batched_pallas (_bdense_kernel,
+// _bfirst_layer_kernel) and pfp_dense_batched_var_pallas
+// (_bvar_formulation_kernel), the MoE expert MLP.
 //
 // What bounds it on the H100: on the paper's models K <= 784 and N <= 120,
 // so each output element costs 2-4 products of K terms and the operands
@@ -31,6 +35,22 @@
 //    from 4 to 1 when the grid would otherwise leave the SMs idle.
 //  * Ragged edges are masked here (zero-filled tiles contribute exact zeros
 //    to every accumulator), so the wrapper neither pads nor slices.
+//  * Batched experts: the expert axis is blockIdx.z and each block offsets
+//    its operands by its expert's strides (in 64 bits: the recurrent lift
+//    puts thousands of problems on that axis). The TPU kernel's block_e
+//    groups experts per grid step to amortise step overhead; here blocks
+//    of all experts run at once, so there is nothing to group. The offsets
+//    are a template flag (BATCHED), taken only when E > 1: held in
+//    registers they cost the TM = 4 tile a block per SM, so the single
+//    dense compiles without them. The flag moves only the operands' base,
+//    never the order of a sum, so an expert's slice comes out bit for bit
+//    as the single dense gives it, and a row's result depends neither on
+//    M nor on the other rows (TM and the grid change which thread holds an
+//    output, never the order of its sum).
+//  * At the MoE shapes (deepseek-moe-16b: E 64, K 2048 / 1408, N 1408 /
+//    2048) the work is the fp32 FMA rate at prefill (M = capacity 240) and
+//    the weight stream at decode (M = 6: every expert's mu and srm, 1.48 GB
+//    a product, read once per M tile).
 #include "pfp_common.cuh"
 
 namespace {
@@ -43,12 +63,12 @@ enum Mode { kSrm = 0, kFirstLayer = 1, kVar = 2 };
 
 // xa, xb: mu_x and srm_x (kSrm), x and unused (kFirstLayer), mu_x and var_x
 // (kVar); wa, wb: mu_w and srm_w (kSrm), mu_w and var_w (kFirstLayer, kVar).
-template <int MODE, int BN, int TN, int TM>
+template <int MODE, int BN, int TN, int TM, bool BATCHED>
 __global__ void __launch_bounds__(kThreads)
 pfp_dense_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
                  const float* __restrict__ wa, const float* __restrict__ wb,
                  float* __restrict__ mu_out, float* __restrict__ var_out,
-                 int M, int N, int K) {
+                 int M, int N, int K, long long x_stride, long long w_stride) {
   constexpr int TX = BN / TN;
   constexpr int TY = kThreads / TX;
   constexpr int BM = TY * TM;
@@ -64,6 +84,15 @@ pfp_dense_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
   const int ty = threadIdx.x / TX;
   const long long m0 = static_cast<long long>(blockIdx.x) * BM;
   const int n0 = blockIdx.y * BN;
+  if constexpr (BATCHED) {
+    const long long expert = blockIdx.z;
+    xa += expert * x_stride;
+    xb += expert * x_stride;
+    wa += expert * w_stride;
+    wb += expert * w_stride;
+    mu_out += expert * M * N;
+    var_out += expert * M * N;
+  }
 
   float acc_mu[TM][TN], acc_v[TM][TN];
 #pragma unroll
@@ -150,45 +179,93 @@ pfp_dense_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
   }
 }
 
+// The problem: E independent (M,K) x (K,N) denses, expert e's operands at
+// e * x_stride / e * w_stride floats, its outputs at e * M * N.
+struct Problem {
+  const float *xa, *xb, *wa, *wb;
+  float *mu, *var;
+  int E, M, N, K;
+  long long x_stride, w_stride;
+};
+
 template <int MODE, int BN, int TN, int TM>
-void launch(const float* xa, const float* xb, const float* wa,
-            const float* wb, float* mu, float* var, int M, int N, int K,
-            cudaStream_t stream) {
+void launch(const Problem& p, cudaStream_t stream) {
   constexpr int BM = (kThreads / (BN / TN)) * TM;
-  const dim3 grid(static_cast<unsigned>((M + BM - 1) / BM),
-                  static_cast<unsigned>((N + BN - 1) / BN));
-  pfp_dense_kernel<MODE, BN, TN, TM><<<grid, kThreads, 0, stream>>>(
-      xa, xb, wa, wb, mu, var, M, N, K);
+  const dim3 grid(static_cast<unsigned>((p.M + BM - 1) / BM),
+                  static_cast<unsigned>((p.N + BN - 1) / BN),
+                  static_cast<unsigned>(p.E));
+  if (p.E > 1)
+    pfp_dense_kernel<MODE, BN, TN, TM, true><<<grid, kThreads, 0, stream>>>(
+        p.xa, p.xb, p.wa, p.wb, p.mu, p.var, p.M, p.N, p.K, p.x_stride,
+        p.w_stride);
+  else
+    pfp_dense_kernel<MODE, BN, TN, TM, false><<<grid, kThreads, 0, stream>>>(
+        p.xa, p.xb, p.wa, p.wb, p.mu, p.var, p.M, p.N, p.K, 0, 0);
 }
 
 template <int MODE, int BN, int TN>
-void launch_rows(const float* xa, const float* xb, const float* wa,
-                 const float* wb, float* mu, float* var, int M, int N, int K,
-                 cudaStream_t stream) {
+void launch_rows(const Problem& p, cudaStream_t stream) {
   constexpr int BM4 = (kThreads / (BN / TN)) * 4;
-  const long long blocks4 = static_cast<long long>((M + BM4 - 1) / BM4) *
-                            ((N + BN - 1) / BN);
+  const long long blocks4 = static_cast<long long>((p.M + BM4 - 1) / BM4) *
+                            ((p.N + BN - 1) / BN) * p.E;
   if (blocks4 >= kFillBlocks)
-    launch<MODE, BN, TN, 4>(xa, xb, wa, wb, mu, var, M, N, K, stream);
+    launch<MODE, BN, TN, 4>(p, stream);
   else
-    launch<MODE, BN, TN, 1>(xa, xb, wa, wb, mu, var, M, N, K, stream);
+    launch<MODE, BN, TN, 1>(p, stream);
 }
 
 template <int MODE>
-void launch_mode(const float* xa, const float* xb, const float* wa,
-                 const float* wb, float* mu, float* var, int M, int N, int K,
-                 cudaStream_t stream) {
-  if (N <= 8)
-    launch_rows<MODE, 8, 1>(xa, xb, wa, wb, mu, var, M, N, K, stream);
-  else if (N <= 16)
-    launch_rows<MODE, 16, 1>(xa, xb, wa, wb, mu, var, M, N, K, stream);
-  else if (N <= 32)
-    launch_rows<MODE, 32, 2>(xa, xb, wa, wb, mu, var, M, N, K, stream);
+void launch_mode(const Problem& p, cudaStream_t stream) {
+  if (p.N <= 8)
+    launch_rows<MODE, 8, 1>(p, stream);
+  else if (p.N <= 16)
+    launch_rows<MODE, 16, 1>(p, stream);
+  else if (p.N <= 32)
+    launch_rows<MODE, 32, 2>(p, stream);
   else
-    launch_rows<MODE, 64, 4>(xa, xb, wa, wb, mu, var, M, N, K, stream);
+    launch_rows<MODE, 64, 4>(p, stream);
+}
+
+int launch_problem(int mode, const Problem& p, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kSrm:
+      launch_mode<kSrm>(p, s);
+      break;
+    case kFirstLayer:
+      launch_mode<kFirstLayer>(p, s);
+      break;
+    case kVar:
+      launch_mode<kVar>(p, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return pfp::launch_status();
 }
 
 }  // namespace
+
+// The batched form, rows 12-13 of the TPU kernels: e independent problems,
+// expert i's x operands at i * x_stride floats and its w operands at
+// i * w_stride (fp32, each slice row-major and contiguous); the outputs are
+// contiguous (e, m, n). Modes as below. Requires 1 <= e <= 65535 (the grid's
+// z extent), m, n >= 1 and k >= 0.
+PFP_EXPORT int pfp_dense_batched_launch(int mode, const void* xa,
+                                        const void* xb, const void* wa,
+                                        const void* wb, void* mu, void* var,
+                                        int e, int m, int n, int k,
+                                        long long x_stride,
+                                        long long w_stride, void* stream) {
+  if (e < 1 || e > 65535 || m < 1 || n < 1 || k < 0 || x_stride < 0 ||
+      w_stride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Problem p{static_cast<const float*>(xa), static_cast<const float*>(xb),
+                  static_cast<const float*>(wa), static_cast<const float*>(wb),
+                  static_cast<float*>(mu), static_cast<float*>(var),
+                  e, m, n, k, x_stride, w_stride};
+  return launch_problem(mode, p, stream);
+}
 
 // mode: 0 = Eq. 12 (mu_x, srm_x, mu_w, srm_w), 1 = Eq. 13 (x, unused, mu_w,
 // var_w), 2 = Eq. 7 (mu_x, var_x, mu_w, var_w). All fp32, row-major,
@@ -197,28 +274,8 @@ PFP_EXPORT int pfp_dense_launch(int mode, const void* xa, const void* xb,
                                 const void* wa, const void* wb, void* mu,
                                 void* var, int m, int n, int k,
                                 void* stream) {
-  if (m < 1 || n < 1 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* pxa = static_cast<const float*>(xa);
-  const auto* pxb = static_cast<const float*>(xb);
-  const auto* pwa = static_cast<const float*>(wa);
-  const auto* pwb = static_cast<const float*>(wb);
-  auto* pmu = static_cast<float*>(mu);
-  auto* pvar = static_cast<float*>(var);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kSrm:
-      launch_mode<kSrm>(pxa, pxb, pwa, pwb, pmu, pvar, m, n, k, s);
-      break;
-    case kFirstLayer:
-      launch_mode<kFirstLayer>(pxa, pxb, pwa, pwb, pmu, pvar, m, n, k, s);
-      break;
-    case kVar:
-      launch_mode<kVar>(pxa, pxb, pwa, pwb, pmu, pvar, m, n, k, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return pfp::launch_status();
+  return pfp_dense_batched_launch(mode, xa, xb, wa, wb, mu, var, 1, m, n, k,
+                                  0, 0, stream);
 }
 
 PFP_EXPORT const char* pfp_error_string(int code) {

@@ -25,6 +25,7 @@ from repro_torch.kernels.pfp_attention import (pfp_attention_cache_cuda,
 from repro_torch.kernels.pfp_dense import (MODE_FIRST_LAYER, MODE_SRM,
                                            MODE_VAR, pfp_dense_cuda)
 from repro_torch.kernels.pfp_maxpool import pfp_maxpool2d_cuda
+from repro_torch.kernels.pfp_moe import pfp_dense_batched_cuda
 from repro_torch.kernels.pfp_norms import pfp_norm_cuda
 
 
@@ -58,6 +59,28 @@ def pfp_dense(mu_x, srm_x, mu_w, srm_w, *, first_layer: bool = False):
 def pfp_dense_var(mu_x, var_x, mu_w, var_w):
     """Joint PFP dense, Eq. 7, for (..., K) x (K, N). Returns (mean, var)."""
     return _dense(MODE_VAR, mu_x, var_x, mu_w, var_w)
+
+
+def pfp_dense_batched(mu_x, srm_x, mu_w, srm_w, *, first_layer: bool = False):
+    """Batched-expert joint PFP dense, Eq. 12, for (E, C, K) x (E, K, N):
+    one independent dense per expert. Returns (mean, var), each (E, C, N).
+
+    ``first_layer=True`` is Eq. 13: the operands are read as
+    (x, x, mu_w, var_w)."""
+    if _on_cuda(mu_x):
+        mode = MODE_FIRST_LAYER if first_layer else MODE_SRM
+        return pfp_dense_batched_cuda(mu_x, srm_x, mu_w, srm_w, mode=mode)
+    if first_layer:
+        return ref.pfp_dense_batched_first_layer_ref(mu_x, mu_w, srm_w)
+    return ref.pfp_dense_batched_ref(mu_x, srm_x, mu_w, srm_w)
+
+
+def pfp_dense_batched_var(mu_x, var_x, mu_w, var_w):
+    """Batched-expert joint PFP dense, Eq. 7, for (E, C, K) x (E, K, N).
+    Returns (mean, var), each (E, C, N)."""
+    if _on_cuda(mu_x):
+        return pfp_dense_batched_cuda(mu_x, var_x, mu_w, var_w, mode=MODE_VAR)
+    return ref.pfp_dense_batched_var_ref(mu_x, var_x, mu_w, var_w)
 
 
 def pfp_activation(mu, var, *, kind: str = "relu"):

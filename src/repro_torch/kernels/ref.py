@@ -38,6 +38,15 @@ def pfp_dense_var_ref(mu_x, var_x, mu_w, var_w):
     return mu, var
 
 
+# The batched-expert dense: the same formulas with a leading expert axis,
+# (E,C,K) x (E,K,N) -> (E,C,N), one independent product per expert. ``@``
+# batches over that axis (the reference vmaps its 2-D versions), so the
+# 2-D functions above are the batched ones.
+pfp_dense_batched_ref = pfp_dense_ref
+pfp_dense_batched_first_layer_ref = pfp_dense_first_layer_ref
+pfp_dense_batched_var_ref = pfp_dense_var_ref
+
+
 ACTIVATION_REFS = {
     "relu": pfp_math.relu_moments,
     "gelu": pfp_math.gelu_moments,

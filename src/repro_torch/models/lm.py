@@ -1,13 +1,16 @@
-"""Decoder LM: the dense transformer family (granite, llama-style).
+"""Decoder LM: the dense transformer (granite, llama-style) and the
+mixture-of-experts family (deepseek-moe, llama4-scout).
 
-Counterpart of ``repro/models/lm.py`` for ``attn`` blocks: token embedding,
-a stack of pre-norm blocks (norm -> attention -> residual, norm -> MLP ->
-residual), the final norm and the LM head. One set of Bayesian leaves
-serves DETERMINISTIC and PFP.
+Counterpart of ``repro/models/lm.py`` for ``attn`` and ``moe`` blocks:
+token embedding, leading dense-FFN layers (``head{i}``, DeepSeekMoE's first
+layer), the stacked layer groups of ``cfg.pattern``, an unstacked tail
+(``tail{i}``) where the layers do not tile, the final norm and the LM head.
+Every block is pre-norm: norm -> attention -> residual, norm -> MLP (or
+MoE) -> residual. One set of Bayesian leaves serves DETERMINISTIC and PFP.
 
-The reference scans a stacked layer group (``params['stack']``, leading
-axis = layer); here the layers are an ``nn.ModuleList`` of groups run by a
-Python loop, and ``load_numpy_params`` carries the stacked tree across.
+The reference scans the stacked groups (``params['stack']``, leading axis =
+group); here they are an ``nn.ModuleList`` run by a Python loop, and
+``load_numpy_params`` carries the stacked tree across.
 
 The same definition serves three programs, as in the reference:
 
@@ -16,11 +19,11 @@ The same definition serves three programs, as in the reference:
   decode_step()  a step against per-layer decode state (one token, or a
                  chunk of tokens under a paged page table)
 
-Decode state keeps the reference's tree: ``{'stack': {'b0': KVCache}}``,
-every leaf with a leading layer-group axis, so the slot helpers work along
-the same axes (``_state_batch_axis``). Speculative drafting and the MoE,
-recurrent, SSM and cross-attention blocks come with later slices
-(ROADMAP.md).
+Decode state keeps the reference's tree: ``{'head0': KVCache, 'stack':
+{'b0': KVCache}}``, stack leaves with a leading layer-group axis, so the
+slot helpers work along the same axes (``_state_batch_axis``). Speculative
+drafting and the recurrent, SSM and cross-attention blocks come with later
+slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -40,31 +43,64 @@ from repro_torch.nn.layers import (NORMS, dense_init, embedding_init,
                                    residual_add, sinusoidal_embedding)
 from repro_torch.nn.mlp import MLPBlock
 from repro_torch.nn.module import Context
+from repro_torch.nn.moe import MoE, moe_apply, zero_aux
+
+FAMILIES = ("dense", "moe")
 
 
 class Block(nn.Module):
-    """One ``attn`` block: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """One block: ``ln1``, ``attn``, ``ln2``, then ``mlp`` (kind ``attn``)
+    or ``moe`` (kind ``moe``)."""
 
-    def __init__(self, cfg: ModelConfig, *, generator, device):
+    def __init__(self, cfg: ModelConfig, kind: str, *, generator, device):
         super().__init__()
+        self.kind = kind
         kw = dict(sigma_init=cfg.sigma_init, generator=generator,
                   device=device)
         self.ln1 = NORMS[cfg.norm](cfg.d_model, device=device)
         self.attn = Attention(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                               cfg.head_dim, **kw)
         self.ln2 = NORMS[cfg.norm](cfg.d_model, device=device)
-        self.mlp = MLPBlock(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp, **kw)
+        if kind == "moe":
+            self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.num_experts,
+                           num_shared=cfg.num_shared_experts,
+                           gated=cfg.gated_mlp, **kw)
+        else:
+            self.mlp = MLPBlock(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
+                                **kw)
+
+
+def _group_counts(cfg: ModelConfig):
+    """(blocks per group, stacked groups, tail layers) after the
+    ``first_dense_layers`` head layers."""
+    lpg = len(cfg.pattern)
+    groups = (cfg.num_layers - cfg.first_dense_layers) // lpg
+    tail = cfg.num_layers - cfg.first_dense_layers - groups * lpg
+    return lpg, groups, tail
+
+
+def _layers(cfg: ModelConfig):
+    """Every layer in order: (name, kind, stack group or None). Stacked
+    layers are named ``b{i}`` and sit in group ``g``; head and tail layers
+    are named ``head{i}`` / ``tail{i}``."""
+    lpg, groups, tail = _group_counts(cfg)
+    out = [(f"head{i}", "attn", None) for i in range(cfg.first_dense_layers)]
+    out += [(f"b{i}", cfg.pattern[i], g) for g in range(groups)
+            for i in range(lpg)]
+    out += [(f"tail{i}", cfg.pattern[i % lpg], None) for i in range(tail)]
+    return out
 
 
 class LM(nn.Module):
-    """``embed``, ``stack`` (one group of ``cfg.pattern`` blocks per
-    layer), ``ln_f``, ``lm_head``: the reference's parameter paths."""
+    """``embed``, ``head{i}``, ``stack`` (one group of ``cfg.pattern``
+    blocks each), ``tail{i}``, ``ln_f``, ``lm_head``: the reference's
+    parameter paths."""
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator] = None,
                  device: DeviceLike = None):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"the {cfg.family!r} family is not ported yet (ROADMAP.md)")
         device = resolve_device(device)
@@ -73,10 +109,15 @@ class LM(nn.Module):
         self.embed = embedding_init(cfg.vocab_size, cfg.d_model,
                                     sigma_init=cfg.sigma_init, generator=g,
                                     device=device)
-        self.stack = nn.ModuleList(
-            nn.ModuleDict({f"b{i}": Block(cfg, generator=g, device=device)
-                           for i in range(len(cfg.pattern))})
-            for _ in range(cfg.num_layers // len(cfg.pattern)))
+        _, groups, _ = _group_counts(cfg)
+        if groups:
+            self.stack = nn.ModuleList(nn.ModuleDict() for _ in range(groups))
+        for name, kind, group in _layers(cfg):
+            block = Block(cfg, kind, generator=g, device=device)
+            if group is None:
+                setattr(self, name, block)
+            else:
+                self.stack[group][name] = block
         self.ln_f = NORMS[cfg.norm](cfg.d_model, device=device)
         self.lm_head = dense_init(cfg.d_model, cfg.vocab_size,
                                   sigma_init=cfg.sigma_init, generator=g,
@@ -94,17 +135,12 @@ def init_params(cfg: ModelConfig, *,
     return LM(cfg, generator=generator, device=device)
 
 
-def zero_aux(device) -> dict:
-    """The MoE aux dict the reference's forward returns; zero for dense
-    blocks."""
-    z = torch.zeros((), dtype=torch.float32, device=device)
-    return {"loss": z, "moe_dropped": z, "moe_assignments": z}
-
-
 def _block_apply(block: Block, x, ctx: Context, cfg: ModelConfig, *,
                  positions, standard_positions: bool, state=None,
-                 cache_len=None, page_table=None, write_start=None):
-    """Returns (x, new_state)."""
+                 cache_len=None, page_table=None, write_start=None,
+                 moe_aux_loss: bool = True):
+    """Returns (x, new_state, aux): aux is the MoE aux dict, zero for an
+    ``attn`` block."""
     h = block.ln1(x, ctx)
     attn_out, new_state = attention_apply(
         block.attn, h, ctx, num_heads=cfg.num_heads,
@@ -115,8 +151,15 @@ def _block_apply(block: Block, x, ctx: Context, cfg: ModelConfig, *,
         write_start=write_start, standard_positions=standard_positions)
     x = residual_add(x, attn_out)
     h = block.ln2(x, ctx)
-    return residual_add(x, block.mlp(h, ctx, activation=cfg.activation)), \
-        new_state
+    if block.kind == "moe":
+        ffn_out, aux = moe_apply(
+            block.moe, h, ctx, num_experts=cfg.num_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor, activation=cfg.activation,
+            aux_loss=moe_aux_loss, dispatch_mode=cfg.moe_dispatch)
+    else:
+        ffn_out = block.mlp(h, ctx, activation=cfg.activation)
+        aux = zero_aux(positions.device)
+    return residual_add(x, ffn_out), new_state, aux
 
 
 def _as_device(value, device, dtype=torch.long):
@@ -151,62 +194,78 @@ def _embed_inputs(model: LM, cfg: ModelConfig, inputs: Mapping,
 
 
 def forward(model: LM, cfg: ModelConfig, inputs: Mapping, ctx: Context, *,
-            states=None, collect_states: bool = False):
+            states=None, collect_states: bool = False,
+            moe_aux_loss: bool = True):
     """Full-sequence pass. ``inputs``: ``tokens`` (B, T) and optionally
     ``positions`` (B, T); with decode ``states``, also ``cache_len`` (B,),
     and for paged states ``page_table`` (B, P) and ``write_start`` (B,).
-    Returns ``(logits, aux, new_states)``: ``aux`` is the MoE aux dict,
-    zero for dense blocks; ``new_states`` is None unless
-    ``collect_states`` and ``states`` are given."""
+    Returns ``(logits, aux, new_states)``: ``aux`` is the MoE aux dict
+    summed over the blocks (``loss``, ``moe_dropped``,
+    ``moe_assignments``); ``new_states`` is None unless ``collect_states``
+    and ``states`` are given. ``moe_aux_loss=False`` is the inference path:
+    the router's load-balance loss is never built."""
     x, positions, standard_positions = _embed_inputs(model, cfg, inputs, ctx)
     device = positions.device
     cache_len = _as_device(inputs.get("cache_len"), device)
     page_table = _as_device(inputs.get("page_table"), device)
     write_start = _as_device(inputs.get("write_start"), device)
-    stack = None if states is None else states["stack"]
-    new_stack = {}
-    for layer, group in enumerate(model.stack):
-        for i in range(len(cfg.pattern)):
-            name = f"b{i}"
-            st = (None if stack is None
-                  else type(stack[name])(*(leaf[layer]
-                                           for leaf in stack[name])))
-            x, new_st = _block_apply(
-                group[name], x, ctx, cfg, positions=positions,
-                standard_positions=standard_positions, state=st,
-                cache_len=cache_len, page_table=page_table,
-                write_start=write_start)
-            if st is not None:
-                new_stack.setdefault(name, []).append(new_st)
+    aux_total = zero_aux(device)
+    new_top, new_stack = {}, {}   # head / tail caches; stacked per group
+    for name, _, group in _layers(cfg):
+        if group is None:
+            block = getattr(model, name)
+            st = None if states is None else states[name]
+        else:
+            block = model.stack[group][name]
+            st = (None if states is None else type(states["stack"][name])(
+                *(leaf[group] for leaf in states["stack"][name])))
+        x, new_st, aux = _block_apply(
+            block, x, ctx, cfg, positions=positions,
+            standard_positions=standard_positions, state=st,
+            cache_len=cache_len, page_table=page_table,
+            write_start=write_start, moe_aux_loss=moe_aux_loss)
+        aux_total = {k: aux_total[k] + aux[k] for k in aux_total}
+        if st is not None and group is None:
+            new_top[name] = new_st
+        elif st is not None:
+            new_stack.setdefault(name, []).append(new_st)
     x = model.ln_f(x, ctx)
     logits = model.lm_head(x, ctx)
     out_states = None
     if collect_states and states is not None:
-        out_states = dict(states)
-        out_states["stack"] = {
-            name: type(stack[name])(*(torch.stack(leaves) for leaves in
-                                      zip(*per_layer)))
-            for name, per_layer in new_stack.items()}
-    return logits, zero_aux(logits.mean.device if is_gaussian(logits)
-                            else logits.device), out_states
+        out_states = {**states, **new_top}
+        if new_stack:
+            out_states["stack"] = {
+                name: type(per_group[0])(
+                    *(torch.stack(leaves) for leaves in zip(*per_group)))
+                for name, per_group in new_stack.items()}
+    return logits, aux_total, out_states
 
 
 # ---------------------------------------------------------------------------
 # Decode state
 # ---------------------------------------------------------------------------
 def _stacked(cfg: ModelConfig, make) -> dict:
-    """``{'stack': {'b0': cache}}`` with a leading layer-group axis on
-    every leaf; the dense family has no head or tail layers."""
-    groups = cfg.num_layers // len(cfg.pattern)
-    proto = make()
-    return {"stack": {"b0": type(proto)(*(
-        leaf.unsqueeze(0).repeat(groups, *([1] * leaf.dim()))
-        for leaf in proto))}}
+    """One cache per attention layer: ``head{i}`` / ``tail{i}`` entries
+    batch-first, ``{'stack': {'b0': cache}}`` with a leading layer-group
+    axis on every leaf."""
+    _, groups, _ = _group_counts(cfg)
+    states = {}
+    for name, _, group in _layers(cfg):
+        if group is None:
+            states[name] = make()
+        elif group == 0:
+            proto = make()
+            states.setdefault("stack", {})[name] = type(proto)(*(
+                leaf.unsqueeze(0).repeat(groups, *([1] * leaf.dim()))
+                for leaf in proto))
+    return states
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       device: DeviceLike = None) -> dict:
-    """Zeroed contiguous KV caches, (groups, B, Hkv, max_len, Dh) leaves."""
+    """Zeroed contiguous KV caches: (B, Hkv, max_len, Dh) leaves, with a
+    leading layer-group axis under ``stack``."""
     device = resolve_device(device)
     return _stacked(cfg, lambda: init_kv_cache(
         batch, cfg.num_kv_heads, max_len, cfg.head_dim, device=device))
@@ -216,9 +275,11 @@ def init_paged_decode_state(cfg: ModelConfig, num_pages: int,
                             page_size: int, *,
                             device: DeviceLike = None) -> dict:
     """Paged decode state: each attention layer's cache is a pool of
-    ``num_pages`` pages (page 0 the trash page), (groups, NP, Hkv,
-    page_size, Dh) leaves. Which pages belong to which slot lives in the
-    page tables of the decode inputs, so the tree has no slot axis."""
+    ``num_pages`` pages (page 0 the trash page), (NP, Hkv, page_size, Dh)
+    leaves, with a leading layer-group axis under ``stack``. Which pages
+    belong to which slot lives in the page tables of the decode inputs, so
+    the tree has no slot axis. Every block the port has (``attn``,
+    ``moe``) keeps an attention cache, so every model pages."""
     device = resolve_device(device)
     return _stacked(cfg, lambda: init_paged_kv_cache(
         num_pages, cfg.num_kv_heads, page_size, cfg.head_dim, device=device))
@@ -337,10 +398,11 @@ def decode_step(model: LM, cfg: ModelConfig, inputs: Mapping, states,
 
 def decode_step_with_aux(model: LM, cfg: ModelConfig, inputs: Mapping,
                          states, ctx: Context):
-    """:func:`decode_step` that also returns the MoE aux dict.
+    """:func:`decode_step` that also returns the MoE aux dict (the drop
+    accounting a server reads per step; the load-balance loss stays 0).
     Returns (logits, aux, new_states)."""
     return forward(model, cfg, inputs, ctx, states=dict(states),
-                   collect_states=True)
+                   collect_states=True, moe_aux_loss=False)
 
 
 def prefill(model: LM, cfg: ModelConfig, inputs: Mapping, ctx: Context,
@@ -350,7 +412,7 @@ def prefill(model: LM, cfg: ModelConfig, inputs: Mapping, ctx: Context,
     states = init_decode_state(cfg, len(inputs["tokens"]), max_len,
                                device=ctx.device)
     logits, _, new_states = forward(model, cfg, inputs, ctx, states=states,
-                                    collect_states=True)
+                                    collect_states=True, moe_aux_loss=False)
     if is_gaussian(logits):
         last = GaussianTensor(logits.mean[:, -1:], logits.second[:, -1:],
                               logits.rep)

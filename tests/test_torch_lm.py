@@ -191,5 +191,5 @@ def test_unported_modes_raise(trees):
         model(_inputs(False), Context(mode=Mode.PFP, attention_mode="exact",
                                       device="cpu"))
     with pytest.raises(NotImplementedError, match="family"):
-        lm.init_params(dataclasses.replace(reduced_config(ARCH), family="moe"),
+        lm.init_params(dataclasses.replace(reduced_config(ARCH), family="ssm"),
                        device="cpu")
