@@ -62,6 +62,25 @@ Phases, each printing its own lines; any failure exits non-zero:
               kernels' times at the MoE shapes, the MoE forward eager and
               in a CUDA graph, and a profile of one forward and one decode
               step. Peak device memory is printed.
+ 10. fused  : the fused norm -> dense -> activation kernel (row 8) against
+              its plain version at ragged shapes (both norms, both input
+              reps, the five activations, every tile) and, at granite's
+              gate projection (2048, 4096, 14336) and its decode shape
+              (4, 4096, 14336), every tile against the plain version and
+              against the unfused kernel chain (bit for bit, or the largest
+              ulp gap within NDA_TOL); repro_torch.tuning.autotune tunes
+              granite-8b's fused units (full width, 2 layers: a 4 x 512
+              forward and a 4-slot decode step) on the card into
+              build/schedules/, timing each against the unfused chain, and
+              the DB is reloaded. With fusion on, the 4 x 512 forward must
+              hit the cache at every fused unit, launch the fused kernel
+              once a layer in place of the gate's dense and activation,
+              give the unfused forward's greedy tokens at every position
+              and moments within NDA_TOL; the decode phase's requests
+              through DecodeStatePool must give the unfused run's tokens.
+              Times: the forward eager and in a CUDA graph beside the
+              unfused one, row 8 at the gate and decode shapes beside the
+              unfused chain.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and a last JSON line ``{"ok": true, "device": {...}}``. Full numbers go to
@@ -142,6 +161,12 @@ MOE_UP, MOE_DOWN = (64, 240, 2048, 1408), (64, 240, 1408, 2048)
 MOE_DECODE_UP, MOE_DECODE_DOWN = (64, 6, 2048, 1408), (64, 6, 1408, 2048)
 MOE_SHAPES = (MOE_UP, MOE_DOWN, MOE_DECODE_UP, MOE_DECODE_DOWN)
 NEAR_TIE = 1e-4   # a routing mismatch at a larger top-k margin is a fault
+# The fused phase: granite's gate projection (norm -> dense -> silu) at a
+# 4 x 512 forward and a 4-slot decode step, with a schedule DB the
+# autotuner writes on the card.
+NDA_TOL = dict(rtol=1e-3, atol=5e-4)   # tests/test_impl_dispatch.py _NDA_TOL
+FUSED_CHECK_SHAPES = ((37, 200, 130), (4, 4096, 1000))
+SCHEDULE_DB = ROOT / "build" / "schedules" / "granite-8b.json"
 
 KERNELS = {
     "dense": ("src/repro_torch/csrc/pfp_dense.cu",
@@ -172,6 +197,8 @@ KERNELS = {
                                   "src/repro/kernels/pfp_moe.py:210"),
     "dense_batched_var": ("src/repro_torch/csrc/pfp_dense.cu",
                           "src/repro/kernels/pfp_moe.py:291"),
+    "norm_dense_act": ("src/repro_torch/csrc/pfp_fused.cu",
+                       "src/repro/kernels/pfp_fused.py:128"),
 }
 # What ``library_ms`` times, where one PyTorch call computes the same work.
 LIBRARY = {
@@ -190,6 +217,8 @@ LIBRARY = {
                                  "pairs of all experts",
     "dense_batched_var": "torch.bmm of the stacked fp32 operand pairs of all "
                          "experts",
+    "norm_dense_act": "none: no single call (a PFP norm, three products and "
+                      "the moment functions)",
 }
 
 
@@ -296,6 +325,11 @@ def work(kernel, shape):
         nbytes = 4 * (3 * b * h * tq * d + 3 * b * hkv * tk * d)
         pairs = b * h * _valid_pairs(tq, tk, causal)
         return nbytes, pairs * (6 * d + SOFTMAX_OPS_PER_SCORE)
+    if kernel == "norm_dense_act":   # rmsnorm, Eq. 12 and silu
+        m, k, n = shape
+        return (4 * (2 * m * k + k + 2 * k * n + 2 * m * n),
+                6 * m * n * k + NORM_OPS["rmsnorm"] * m * k
+                + ACTIVATION_OPS["silu"] * m * n)
     if kernel in NORM_OPS:
         rows, d = shape
         vectors = 2 if kernel == "layernorm" else 1
@@ -410,6 +444,18 @@ def operands(kernel, shape, seed, device):
         mu_a, var_a = gaussian(shape, seed, device)
         mu_b, var_b = gaussian(shape, seed + 1, device)
         return (mu_a, var_a + mu_a * mu_a, mu_b, var_b + mu_b * mu_b)
+    if kernel == "norm_dense_act":
+        # The gate projection: rmsnorm of a VAR input, silu; the schedule
+        # the global cache holds for the shape (None: the default tile).
+        from repro_torch.tuning import cache as tcache
+        m, k, n = shape
+        mu, var = gaussian((m, k), seed, device)
+        g = torch.Generator(device="cpu").manual_seed(seed + 1)
+        gain = (1.0 + 0.1 * torch.randn(k, generator=g)).to(device)
+        mw, vw = gaussian((k, n), seed + 2, device, 0.1, on_device=True)
+        sched = tcache.global_cache().get(kernel, shape, "float32",
+                                          tcache.default_backend(device))
+        return (mu, var, gain, None, mw, vw + mw * mw, sched)
     if kernel.startswith("dense"):
         if kernel in BATCHED_KERNELS:
             e, m, k, n = shape
@@ -434,6 +480,8 @@ def operands(kernel, shape, seed, device):
 
 def run_kernel(kernel, args):
     from repro_torch.kernels import ops
+    if kernel == "norm_dense_act":
+        return ops.pfp_norm_dense_act(*args[:6], schedule=args[6])
     if kernel == "dense_batched":
         return ops.pfp_dense_batched(*args)
     if kernel == "dense_batched_first_layer":
@@ -467,6 +515,8 @@ def run_kernel(kernel, args):
 
 def run_plain(kernel, args):
     from repro_torch.kernels import ref
+    if kernel == "norm_dense_act":
+        return ref.pfp_norm_dense_act_ref(*args[:6])
     if kernel in BATCHED_KERNELS:   # the same plain versions, batched by @
         kernel = kernel.replace("_batched", "")
     if kernel == "dense":
@@ -1761,6 +1811,296 @@ def phase_profile(device, lm_cfg, lm_model, reps=10):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The fused norm -> dense -> activation unit (row 8) and its schedule DB
+# ---------------------------------------------------------------------------
+def _ulps(a, b):
+    """Largest distance between two fp32 tensors in units in the last
+    place (0 when equal bit for bit; +0 and -0 count as equal)."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def fused_kernel_checks(device, errs):
+    """The fused kernel against its plain version at FUSED_CHECK_SHAPES for
+    every norm, rep, activation and tile, and against the unfused kernel
+    chain (bitwise count); then at the path's gate and decode shapes,
+    every tile against the plain version (DENSE_TOL) and the chain (bit
+    for bit, or the largest ulp gap within NDA_TOL). Updates ``errs``;
+    returns the path shapes' comparisons."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.pfp_activations import KINDS
+    from repro_torch.kernels.pfp_fused import TILES
+    from repro_torch.tuning.measure import unfused_chain
+    from repro_torch.tuning.schedules import Schedule
+    scheds = [Schedule.make("norm_dense_act", block_m=bm, block_n=bn)
+              for bm, bn in TILES]
+    for shape in FUSED_CHECK_SHAPES:
+        m, k, n = shape
+        mu, var = gaussian((m, k), sum(shape), device)
+        g = torch.Generator(device="cpu").manual_seed(sum(shape) + 1)
+        gain, bias = (1.0 + 0.1 * torch.randn((2, k), generator=g)).to(device)
+        bias = bias - 1.0
+        mw, vw = gaussian((k, n), sum(shape) + 2, device, 0.1)
+        srm_w = vw + mw * mw
+        for norm in ("rmsnorm", "layernorm"):
+            for rep in ("var", "srm"):
+                second = var if rep == "var" else var + mu * mu
+                b = bias if norm == "layernorm" else None
+                worst, bitwise, runs = 0.0, 0, 0
+                for act in KINDS:
+                    kw = dict(norm=norm, rep=rep, act=act)
+                    want = ref.pfp_norm_dense_act_ref(mu, second, gain, b, mw,
+                                                      srm_w, **kw)
+                    chain = unfused_chain(mu, second, gain, b, mw, srm_w,
+                                          **kw)
+                    for sched in scheds:
+                        got = ops.pfp_norm_dense_act(mu, second, gain, b, mw,
+                                                     srm_w, schedule=sched,
+                                                     **kw)
+                        torch.cuda.synchronize()
+                        label = (f"norm_dense_act{shape} {norm} {rep} {act} "
+                                 f"{sched.describe()}")
+                        _check_close(label, got, want, DENSE_TOL)
+                        worst = max(worst, _max_err(got, want))
+                        bitwise += all(torch.equal(x, y)
+                                       for x, y in zip(got, chain))
+                        runs += 1
+                errs["norm_dense_act"] = max(errs["norm_dense_act"], worst)
+                print(f"[fused] kernel {str(shape):16s} {norm:9s} rep={rep}:"
+                      f" 5 activations x {len(scheds)} tiles, max_abs_err vs "
+                      f"plain {worst:.3e}; bit for bit the unfused kernel "
+                      f"chain in {bitwise} of {runs}")
+    # The path's two shapes: the gate projection at 4 x 512 tokens and at a
+    # decode step. Every tile against the plain version on the same
+    # operands, and against the unfused kernel chain bit for bit (or the
+    # largest ulp gap, within NDA_TOL).
+    cfg = lm_config()
+    path = {}
+    for label, shape in (
+            ("gate", (LM_BATCH * LM_SEQ, cfg.d_model, cfg.d_ff)),
+            ("decode", (DECODE_SLOTS, cfg.d_model, cfg.d_ff))):
+        args = operands("norm_dense_act", shape, 1600, device)
+        want = run_plain("norm_dense_act", args)
+        chain = unfused_chain(*args[:6])
+        for sched in scheds:
+            got = run_kernel("norm_dense_act", (*args[:6], sched))
+            torch.cuda.synchronize()
+            name = f"norm_dense_act{shape} {sched.describe()}"
+            _check_close(name, got, want, DENSE_TOL)
+            err = _max_err(got, want)
+            errs["norm_dense_act"] = max(errs["norm_dense_act"], err)
+            ulps = max(_ulps(x, y) for x, y in zip(got, chain))
+            diff = _max_err(got, chain)
+            close = all(torch.allclose(x, y, **NDA_TOL)
+                        for x, y in zip(got, chain))
+            path[f"{label} {sched.describe()}"] = {
+                "shape": shape, "max_abs_err_vs_plain": err,
+                "bitwise": ulps == 0, "max_ulps": ulps,
+                "max_abs_diff": diff}
+            verdict = ("bit for bit" if ulps == 0 else
+                       f"{ulps} ulps (max abs diff {diff:.3e}) from")
+            print(f"[fused] {label} {shape} {sched.describe()}: max_abs_err "
+                  f"vs plain {err:.3e}; {verdict} the unfused kernel chain")
+            if not close:
+                fail(f"fused {label} {sched.describe()}: outside NDA_TOL of "
+                     f"the unfused chain, max abs diff {diff:.3e}")
+        del args, want, chain, got
+    return path
+
+
+def phase_fused(device, seed, errs):
+    """Row 8 on granite-8b's path: kernel checks, the autotuner on the card,
+    the fused forward and decode against the unfused ones, and times."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dispatch
+    from repro_torch.core.modes import Mode
+    from repro_torch.kernels._launch import LAUNCHES, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.nn.module import Context
+    from repro_torch.tuning import autotune
+    from repro_torch.tuning import cache as tcache
+    from repro_torch.tuning.measure import unfused_chain
+
+    info = {"path_shapes": fused_kernel_checks(device, errs)}
+
+    # Autotune on the card, save under build/, reload.
+    tcache.reset_global_cache()
+    if SCHEDULE_DB.exists():
+        SCHEDULE_DB.unlink()
+    t0 = time.perf_counter()
+    chosen = autotune.main([
+        "--config", LM_ARCH, "--layers", str(LM_LAYERS),
+        "--fuse", "--batch", str(LM_BATCH), "--seq", str(LM_SEQ),
+        "--decode-slots", str(DECODE_SLOTS), "--limit", "4",
+        "--save", str(SCHEDULE_DB)])
+    torch.cuda.empty_cache()
+    tuned = tcache.global_cache().entries()
+    tcache.reset_global_cache()
+    db = tcache.load_global_cache(str(SCHEDULE_DB))
+    if db.entries() != tuned or len(db) != 2 or len(chosen) != 2:
+        fail(f"fused: the reloaded DB {db.entries()} is not the tuned one "
+             f"{tuned} ({len(chosen)} queries)")
+    backend = tcache.default_backend(device)
+    info["schedules"] = {}
+    for (op, key, dtype, _), sched in chosen.items():
+        meta = db.get_meta(op, key, dtype, backend)
+        info["schedules"][str(key)] = {"schedule": sched.describe(), **meta}
+        if meta["mode"] != "time" or meta["dropped"]:
+            fail(f"fused: {key} was not timed on the card, or candidates "
+                 f"failed the check against the unfused chain: {meta}")
+        print(f"[fused] DB {key}: {sched.describe()} at "
+              f"{meta['measured_s'] * 1e3:.4f} ms against the unfused "
+              f"chain's {meta['unfused_s'] * 1e3:.4f} ms (median CUDA-event "
+              f"times; candidates {meta['candidates']}): "
+              + ("fuse" if meta["fuse"] else "stay unfused"))
+    print(f"[fused] autotune + save + reload in "
+          f"{time.perf_counter() - t0:.1f} s -> "
+          f"{SCHEDULE_DB.relative_to(ROOT)}")
+
+    # The fused forward against the unfused one.
+    cfg, model = _lm_model(device)
+    tokens = _lm_requests(cfg, device)[0]
+    ctx = Context(mode=Mode.PFP, impl="kernel", device=device)
+    kinds = ("norm_dense_act", "activation", "dense", "rmsnorm")
+    per_forward = {}
+    for kernel, _ in lm_path_calls(cfg):
+        per_forward[kernel] = per_forward.get(kernel, 0) + 1
+    want_unfused = {k: per_forward.get(k, 0) for k in kinds}
+    want_fused = dict(want_unfused, norm_dense_act=cfg.num_layers,
+                      activation=want_unfused["activation"] - cfg.num_layers,
+                      dense=want_unfused["dense"] - cfg.num_layers)
+    reset_launch_counts()
+    base, _, _ = lm.forward(model, cfg, {"tokens": tokens}, ctx)
+    launches = {"unfused": {k: LAUNCHES[k] for k in kinds}}
+    reset_launch_counts()
+    tcache.consult_counters(reset=True)
+    with dispatch.fusion(True):
+        fused, _, _ = lm.forward(model, cfg, {"tokens": tokens}, ctx)
+    torch.cuda.synchronize()
+    launches["fused"] = {k: LAUNCHES[k] for k in kinds}
+    consults = tcache.consult_counters()
+    print(f"[fused] forward {LM_BATCH} x {LM_SEQ}: launches fused "
+          f"{launches['fused']}, unfused {launches['unfused']}; cache "
+          f"consults {consults}")
+    if launches != {"unfused": want_unfused, "fused": want_fused}:
+        fail(f"fused forward launches {launches}, expected fused "
+             f"{want_fused}, unfused {want_unfused}")
+    if consults["misses"] or consults["hits"] != cfg.num_layers:
+        fail(f"fused forward: cache consults {consults}, expected "
+             f"{cfg.num_layers} hits and no miss")
+    greedy = bool(torch.equal(fused.mean.argmax(-1), base.mean.argmax(-1)))
+    errs_fwd = {}
+    for part in ("mean", "var"):
+        got, want = getattr(fused, part), getattr(base, part)
+        errs_fwd[part] = float((got - want).abs().max())
+        if not torch.isfinite(got).all() or \
+                not torch.allclose(got, want, **NDA_TOL):
+            fail(f"fused forward {part}: max abs diff {errs_fwd[part]:.3e} "
+                 f"outside NDA_TOL of the unfused forward")
+    bitwise = torch.equal(fused.mean, base.mean) and \
+        torch.equal(fused.var, base.var)
+    print(f"[fused] forward: greedy tokens {'equal' if greedy else 'DIFFER'}"
+          f" at all {LM_BATCH} x {LM_SEQ} positions; logits max abs diff "
+          f"mean {errs_fwd['mean']:.3e}, var {errs_fwd['var']:.3e}"
+          f"{' (bit for bit)' if bitwise else ''}")
+    if not greedy:
+        fail("fused forward: greedy tokens differ from the unfused forward")
+    del base, fused
+    times = {}
+    for label, on in (("unfused", False), ("fused", True)):
+        with dispatch.fusion(on):
+            fwd = lambda: lm.forward(model, cfg, {"tokens": tokens},  # noqa
+                                     ctx)
+            times[f"{label}_ms"] = time_ms(fwd, iters=3, warmup=1)
+            times[f"{label}_graph_ms"] = device_ms(fwd, inner=1, replays=3)
+    print(f"[times] forward {cfg.name} ({cfg.num_layers} layers) B={LM_BATCH}"
+          f" T={LM_SEQ} fused {times['fused_ms']:.2f} ms (CUDA graph "
+          f"{times['fused_graph_ms']:.2f}), unfused {times['unfused_ms']:.2f}"
+          f" ms (CUDA graph {times['unfused_graph_ms']:.2f})")
+
+    # Decode through DecodeStatePool, unfused then fused.
+    requests = _decode_requests(cfg, seed)
+    runs = {}
+    for label, on in (("unfused", False), ("fused", True)):
+        reset_launch_counts()
+        tcache.consult_counters(reset=True)
+        with dispatch.fusion(on):
+            run = _serve(cfg, model, requests, device, False, seed)
+        torch.cuda.synchronize()
+        run["launches"] = {k: LAUNCHES[k] for k in kinds}
+        run["consults"] = tcache.consult_counters()
+        runs[label] = run
+        print(f"[fused] decode {label}: {run['steps']} lockstep steps, step "
+              f"{np.mean(run['step_ms']):.3f} ms mean, prefill "
+              f"{np.mean(run['prefill_ms']):.2f} ms per prompt; launches "
+              f"{run['launches']}; cache consults {run['consults']}")
+    for a, b in zip(runs["unfused"]["finished"], runs["fused"]["finished"]):
+        if a.generated != b.generated:
+            fail(f"fused decode uid {a.uid}: tokens {b.generated} != "
+                 f"unfused {a.generated}")
+    if len(runs["fused"]["finished"]) != DECODE_REQUESTS or \
+            runs["fused"]["launches"]["norm_dense_act"] == 0:
+        fail("fused decode: not every request finished, or the fused "
+             "kernel never launched")
+    same_logits = all(torch.equal(a, b) for a, b in zip(
+        runs["unfused"]["last_logits"], runs["fused"]["last_logits"]))
+    print(f"[fused] decode: all {DECODE_REQUESTS} requests give the unfused "
+          f"run's tokens; last-step logits "
+          f"{'bit for bit equal' if same_logits else 'differ in bits'}")
+    launches["fused_decode"] = runs["fused"]["launches"]
+    info["forward"] = {"launches": launches, "consults": consults,
+                       "greedy_equal": greedy, "bitwise": bitwise,
+                       "max_abs_diff": errs_fwd, **times}
+    info["decode"] = {label: {k: run[k] for k in ("steps", "step_ms",
+                                                  "prefill_ms", "launches",
+                                                  "consults")}
+                      for label, run in runs.items()}
+    info["decode"]["last_logits_bitwise"] = same_logits
+
+    # Row 8 at the gate and decode shapes, beside the unfused chain.
+    rows = []
+    m = LM_BATCH * LM_SEQ
+    for shape in ((m, cfg.d_model, cfg.d_ff),
+                  (DECODE_SLOTS, cfg.d_model, cfg.d_ff)):
+        big = shape[0] > 100
+        row = _time_row("fused", "norm_dense_act", shape, device,
+                        inner=2 if big else 10, replays=2 if big else 5,
+                        call_iters=3 if big else 30)
+        args = operands("norm_dense_act", shape, 1, device)
+        row["schedule"] = None if args[6] is None else args[6].describe()
+        h_mu, h_var = run_kernel("rmsnorm", args[:3])
+        h_srm = h_var + torch.square(h_mu)
+        y = run_kernel("dense", (h_mu, h_srm, *args[4:6]))
+        kw = dict(inner=2 if big else 10, replays=2 if big else 5)
+        row["unfused_kernels_ms"] = {
+            "rmsnorm": device_ms(lambda: run_kernel("rmsnorm", args[:3]),
+                                 **kw),
+            "dense": device_ms(lambda: run_kernel(
+                "dense", (h_mu, h_srm, *args[4:6])), **kw),
+            "activation": device_ms(lambda: run_kernel(
+                "activation", (*y, "silu")), **kw)}
+        row["unfused_chain_ms"] = device_ms(
+            lambda: unfused_chain(*args[:6]), **kw)
+        print(f"[times] row 8 {str(shape):20s} {row['schedule']}: fused "
+              f"{row['ms']:.4f} ms; unfused kernels "
+              + " + ".join(f"{k} {v:.4f}"
+                           for k, v in row["unfused_kernels_ms"].items())
+              + f" = {sum(row['unfused_kernels_ms'].values()):.4f} ms; "
+              f"unfused chain with to_srm {row['unfused_chain_ms']:.4f} ms")
+        rows.append(row)
+        del args, h_mu, h_var, h_srm, y
+    del model
+    tcache.reset_global_cache()
+    return launches, info, rows
+
+
 def moe_path_calls(cfg, shapes):
     """The batched expert kernel's calls in one MoE forward or decode step:
     up, gate and down per MoE layer; ``shapes`` is (up, down)."""
@@ -1777,8 +2117,9 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg):
     step at CACHE_DECODE, with one call at CACHE_PREFILL beside; for the
     batched expert kernels, their calls in one MoE forward of 4 x 512
     tokens (dense_batched_first_layer, on no path: one call at the expert
-    up shape), with one MoE decode step's calls beside.
-    ``launches`` sums the paths' runs."""
+    up shape), with one MoE decode step's calls beside; for the fused
+    unit, its calls in one fused granite forward (gate shape), with one
+    fused decode step's calls beside. ``launches`` sums the paths' runs."""
     cnn = {(r["kernel"], tuple(r["shape"])): r for r in rows
            if r["batch"] == MAIN_BATCH}
     lmr = {(r["kernel"], tuple(r["shape"])): r for r in rows
@@ -1787,6 +2128,7 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg):
              if r["kernel"] in CACHE_KERNELS}
     moer = {(r["kernel"], tuple(r["shape"])): r for r in rows
             if r["batch"] == "moe"}
+    fused = {tuple(r["shape"]): r for r in rows if r["batch"] == "fused"}
 
     def summed(kernel, calls):
         """Times, library time and bound summed over ``calls``."""
@@ -1806,7 +2148,14 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg):
     out = []
     for kernel, (source, replaces) in KERNELS.items():
         extra = {}
-        if kernel in BATCHED_KERNELS:
+        if kernel == "norm_dense_act":
+            # One fused forward: one call per layer at the gate shape; one
+            # decode step's calls beside.
+            m, d, f = LM_BATCH * LM_SEQ, lm_cfg.d_model, lm_cfg.d_ff
+            calls = [fused[(m, d, f)]] * lm_cfg.num_layers
+            extra["decode_step"] = summed(
+                kernel, [fused[(DECODE_SLOTS, d, f)]] * lm_cfg.num_layers)
+        elif kernel in BATCHED_KERNELS:
             if kernel == "dense_batched_first_layer":
                 calls = [moer[(kernel, MOE_UP)]]
             else:
@@ -1881,7 +2230,13 @@ def main():
     moe_rows, moe_forward, moe_profile = phase_moe_times(device, moe_cfg,
                                                          moe_model)
     del moe_model
+    torch.cuda.empty_cache()
     rows += moe_rows
+    fused_launches, fused_info, fused_rows = phase_fused(device, args.seed,
+                                                         errs)
+    launches["fused"] = fused_launches["fused"]
+    launches["fused_decode"] = fused_launches["fused_decode"]
+    rows += fused_rows
     forwards.append(moe_forward)
     if moe_profile is not None:
         profile.append({"model": moe_cfg.name, "batch": LM_BATCH,
@@ -1891,7 +2246,7 @@ def main():
         {"card": card, "build": build, "kernels": kernels, "times": rows,
          "forwards": forwards, "profile": profile, "lm": lm_info,
          "decode": decode_info, "moe": moe_info,
-         "moe_decode": moe_decode_info,
+         "moe_decode": moe_decode_info, "fused": fused_info,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

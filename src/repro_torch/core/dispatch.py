@@ -17,18 +17,26 @@ The representation contract (compute layers consume SRM and emit VAR,
 activations consume VAR and emit SRM) is enforced here by the public
 functions, as in the reference. The embedding gather and the residual add
 have no kernel in the reference either: both impls share one function.
-The reference's opt-in ``norm_dense_act`` fusion pass and its general
-``einsum`` op (with the depthwise lift onto ``dense_batched``) are not
-ported yet.
+
+The opt-in fusion pass (``set_fusion`` / ``fusion()``) rewrites the chain
+norm -> bias-free SRM dense -> activation onto the fused ``norm_dense_act``
+kernel when the tuned-schedule cache (``repro_torch.tuning``) holds a
+schedule for its shape; anything else runs the exact unfused chain. It is
+the only op that consults the cache: no other kernel of the port takes a
+tile. The reference's general ``einsum`` op (with the depthwise lift onto
+``dense_batched``) is not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional
 
 from repro_torch.core import pfp_layers
 from repro_torch.core.gaussian import (SRM, VAR, GaussianTensor, as_gaussian,
                                        is_gaussian)
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.pfp_activations import KINDS
+from repro_torch.tuning import cache as schedule_cache
 
 IMPLS = ("eager", "kernel")
 FORMULATIONS = ("srm", "var")
@@ -65,6 +73,21 @@ def _check_formulation(formulation: str) -> None:
         raise ValueError(f"unknown formulation: {formulation}")
 
 
+def _schedule_for(op: str, shape_key, dtype, device):
+    """Consult the tuned-schedule cache for a kernel-impl call on
+    ``device``: the Schedule, or None on a miss."""
+    return schedule_cache.lookup(op, shape_key,
+                                 str(dtype).replace("torch.", ""),
+                                 schedule_cache.default_backend(device))
+
+
+def _rows(shape) -> int:
+    n = 1
+    for d in shape[:-1]:
+        n *= int(d)
+    return n
+
+
 # ---------------------------------------------------------------------------
 # dense (Eqs. 4/7/12/13)
 # ---------------------------------------------------------------------------
@@ -96,6 +119,11 @@ def pfp_dense(x, w, b=None, *, formulation: str = "srm",
     paper's three bias configurations, §5).
     """
     _check_formulation(formulation)
+    if (isinstance(x, _PendingNorm) and formulation == "srm" and b is None
+            and is_gaussian(w) and _fusion_active(impl)):
+        # Fusion pass, step 2: a bias-free SRM dense over a pending norm
+        # stays pending; an activation next may complete the fused unit.
+        return _PendingNormDense(x, w, impl)
     x = _to_compute_rep(x, formulation)
     out = get_op("dense", impl)(x, w, formulation)
     return _add_bias(out, b)
@@ -193,6 +221,12 @@ def _activation_kernel(x, kind):
 def pfp_activation(x: GaussianTensor, kind: str,
                    impl: Optional[str] = None) -> GaussianTensor:
     """Moment-matched activation. Consumes VAR, emits SRM."""
+    if isinstance(x, _PendingNormDense):
+        # Fusion pass, step 3: the chain is complete. One kernel runs it
+        # when its schedule is cached; otherwise the unfused chain runs.
+        fused = x.fuse(kind, impl)
+        if fused is not None:
+            return fused
     return get_op("activation", impl)(x.to_var(), kind)
 
 
@@ -331,6 +365,9 @@ def pfp_rmsnorm(x: GaussianTensor, gain, *, eps: float = 1e-6,
                 impl: Optional[str] = None) -> GaussianTensor:
     """RMSNorm under PFP. Emits VAR; with ``act`` the following activation
     runs as the norm's epilogue and the op emits SRM."""
+    if act is None and is_gaussian(x) and _fusion_active(impl):
+        # Fusion pass, step 1: defer; a dense may consume this norm.
+        return _PendingNorm(x, gain, None, "rmsnorm", eps, impl)
     return get_op("rmsnorm", impl)(x, gain, eps, act)
 
 
@@ -352,6 +389,8 @@ def pfp_layernorm(x: GaussianTensor, gain, bias=None, *, eps: float = 1e-6,
                   act: Optional[str] = None,
                   impl: Optional[str] = None) -> GaussianTensor:
     """LayerNorm under PFP. Emits VAR (SRM with ``act``)."""
+    if act is None and is_gaussian(x) and _fusion_active(impl):
+        return _PendingNorm(x, gain, bias, "layernorm", eps, impl)
     return get_op("layernorm", impl)(x, gain, bias, eps, act)
 
 
@@ -373,6 +412,194 @@ def pfp_glu_product(a: GaussianTensor, b: GaussianTensor,
                     impl: Optional[str] = None) -> GaussianTensor:
     """Product of independent Gaussians. Consumes SRM, emits SRM (exact)."""
     return get_op("glu_product", impl)(a.to_srm(), b.to_srm())
+
+
+# ---------------------------------------------------------------------------
+# norm_dense_act — the fused unit (norm -> dense -> activation)
+# ---------------------------------------------------------------------------
+# A transformer block's FFN entry is a fixed chain: pre-norm, a bias-free
+# dense (the gate projection of a gated MLP, the up projection otherwise),
+# then a moment-matched activation. With the fusion pass on (it is off by
+# default) the public functions above hand out lazy "pending"
+# GaussianTensors instead of running the norm and the dense. If the chain
+# completes at an activation AND the tuned-schedule cache holds a
+# ``norm_dense_act`` schedule for its shape, one kernel runs the whole
+# chain (csrc/pfp_fused.cu, bit for bit the unfused kernel chain). Any
+# other use of a pending (attention projections, residuals, the LM head,
+# a cache miss) runs the exact unfused chain, so the pass never changes a
+# result.
+_FUSION = False
+
+
+def set_fusion(enabled: bool) -> bool:
+    """Turn the norm -> dense -> activation fusion pass on or off for the
+    process. Returns the previous setting, so scopes nest."""
+    global _FUSION
+    prev = _FUSION
+    _FUSION = bool(enabled)
+    return prev
+
+
+def get_fusion() -> bool:
+    return _FUSION
+
+
+@contextlib.contextmanager
+def fusion(enabled: bool = True):
+    """Scoped :func:`set_fusion`."""
+    prev = set_fusion(enabled)
+    try:
+        yield
+    finally:
+        set_fusion(prev)
+
+
+def _fusion_active(impl: Optional[str]) -> bool:
+    return _FUSION and resolve_impl(impl) == "kernel"
+
+
+class _PendingFusion(GaussianTensor):
+    """A lazy GaussianTensor: it runs its unfused value on the first read
+    of ``mean``, ``second`` or ``rep`` and keeps it. Being a GaussianTensor
+    keeps ``is_gaussian`` and every layer helper working unchanged.
+
+    GaussianTensor is a frozen dataclass: the three fields are overridden
+    here as properties, and the dataclass ``__init__`` (which would assign
+    them) is never called. Everything the base class derives from the
+    fields (``var``, ``srm``, ``shape``, ``dtype``, ``reshape``,
+    ``__add__``, ``to_var``, ``to_srm``, ``__repr__``) reads them through
+    these properties and so forces the value; ``__eq__`` and ``__hash__``
+    compare the forced value."""
+
+    def __init__(self):
+        object.__setattr__(self, "_value", None)
+
+    def _run(self) -> GaussianTensor:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def _force(self) -> GaussianTensor:
+        if self._value is None:
+            object.__setattr__(self, "_value", self._run())
+        return self._value
+
+    @property
+    def mean(self):
+        return self._force().mean
+
+    @property
+    def second(self):
+        return self._force().second
+
+    @property
+    def rep(self):
+        return self._force().rep
+
+    def __eq__(self, other):
+        if isinstance(other, _PendingFusion):
+            other = other._force()
+        return self._force() == other
+
+    def __hash__(self):
+        return hash(self._force())
+
+
+class _PendingNorm(_PendingFusion):
+    """A norm deferred in case a dense and an activation follow. Its value
+    is the registered unfused norm op's, run once: a gated MLP's two
+    projections share it."""
+
+    def __init__(self, x, gain, bias, kind, eps, impl):
+        super().__init__()
+        for name, value in (("x", x), ("gain", gain), ("bias", bias),
+                            ("kind", kind), ("eps", eps), ("impl", impl)):
+            object.__setattr__(self, name, value)
+
+    def _run(self) -> GaussianTensor:
+        if self.kind == "rmsnorm":
+            return get_op("rmsnorm", self.impl)(self.x, self.gain, self.eps,
+                                                None)
+        return get_op("layernorm", self.impl)(self.x, self.gain, self.bias,
+                                              self.eps, None)
+
+
+class _PendingNormDense(_PendingFusion):
+    """A bias-free SRM dense over a pending norm. A fusable activation next
+    runs the whole chain as one kernel (:meth:`fuse`, on a cache hit);
+    otherwise its value is the unfused dense over the (shared) norm."""
+
+    def __init__(self, pending_norm, w, impl):
+        super().__init__()
+        object.__setattr__(self, "pending_norm", pending_norm)
+        object.__setattr__(self, "w", w)
+        object.__setattr__(self, "impl", impl)
+
+    def _run(self) -> GaussianTensor:
+        h = self.pending_norm._force()
+        return get_op("dense", self.impl)(_to_compute_rep(h, "srm"),
+                                          self.w, "srm")
+
+    def fuse(self, act: str, impl: Optional[str]):
+        """The fused result, or None: the caller then runs the unfused
+        activation over this pending's value. The cache is consulted on
+        every attempt, hit or miss, so shape recording finds the unit and
+        the consult counters see it."""
+        if (self._value is not None or act not in KINDS
+                or not _fusion_active(impl)):
+            return None
+        norm = self.pending_norm
+        x, w = norm.x, self.w
+        shape_key = (_rows(x.shape), x.shape[-1], w.mean.shape[-1])
+        sched = _schedule_for("norm_dense_act", shape_key, x.dtype,
+                              x.mean.device)
+        if sched is None:
+            return None  # cache miss: the unfused chain, bit for bit
+        return _nda_run(x, norm.gain, norm.bias, w, norm.kind, norm.eps, act,
+                        sched)
+
+
+def _nda_run(x, gain, bias, w, norm, eps, act, sched):
+    """The fused kernel with a resolved schedule (None: the default tile).
+
+    The reference also hands the fused kernel the standalone dense op's
+    ``block_k``, so that its K tiling, and with it the fp32 sum, matches
+    the unfused dense. There is nothing to hand over here: the port's
+    dense kernel sums K in one fixed order whatever its tile, and so does
+    the fused kernel, so only the fused unit's own schedule is read."""
+    mu, srm = ops.pfp_norm_dense_act(
+        x.mean, x.second, gain, bias, w.mean, w.srm, norm=norm, rep=x.rep,
+        eps=eps, act=act, schedule=sched)
+    return GaussianTensor(mu.to(x.dtype), srm.to(x.dtype), SRM)
+
+
+@register("norm_dense_act", "eager")
+def _norm_dense_act_eager(x, gain, bias, w, norm, eps, act):
+    # The fused unit's eager impl is the unfused chain by construction.
+    if norm == "rmsnorm":
+        h = _rmsnorm_eager(x, gain, eps, None)
+    else:
+        h = _layernorm_eager(x, gain, bias, eps, None)
+    out = _dense_eager(_to_compute_rep(h, "srm"), w, "srm")
+    return _activation_eager(out.to_var(), act)
+
+
+@register("norm_dense_act", "kernel")
+def _norm_dense_act_kernel(x, gain, bias, w, norm, eps, act):
+    shape_key = (_rows(x.shape), x.shape[-1], w.mean.shape[-1])
+    sched = _schedule_for("norm_dense_act", shape_key, x.dtype,
+                          x.mean.device)
+    return _nda_run(x, gain, bias, w, norm, eps, act, sched)
+
+
+def pfp_norm_dense_act(x: GaussianTensor, gain, bias, w: GaussianTensor, *,
+                       norm: str = "rmsnorm", eps: float = 1e-6,
+                       act: str = "silu",
+                       impl: Optional[str] = None) -> GaussianTensor:
+    """Fused norm -> bias-free dense -> activation. Emits SRM. ``bias`` is
+    the LayerNorm shift (None for RMSNorm). Models rarely call this: the
+    fusion pass rewrites eligible chains onto the fused kernel itself."""
+    if norm not in ("rmsnorm", "layernorm"):
+        raise ValueError(f"unknown norm {norm!r}")
+    return get_op("norm_dense_act", impl)(x, gain, bias, w, norm, eps, act)
 
 
 # ---------------------------------------------------------------------------

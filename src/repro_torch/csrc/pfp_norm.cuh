@@ -1,0 +1,150 @@
+// The delta-method norms' row statistics and per-element normalisation,
+// shared by the norm kernel (pfp_norms.cu) and the fused norm -> dense ->
+// activation unit (pfp_fused.cu), so that both form every value with the
+// same operations in the same order, and the fused unit equals the
+// unfused chain bit for bit.
+//
+// A row's statistics are sums over its d entries. The norm kernel forms
+// each with one block of kNormThreads threads: thread t sums the terms
+// j = t, t + 256, ... in order (the partial_* functions), then block_sum
+// adds the 256 partial sums by a shuffle tree in each warp and the 8 warp
+// totals in order. warp_block_sum gives the same total from one warp:
+// lane l stands in for threads l, 32 + l, ..., 224 + l, one per warp of
+// the block, so the fused kernel forms the statistics of 8 rows at once.
+#pragma once
+
+#include "pfp_moments.cuh"
+
+namespace pfp {
+
+constexpr int kNormThreads = 256;
+constexpr int kNormWarps = kNormThreads / 32;
+
+enum Norm { kRms = 0, kLayer = 1 };
+enum Rep { kRepVar = 0, kRepSrm = 1 };
+
+template <int REP>
+__device__ __forceinline__ void var_srm(float mu, float sec, float* var,
+                                        float* srm) {
+  if constexpr (REP == kRepVar) {
+    *var = sec;
+    *srm = sec + mu * mu;
+  } else {
+    *var = sec - mu * mu;
+    *srm = sec;
+  }
+}
+
+// The shuffle tree of one warp; every lane gets the total.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Sum over a block of kNormThreads threads; every thread gets the total.
+__device__ __forceinline__ float block_sum(float v, float* s_part) {
+  v = warp_sum(v);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();  // s_part may still be read by a previous reduction
+  if (lane == 0) s_part[warp] = v;
+  __syncthreads();
+  float total = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kNormWarps; ++w) total += s_part[w];
+  return total;
+}
+
+// What block_sum returns when thread t holds partial(t), from one warp.
+template <typename Partial>
+__device__ __forceinline__ float warp_block_sum(Partial partial, int lane) {
+  float total = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kNormWarps; ++w)
+    total += warp_sum(partial(w * 32 + lane));
+  return total;
+}
+
+// Thread t's partial sums over a row m, s of d entries.
+template <int REP>
+__device__ __forceinline__ float partial_srm(const float* m, const float* s,
+                                             int d, int t) {
+  float acc = 0.0f;
+  for (int j = t; j < d; j += kNormThreads) {
+    float var, srm;
+    var_srm<REP>(m[j], s[j], &var, &srm);
+    acc += srm;
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float partial_mean(const float* m, int d, int t) {
+  float acc = 0.0f;
+  for (int j = t; j < d; j += kNormThreads) acc += m[j];
+  return acc;
+}
+
+template <int REP>
+__device__ __forceinline__ float partial_spread(const float* m,
+                                                const float* s, int d, int t,
+                                                float mu_tok) {
+  float acc = 0.0f;
+  for (int j = t; j < d; j += kNormThreads) {
+    float var, srm;
+    var_srm<REP>(m[j], s[j], &var, &srm);
+    const float c = m[j] - mu_tok;
+    acc += var + c * c;
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float normaliser(float total, float inv_d,
+                                            float eps) {
+  return 1.0f / sqrtf(total * inv_d + eps);
+}
+
+// The row statistics (LayerNorm's token mean, 0 for RMSNorm, and the
+// normaliser) of row m, s of d entries, formed by one warp as block_sum
+// forms them in the norm kernel.
+template <int NORM, int REP>
+__device__ __forceinline__ void warp_row_stats(const float* m, const float* s,
+                                               int d, float eps, int lane,
+                                               float* mu_tok, float* norm) {
+  const float inv_d = 1.0f / static_cast<float>(d);
+  if constexpr (NORM == kRms) {
+    *mu_tok = 0.0f;
+    *norm = normaliser(
+        warp_block_sum([&](int t) { return partial_srm<REP>(m, s, d, t); },
+                       lane),
+        inv_d, eps);
+  } else {
+    const float tok =
+        warp_block_sum([&](int t) { return partial_mean(m, d, t); }, lane) *
+        inv_d;
+    *mu_tok = tok;
+    *norm = normaliser(
+        warp_block_sum(
+            [&](int t) { return partial_spread<REP>(m, s, d, t, tok); },
+            lane),
+        inv_d, eps);
+  }
+}
+
+// One normalised entry: (mean, var) of the norm's output.
+template <int NORM, int REP>
+__device__ __forceinline__ void normalise(float mu, float sec, float gain,
+                                          float bias, float mu_tok,
+                                          float norm, float* mean,
+                                          float* var) {
+  float v, srm;
+  var_srm<REP>(mu, sec, &v, &srm);
+  const float scale = norm * gain;
+  if constexpr (NORM == kRms)
+    *mean = mu * scale;
+  else
+    *mean = (mu - mu_tok) * scale + bias;
+  *var = v * (scale * scale);
+}
+
+}  // namespace pfp

@@ -30,43 +30,19 @@
 // and which cancels when |mu_tok| is large. Nothing is padded here and the
 // row is at hand, so the spread is summed in the centred form of the
 // eager pfp_layers.pfp_layernorm, after a first pass for mu_tok.
-#include "pfp_moments.cuh"
+//
+// The row statistics and the per-element normalisation live in
+// pfp_norm.cuh, shared with the fused unit (pfp_fused.cu).
+#include "pfp_norm.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using pfp::kLayer;
+using pfp::kRepSrm;
+using pfp::kRepVar;
+using pfp::kRms;
+constexpr int kThreads = pfp::kNormThreads;
 constexpr int kNoAct = -1;
-
-enum Norm { kRms = 0, kLayer = 1 };
-enum Rep { kRepVar = 0, kRepSrm = 1 };
-
-// Sum over the block; every thread gets the total.
-__device__ __forceinline__ float block_sum(float v, float* s_part) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();  // s_part may still be read by a previous reduction
-  if (lane == 0) s_part[warp] = v;
-  __syncthreads();
-  float total = 0.0f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) total += s_part[w];
-  return total;
-}
-
-template <int REP>
-__device__ __forceinline__ void var_srm(float mu, float sec, float* var,
-                                        float* srm) {
-  if constexpr (REP == kRepVar) {
-    *var = sec;
-    *srm = sec + mu * mu;
-  } else {
-    *var = sec - mu * mu;
-    *srm = sec;
-  }
-}
 
 template <int NORM, int REP, int ACT>
 __global__ void __launch_bounds__(kThreads)
@@ -75,7 +51,7 @@ pfp_norm_kernel(const float* __restrict__ mu, const float* __restrict__ sec,
                 const float* __restrict__ bias,
                 float* __restrict__ mu_out, float* __restrict__ sec_out,
                 int d, float eps) {
-  __shared__ float s_part[kWarps];
+  __shared__ float s_part[pfp::kNormWarps];
   const long long base = static_cast<long long>(blockIdx.x) * d;
   const float* m = mu + base;
   const float* s = sec + base;
@@ -83,37 +59,22 @@ pfp_norm_kernel(const float* __restrict__ mu, const float* __restrict__ sec,
 
   float mu_tok = 0.0f, norm;
   if constexpr (NORM == kRms) {
-    float acc = 0.0f;
-    for (int j = threadIdx.x; j < d; j += kThreads) {
-      float var, srm;
-      var_srm<REP>(m[j], s[j], &var, &srm);
-      acc += srm;
-    }
-    norm = 1.0f / sqrtf(block_sum(acc, s_part) * inv_d + eps);
+    norm = pfp::normaliser(
+        pfp::block_sum(pfp::partial_srm<REP>(m, s, d, threadIdx.x), s_part),
+        inv_d, eps);
   } else {
-    float acc = 0.0f;
-    for (int j = threadIdx.x; j < d; j += kThreads) acc += m[j];
-    mu_tok = block_sum(acc, s_part) * inv_d;
-    acc = 0.0f;
-    for (int j = threadIdx.x; j < d; j += kThreads) {
-      float var, srm;
-      var_srm<REP>(m[j], s[j], &var, &srm);
-      const float c = m[j] - mu_tok;
-      acc += var + c * c;
-    }
-    norm = 1.0f / sqrtf(block_sum(acc, s_part) * inv_d + eps);
+    mu_tok = pfp::block_sum(pfp::partial_mean(m, d, threadIdx.x), s_part) *
+             inv_d;
+    norm = pfp::normaliser(
+        pfp::block_sum(pfp::partial_spread<REP>(m, s, d, threadIdx.x, mu_tok),
+                       s_part),
+        inv_d, eps);
   }
 
   for (int j = threadIdx.x; j < d; j += kThreads) {
-    float var, srm;
-    var_srm<REP>(m[j], s[j], &var, &srm);
-    const float scale = norm * gain[j];
-    float mean;
-    if constexpr (NORM == kRms)
-      mean = m[j] * scale;
-    else
-      mean = (m[j] - mu_tok) * scale + bias[j];
-    var = var * (scale * scale);
+    float mean, var;
+    pfp::normalise<NORM, REP>(m[j], s[j], gain[j], bias[j], mu_tok, norm,
+                              &mean, &var);
     if constexpr (ACT != kNoAct) {
       pfp::activation_moments<ACT>(mean, var, &mu_out[base + j],
                                    &sec_out[base + j]);

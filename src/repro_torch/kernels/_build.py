@@ -41,6 +41,8 @@ _SIGNATURES = {
     "pfp_glu_launch": [_P, _P, _P, _P, _P, _P, _L, _P],
     "pfp_maxpool2d_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pfp_norm_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "pfp_norm_dense_act_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, _I, _I, _I, _F, _P],
     "pfp_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _F, _I, _P],
     "pfp_attention_kv_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -84,10 +86,23 @@ def _compile(out_dir: Path) -> str:
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
+    # One thread drains each process's output (a full pipe would stall
+    # it) and notes when it ended, so the log shows each source's time.
+    start, done = time.perf_counter(), {}
+
+    def drain(proc):
+        done[proc] = (proc.communicate()[0], time.perf_counter() - start)
+
+    threads = [threading.Thread(target=drain, args=(proc,))
+               for _, _, proc in procs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     logs, failed = [], []
     for src, _, proc in procs:
-        out, _ = proc.communicate()
-        logs.append(f"== {src.name}\n{out}")
+        out, seconds = done[proc]
+        logs.append(f"== {src.name} ({seconds:.1f} s)\n{out}")
         if proc.returncode != 0:
             failed.append(src.name)
     if failed:

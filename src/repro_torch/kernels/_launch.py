@@ -13,7 +13,8 @@ LAUNCHES = {"dense": 0, "dense_first_layer": 0, "dense_var": 0,
             "activation": 0, "maxpool2d": 0, "rmsnorm": 0, "layernorm": 0,
             "glu_product": 0, "attention": 0, "attention_cache": 0,
             "attention_paged": 0, "dense_batched": 0,
-            "dense_batched_first_layer": 0, "dense_batched_var": 0}
+            "dense_batched_first_layer": 0, "dense_batched_var": 0,
+            "norm_dense_act": 0}
 
 
 def reset_launch_counts() -> None:

@@ -24,6 +24,8 @@ from repro_torch.kernels.pfp_attention import (pfp_attention_cache_cuda,
                                                pfp_attention_paged_cuda)
 from repro_torch.kernels.pfp_dense import (MODE_FIRST_LAYER, MODE_SRM,
                                            MODE_VAR, pfp_dense_cuda)
+from repro_torch.kernels.pfp_fused import (DEFAULT_TILE, check_config,
+                                           pfp_norm_dense_act_cuda)
 from repro_torch.kernels.pfp_maxpool import pfp_maxpool2d_cuda
 from repro_torch.kernels.pfp_moe import pfp_dense_batched_cuda
 from repro_torch.kernels.pfp_norms import pfp_norm_cuda
@@ -116,6 +118,32 @@ def pfp_layernorm(mu, second, gain, bias=None, *, rep: str = "var",
                              rep=rep, eps=eps, act=act)
     return ref.pfp_layernorm_ref(mu, second, gain, bias, rep=rep, eps=eps,
                                  act=act)
+
+
+def pfp_norm_dense_act(mu, second, gain, bias, mu_w, srm_w, *,
+                       norm: str = "rmsnorm", rep: str = "var",
+                       eps: float = 1e-6, act: str = "silu", schedule=None):
+    """The fused norm -> dense -> activation unit for (..., K) x (K, N):
+    the norm input's (mean, second) in ``rep``, the norm's gain and
+    (LayerNorm) ``bias``, the dense weight's (mean, srm). Returns
+    (mean, srm). ``schedule`` (a ``norm_dense_act`` Schedule) picks the
+    kernel's tile; without one it is ``DEFAULT_TILE``. Norm, rep,
+    activation and tile are checked on either device, so the plain
+    version takes exactly what the kernel takes."""
+    tile = DEFAULT_TILE if schedule is None else (
+        schedule.block("block_m"), schedule.block("block_n"))
+    check_config(norm, rep, act, tile)
+    lead, k, n = mu.shape[:-1], mu.shape[-1], mu_w.shape[-1]
+    mu, second = mu.reshape(-1, k), second.reshape(-1, k)
+    if _on_cuda(mu):
+        mean, srm = pfp_norm_dense_act_cuda(mu, second, gain, bias, mu_w,
+                                            srm_w, norm=norm, rep=rep,
+                                            eps=eps, act=act, tile=tile)
+    else:
+        mean, srm = ref.pfp_norm_dense_act_ref(mu, second, gain, bias, mu_w,
+                                               srm_w, norm=norm, rep=rep,
+                                               eps=eps, act=act)
+    return mean.reshape(*lead, n), srm.reshape(*lead, n)
 
 
 def pfp_glu_product(mu_a, srm_a, mu_b, srm_b):

@@ -118,6 +118,23 @@ def pfp_layernorm_ref(mu, second, gain, bias=None, *, rep: str = "var",
     return _epilogue(mean, var * torch.square(scale), act)
 
 
+def pfp_norm_dense_act_ref(mu, second, gain, bias, mu_w, srm_w, *,
+                           norm: str = "rmsnorm", rep: str = "var",
+                           eps: float = 1e-6, act: str = "silu"):
+    """The fused unit as the unfused chain computes it: the norm (VAR out),
+    ``GaussianTensor.to_srm``'s ``second + square(mean)``, the Eq. 12 dense
+    and the activation, in that order. (mean, srm) out."""
+    if norm == "rmsnorm":
+        h_mu, h_var = pfp_rmsnorm_ref(mu, second, gain, rep=rep, eps=eps)
+    elif norm == "layernorm":
+        h_mu, h_var = pfp_layernorm_ref(mu, second, gain, bias, rep=rep,
+                                        eps=eps)
+    else:
+        raise ValueError(f"unknown norm {norm!r}")
+    y_mu, y_var = pfp_dense_ref(h_mu, h_var + torch.square(h_mu), mu_w, srm_w)
+    return pfp_activation_ref(y_mu, y_var, act)
+
+
 def pfp_glu_ref(mu_a, srm_a, mu_b, srm_b):
     """Exact SRM product of independent Gaussians: (mean, srm) out."""
     return pfp_math.product_srm(mu_a.to(_F32), srm_a.to(_F32),

@@ -231,6 +231,12 @@ def forward(model: LM, cfg: ModelConfig, inputs: Mapping, ctx: Context, *,
             new_stack.setdefault(name, []).append(new_st)
     x = model.ln_f(x, ctx)
     logits = model.lm_head(x, ctx)
+    if is_gaussian(logits):
+        # Under the fusion pass (core/dispatch.py) ln_f -> lm_head comes
+        # back as a lazy pending; reading its fields runs it here, so no
+        # kernel of this forward is left to run wherever the caller first
+        # reads the logits.
+        logits = GaussianTensor(logits.mean, logits.second, logits.rep)
     out_states = None
     if collect_states and states is not None:
         out_states = {**states, **new_top}

@@ -1,0 +1,180 @@
+"""Time the same kernel calls from several checkouts of the port on one card.
+
+Compares two trees of ``src/repro_torch`` (for example a change and its
+parent) in one run, so that both see the same card, clocks and power
+limit. Each tree is timed in a child process of its own, which imports
+that tree's package, builds its kernels into the tree's own ``build/``
+and times, with CUDA events around a CUDA graph of ``INNER`` calls
+(median of ``REPLAYS`` replays):
+
+  * ``rmsnorm``: the norm kernel at granite-8b's (2048, 4096), VAR input;
+  * ``dense``: the Eq. 12 dense kernel at the gate projection
+    (2048, 4096, 14336);
+  * where the tree has the fused unit: ``norm_dense_act`` at the gate
+    projection and at a 4-slot decode step (4, 4096, 14336), rmsnorm and
+    silu, at every instantiated tile, and the unfused kernel chain it
+    replaces at both shapes.
+
+Each child also reports which fused calls are not bit for bit the
+unfused chain's, and ptxas' register count of every instantiation of the
+norm kernel and the fused kernel (from the build's ``ptxas.log``).
+
+Usage, on the card: give the trees in the order to run them, for an A/B
+parent, change, change, parent::
+
+    python3 tools/ab_kernel_times.py build/ab/parent build/ab/change \\
+        build/ab/change build/ab/parent
+
+A tree is a directory holding ``src/repro_torch`` (``git archive <rev>
+src/repro_torch | tar -x -C <dir>``). The rows go to stdout and, in full,
+to ``chiprun_out/ab_kernel_times.json``.
+"""
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+INNER, REPLAYS = 5, 5
+NORM_SHAPE = (2048, 4096)
+GATE, DECODE = (2048, 4096, 14336), (4, 4096, 14336)
+REG_KERNELS = ("pfp_norm_kernel", "pfp_norm_dense_act_kernel")
+
+
+def _device_ms(fn):
+    """Median ms per call of ``fn`` over REPLAYS replays of a CUDA graph of
+    INNER calls."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(INNER):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPLAYS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / INNER)
+    return sorted(times)[len(times) // 2]
+
+
+def _registers(ptxas_log):
+    """{kernel: {template arguments: registers}} for REG_KERNELS."""
+    out = {name: {} for name in REG_KERNELS}
+    entry = None
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            for name in REG_KERNELS:
+                hit = re.search(name + r"I(.*)EEv", entry)
+                if hit:
+                    out[name][hit.group(1)] = int(m.group(1))
+            entry = None
+    return out
+
+
+def child(tree):
+    import torch
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    import repro_torch  # noqa: F401  (IEEE fp32 for cuBLAS)
+    from repro_torch.kernels import _build, ops
+    _build.load()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=dev)
+
+    rows, differ = {}, []
+    m, d = NORM_SHAPE
+    mu, var = draw(m, d), draw(m, d).abs()
+    gain = 1.0 + 0.1 * draw(d)
+    rows["rmsnorm (2048, 4096)"] = _device_ms(
+        lambda: ops.pfp_rmsnorm(mu, var, gain, rep="var"))
+    wm = draw(GATE[1], GATE[2], scale=0.1)
+    ws = draw(GATE[1], GATE[2], scale=0.1).abs() + wm * wm
+    srm = var + mu * mu
+    rows[f"dense {GATE}"] = _device_ms(lambda: ops.pfp_dense(mu, srm, wm, ws))
+    if hasattr(ops, "pfp_norm_dense_act"):
+        from repro_torch.kernels.pfp_fused import TILES
+        from repro_torch.tuning.measure import unfused_chain
+        from repro_torch.tuning.schedules import Schedule
+        for shape in (GATE, DECODE):
+            x_mu, x_var = mu[:shape[0]], var[:shape[0]]
+            args = (x_mu, x_var, gain, None, wm, ws)
+            rows[f"unfused chain {shape}"] = _device_ms(
+                lambda: unfused_chain(*args))
+            chain = unfused_chain(*args)
+            for bm, bn in TILES:
+                sched = Schedule.make("norm_dense_act", block_m=bm,
+                                      block_n=bn)
+                name = f"norm_dense_act {shape} ({bm}, {bn})"
+                rows[name] = _device_ms(
+                    lambda: ops.pfp_norm_dense_act(*args, schedule=sched))
+                got = ops.pfp_norm_dense_act(*args, schedule=sched)
+                if not all(torch.equal(x, y) for x, y in zip(got, chain)):
+                    differ.append(name)
+    log = (Path(_build.BUILD_INFO["directory"]) / "ptxas.log").read_text()
+    print(json.dumps({"tree": tree, "ms": rows, "differ_from_chain": differ,
+                      "registers": _registers(log),
+                      "build_s": _build.BUILD_INFO["seconds"]}))
+
+
+def main(trees):
+    import torch
+    if not trees or not torch.cuda.is_available():
+        print("ab_kernel_times: give tree directories, on a CUDA card",
+              file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    runs, failed = [], 0
+    for tree in trees:
+        out = subprocess.run([sys.executable, __file__, "--child", tree],
+                             capture_output=True, text=True)
+        if out.returncode != 0:   # a tree that does not build or run
+            print(f"{tree}: failed\n{out.stdout[-4000:]}"
+                  f"{out.stderr[-4000:]}", file=sys.stderr)
+            failed += 1
+            runs.append({"tree": tree, "ms": {}, "registers": {},
+                         "build_s": None, "failed": True})
+            continue
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    print(f"card: {card.strip()}")
+    names = list(dict.fromkeys(n for r in runs for n in r["ms"]))
+    print(" " * 45 + "  ".join(f"{Path(r['tree']).name[-9:]:>9s}"
+                               for r in runs))
+    for name in names:
+        cells = [f"{r['ms'][name]:.4f}" if name in r["ms"] else "-"
+                 for r in runs]
+        print(f"{name:44s} " + "  ".join(f"{c:>9s}" for c in cells))
+    for r in runs:
+        if not r.get("failed"):
+            print(f"{r['tree']}: build {r['build_s']:.1f} s; not bit for "
+                  f"bit the unfused chain: {r['differ_from_chain'] or 'none'}"
+                  f"; registers {json.dumps(r['registers'])}")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "ab_kernel_times.json").write_text(json.dumps(
+        {"card": card.strip(), "runs": runs}, indent=1))
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:
+        child(sys.argv[2])
+    else:
+        sys.exit(main(sys.argv[1:]))
