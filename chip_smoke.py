@@ -8,9 +8,14 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. card   : nvidia-smi name and power limit, torch and CUDA versions
   2. build  : nvcc builds src/repro_torch/csrc/*.cu for sm_90a
   3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-              at the main paths' shapes and ragged ones, plus the Eq. 12
-              cancellation check and a LayerNorm row offset by 100, both
-              against fp64
+              at the main paths' shapes (the CNNs' at batch 10, 100 and
+              1024) and ragged ones, the dense kernel also at K on both
+              sides of its split boundaries and at granite-8b's decode
+              shapes; the Eq. 12 cancellation check and a LayerNorm row
+              offset by 100, both against fp64; a dense row's bits
+              independent of M (M 6, 100, 1024: three plans); the batched
+              kernel with kept-row counts (skipped rows +0, the rest bit
+              for bit the kernel without them)
   4. serving: LeNet-5 and MLP at full width (random weights from a seed,
               sigma_init 1e-3, converted with calibration factor 0.4) answer
               Dirty-MNIST batches of 100 per split with impl="kernel"; the
@@ -40,10 +45,11 @@ Phases, each printing its own lines; any failure exits non-zero:
               impl="eager"
   7. times  : device times (CUDA graph replays between CUDA events) of
               each kernel at batch 10, 100 and 1024 and at the LM's shapes
-              (the cache kernels at a decode and a prefill shape), beside
-              its plain version, a one-call PyTorch yardstick and its
-              bound, plus its time per eager call; whole-model forwards,
-              eager and captured in a CUDA graph
+              (the dense kernel also at a 4-slot decode step's shapes, the
+              cache kernels at a decode and a prefill shape), beside its
+              plain version, a one-call PyTorch yardstick and its bound,
+              plus its time per eager call and each dense call's plan;
+              whole-model forwards, eager and captured in a CUDA graph
   8. profile: torch.profiler over each model's forwards and one decode
               step: device busy share and the kernels that take the device
               time
@@ -58,8 +64,12 @@ Phases, each printing its own lines; any failure exits non-zero:
               expert kernel must launch in each. (c) decode: 8 requests
               with prompts of PREFILL_CHUNK tokens (one prefill call of the
               same shape on both pools) through 4 slots on both pools, as
-              in phase 6, with drop counts per pool. Then the batched
-              kernels' times at the MoE shapes, the MoE forward eager and
+              in phase 6, with drop counts per pool, and once more on the
+              contiguous pool with the empty-expert skip off (the same
+              tokens and last-step logits bit for bit; experts holding a
+              row per decode MoE call printed). Then the batched kernels'
+              times at the MoE shapes and at the decode shapes with the
+              median decode call's kept rows, the MoE forward eager and
               in a CUDA graph, and a profile of one forward and one decode
               step. Peak device memory is printed.
  10. fused  : the fused norm -> dense -> activation kernel (row 8) against
@@ -77,7 +87,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               once a layer in place of the gate's dense and activation,
               give the unfused forward's greedy tokens at every position
               and moments within NDA_TOL; the decode phase's requests
-              through DecodeStatePool must give the unfused run's tokens.
+              through DecodeStatePool must give the unfused run's tokens,
+              launching the fused kernel where the DB fuses the decode
+              step's unit and not where it stays unfused.
               Times: the forward eager and in a CUDA graph beside the
               unfused one, row 8 at the gate and decode shapes beside the
               unfused chain.
@@ -167,6 +179,9 @@ NEAR_TIE = 1e-4   # a routing mismatch at a larger top-k margin is a fault
 NDA_TOL = dict(rtol=1e-3, atol=5e-4)   # tests/test_impl_dispatch.py _NDA_TOL
 FUSED_CHECK_SHAPES = ((37, 200, 130), (4, 4096, 1000))
 SCHEDULE_DB = ROOT / "build" / "schedules" / "granite-8b.json"
+# K on both sides of the dense kernel's split boundaries (kernels/pfp_dense.py
+# split_k at N 100: 1 to K 64, 2 to 96, 3 from 97, 7 at 784, 8 from 785).
+SPLIT_CHECK_K = (1, 17, 64, 65, 96, 97, 127, 129, 783, 784, 785)
 
 KERNELS = {
     "dense": ("src/repro_torch/csrc/pfp_dense.cu",
@@ -203,6 +218,13 @@ KERNELS = {
 # What ``library_ms`` times, where one PyTorch call computes the same work.
 LIBRARY = {
     "dense": "torch.bmm of the stacked fp32 operand pairs (products only)",
+    "activation": "none: no single call computes a Gaussian's moments "
+                  "through the activation (the closed form or 8 "
+                  "Gauss-Hermite nodes)",
+    "maxpool2d": "none: no single call computes Clark's moments of a max "
+                 "of Gaussians",
+    "rmsnorm": "none: F.rms_norm has no delta-method variance",
+    "layernorm": "none: F.layer_norm has no delta-method variance",
     "dense_first_layer": "torch.bmm of the stacked fp32 operand pairs",
     "dense_var": "torch.bmm of the stacked fp32 operand pairs",
     "glu_product": "torch.mul of the stacked (mu, srm) operand pairs",
@@ -286,6 +308,30 @@ def lm_path_calls(cfg):
                                      ("dense", (m, d, cfg.vocab_size))]
 
 
+def lm_decode_calls(cfg):
+    """The dense kernel's calls in one LM decode step of DECODE_SLOTS
+    slots (fusion off): (M, K, N)."""
+    m, d, f = DECODE_SLOTS, cfg.d_model, cfg.d_ff
+    kv = cfg.num_kv_heads * cfg.head_dim
+    block = [(m, d, cfg.attn_dim), (m, d, kv), (m, d, kv),
+             (m, cfg.attn_dim, d), (m, d, f), (m, d, f), (m, f, d)]
+    return block * cfg.num_layers + [(m, d, cfg.vocab_size)]
+
+
+def dense_plan_of(kernel, shape):
+    """The plan ``kernels/pfp_dense.py`` gives a dense kernel's call, as
+    (split, bn, tn, tm, stages); None for the other kernels."""
+    from repro_torch.kernels.pfp_dense import dense_plan
+    if not kernel.startswith("dense"):
+        return None
+    mode = 2 if kernel.endswith("_var") else 1 if "first" in kernel else 0
+    if kernel in BATCHED_KERNELS:
+        e, m, k, n = shape
+        return tuple(dense_plan(m, n, k, e, mode))
+    m, k, n = shape
+    return tuple(dense_plan(m, n, k, 1, mode))
+
+
 def _valid_pairs(tq, tk, causal):
     """(query, key) pairs with a valid key: right-aligned causality."""
     if not causal:
@@ -309,10 +355,13 @@ def _cache_pairs(shape):
     return keys, pairs
 
 
-def work(kernel, shape):
+def work(kernel, shape, rows=None):
     """(bytes, fp32 operations) the function needs: each input read once,
     each output written once; attention counts the valid scores only, and
-    the cache kernels the K / V rows that some query row can see."""
+    the cache kernels the K / V rows that some query row can see. For the
+    batched dense with ``rows`` (kept rows per expert), only the experts
+    that hold a row: their weights, their kept rows' inputs and products,
+    and every output (the zeros are written too)."""
     if kernel in CACHE_KERNELS:
         b, h, hkv, tq, s, d = shape[:6]
         keys, pairs = _cache_pairs(shape)
@@ -339,8 +388,13 @@ def work(kernel, shape):
         return 24 * rows * n, 2 * rows * n
     if kernel in BATCHED_KERNELS:
         e, c, k, n = shape
-        nbytes, ops = work(kernel.replace("_batched", ""), (c, k, n))
-        return e * nbytes, e * ops
+        nbytes = ops = 0
+        for r in ([c] * e if rows is None else rows):
+            if r:
+                b, o = work(kernel.replace("_batched", ""), (r, k, n))
+                nbytes, ops = nbytes + b, ops + o
+            nbytes += 8 * (c - r) * n
+        return nbytes, ops
     if kernel.startswith("dense"):
         m, k, n = shape
         if kernel == "dense_first_layer":
@@ -366,8 +420,8 @@ def _activation_kind(kernel, shape):
     return "relu", shape
 
 
-def bound_ms(kernel, shape):
-    nbytes, ops = work(kernel, shape)
+def bound_ms(kernel, shape, rows=None):
+    nbytes, ops = work(kernel, shape, rows)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -478,16 +532,16 @@ def operands(kernel, shape, seed, device):
     return (mu, var, kind) if kernel == "activation" else (mu, var)
 
 
-def run_kernel(kernel, args):
+def run_kernel(kernel, args, rows=None):
     from repro_torch.kernels import ops
     if kernel == "norm_dense_act":
         return ops.pfp_norm_dense_act(*args[:6], schedule=args[6])
     if kernel == "dense_batched":
-        return ops.pfp_dense_batched(*args)
+        return ops.pfp_dense_batched(*args, rows=rows)
     if kernel == "dense_batched_first_layer":
-        return ops.pfp_dense_batched(*args, first_layer=True)
+        return ops.pfp_dense_batched(*args, first_layer=True, rows=rows)
     if kernel == "dense_batched_var":
-        return ops.pfp_dense_batched_var(*args)
+        return ops.pfp_dense_batched_var(*args, rows=rows)
     if kernel == "dense":
         return ops.pfp_dense(*args)
     if kernel == "dense_first_layer":
@@ -513,12 +567,17 @@ def run_kernel(kernel, args):
     return ops.pfp_maxpool2d(*args)
 
 
-def run_plain(kernel, args):
+def run_plain(kernel, args, rows=None):
     from repro_torch.kernels import ref
     if kernel == "norm_dense_act":
         return ref.pfp_norm_dense_act_ref(*args[:6])
-    if kernel in BATCHED_KERNELS:   # the same plain versions, batched by @
-        kernel = kernel.replace("_batched", "")
+    if kernel == "dense_batched":
+        return ref.pfp_dense_batched_ref(*args, rows=rows)
+    if kernel == "dense_batched_first_layer":
+        return ref.pfp_dense_batched_first_layer_ref(args[0], *args[2:],
+                                                     rows=rows)
+    if kernel == "dense_batched_var":
+        return ref.pfp_dense_batched_var_ref(*args, rows=rows)
     if kernel == "dense":
         return ref.pfp_dense_ref(*args)
     if kernel == "dense_first_layer":
@@ -696,12 +755,18 @@ def phase_kernels(device):
     import torch
     from repro_torch.kernels import ops, ref
     errs = {k: 0.0 for k in KERNELS}
-    cases = sorted(set(main_path_calls(MAIN_BATCH, "srm")
-                       + main_path_calls(MAIN_BATCH, "var")))
+    cases = sorted(set(sum((main_path_calls(b, f) for b in BATCHES
+                            for f in ("srm", "var")), [])))
     cases += [("dense", (33, 100, 53)), ("dense_first_layer", (7, 25, 6)),
               ("dense_var", (33, 100, 53)), ("activation", (3, 37, 70)),
               ("maxpool2d", (2, 6, 10, 5)), ("dense", (1, 784, 100)),
               ("dense_var", (1, 1, 1))]
+    # Ragged K on both sides of the split's boundaries, and granite-8b's
+    # decode shapes, in all three modes.
+    for kernel in ("dense", "dense_first_layer", "dense_var"):
+        cases += [(kernel, (37, k, 100)) for k in SPLIT_CHECK_K]
+        cases += [(kernel, (DECODE_SLOTS, 4096, n))
+                  for n in (4096, 1024, 14336, 49152)]
     for i, (kernel, shape) in enumerate(cases):
         args = operands(kernel, shape, 100 + i, device)
         got = run_kernel(kernel, args)
@@ -711,7 +776,10 @@ def phase_kernels(device):
         _check_close(f"{kernel}{shape}", got, want, tol)
         err = _max_err(got, want)
         errs[kernel] = max(errs[kernel], err)
-        print(f"[kernels] {kernel:18s} {str(shape):20s} max_abs_err {err:.3e}")
+        plan = dense_plan_of(kernel, shape)
+        print(f"[kernels] {kernel:18s} {str(shape):20s} max_abs_err {err:.3e}"
+              + ("" if plan is None else f"  plan {plan}"))
+        del args, got, want
     # The Gauss-Hermite kinds share the activation kernel (not on the main
     # path of these models, checked all the same).
     mu, var = gaussian((100, 14, 14, 16), 7, device)
@@ -724,6 +792,7 @@ def phase_kernels(device):
         print(f"[kernels] activation[{kind:7s}] max_abs_err "
               f"{_max_err(got, want):.3e}")
     cancellation_check(device)
+    m_independence_check(device)
     lm_kernel_checks(device, errs)
     cache_kernel_checks(device, errs)
     layernorm_offset_check(device)
@@ -758,7 +827,40 @@ def moe_kernel_checks(device, errs):
                          f"single dense kernel on its slice")
             print(f"[kernels] {kernel:25s} {str(shape):20s} max_abs_err "
                   f"{err:.3e}, every expert bitwise the dense kernel's")
+            if shape in (MOE_DECODE_UP, (3, 7, 130, 5)):
+                batched_rows_check(kernel, shape, args, seed, device)
             del args, got
+
+
+def batched_rows_check(kernel, shape, args, seed, device):
+    """The batched kernel with kept-row counts: x zeroed past each count
+    (as the MoE dispatch leaves it), the rows past it written as +0, the
+    rest bit for bit the rows=None kernel's on the same x, and within
+    DENSE_TOL of the plain version with the same counts."""
+    import torch
+    e, c = shape[:2]
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.randint(0, c + 1, (e,), generator=g, dtype=torch.int32)
+    rows[0], rows[-1] = 0, c
+    rows = rows.to(device)
+    keep = torch.arange(c, device=device)[None, :, None] < rows[:, None, None]
+    args = tuple(torch.where(keep, a, 0.0) if i < 2 else a
+                 for i, a in enumerate(args))
+    full = run_kernel(kernel, args)
+    got = run_kernel(kernel, args, rows)
+    torch.cuda.synchronize()
+    for g_, f in zip(got, full):
+        kept = keep.expand_as(g_)
+        if not torch.equal(g_[kept], f[kept]):
+            fail(f"{kernel}{shape} rows: kept rows differ from rows=None")
+        if g_[~kept].any() or g_[~kept].signbit().any():
+            fail(f"{kernel}{shape} rows: rows past a count are not +0")
+    _check_close(f"{kernel}{shape} rows", got,
+                 run_plain(kernel, args, rows), DENSE_TOL)
+    held = int((rows > 0).sum())
+    print(f"[kernels] {kernel:25s} {str(shape):20s} rows= ({held} of {e} "
+          f"experts hold rows): skipped rows +0, kept rows bitwise the "
+          f"rows=None kernel's")
 
 
 def lm_kernel_checks(device, errs):
@@ -881,6 +983,28 @@ def layernorm_offset_check(device):
           f"form in fp32 {moment_err:.3e}")
 
 
+def m_independence_check(device):
+    """A row's bits depend only on (K, N, mode): the first 6 rows of the
+    same operands, bit for bit, at M = 6, 100 and 1024 (three plans), at a
+    split shape and at decode shapes, in each mode."""
+    import torch
+    for kernel in ("dense", "dense_first_layer", "dense_var"):
+        for k, n in ((784, 120), (4096, 1024), (2048, 1408)):
+            args = operands(kernel, (1024, k, n), 31, device)
+            first, plans = None, []
+            for m in (6, 100, 1024):
+                part = tuple(a[:m] if i < 2 else a for i, a in enumerate(args))
+                got = [t[:6] for t in run_kernel(kernel, part)]
+                plans.append(dense_plan_of(kernel, (m, k, n)))
+                if first is None:
+                    first = got
+                elif not all(torch.equal(a, b) for a, b in zip(got, first)):
+                    fail(f"{kernel} (M, {k}, {n}): rows 0-5 at M {m} differ "
+                         f"from M 6")
+            print(f"[kernels] {kernel:18s} (M, {k}, {n}): rows 0-5 bit for "
+                  f"bit at M 6 / 100 / 1024, plans {plans}")
+
+
 def cancellation_check(device):
     """Eq. 12 with srm ~= mu^2: the variance is a small difference of two
     large sums. The kernel's error against an fp64 version must be no worse
@@ -888,7 +1012,8 @@ def cancellation_check(device):
     import torch
     from repro_torch.kernels import ops, ref
     # (M, K, N) for the dense kernel; (E, C, K, N) for the batched one.
-    for shape in ((100, 784, 100), (19600, 150, 16), (8, 240, 2048, 128)):
+    for shape in ((100, 784, 100), (10, 784, 120), (19600, 150, 16),
+                  (8, 240, 2048, 128)):
         *lead, k, n = shape
         g = torch.Generator(device="cpu").manual_seed(sum(shape))
         mx = torch.relu(torch.randn((*lead, k), generator=g)) + 0.1
@@ -1283,11 +1408,17 @@ def _serve(cfg, model, requests, device, paged, seed):
     # routed) over the prefills and over the decode steps.
     drops = {k: (sum(int((~r.keep).sum()) for r in v),
                  sum(r.keep.numel() for r in v)) for k, v in routes.items()}
+    # Kept rows per expert of every decode step's MoE call (the counts
+    # the expert MLP is given).
+    step_rows = [torch.zeros(r.probs.shape[-1], dtype=torch.int32,
+                             device=r.keep.device).scatter_add_(
+        0, r.expert_idx.reshape(-1), r.keep.int()).tolist()
+        for r in routes["step"]]
     return {"pool": "paged" if paged else "contiguous",
             "finished": sorted(finished, key=lambda r: r.uid),
             "steps": steps, "prefill_ms": prefill_t.ms(),
             "step_ms": step_t.ms(), "last_logits": last_logits,
-            "moe_drops": drops}
+            "moe_drops": drops, "step_rows": step_rows}
 
 
 def _teacher_forced(cfg, model, requests, device):
@@ -1413,6 +1544,32 @@ def phase_decode(device, cfg, model, seed, *, prompt_lens=PROMPT_LENS,
         fail(f"{tag}: paged and contiguous last-step logits differ")
     print(f"[{tag}] paged and contiguous: identical tokens, "
           f"bit-identical last-step logits")
+    occupancy = None
+    if "dense_batched" in kernels:
+        # The expert kernel skips experts without a row; the same requests
+        # with the skip off must give the same tokens and logits.
+        from repro_torch.nn.moe import empty_expert_skip
+        with empty_expert_skip(False):
+            plain = _serve(cfg, model, requests, device, False, seed)
+        for a, b in zip(cont["finished"], plain["finished"]):
+            if a.generated != b.generated:
+                fail(f"{tag} uid {a.uid}: tokens {a.generated} with the "
+                     f"empty-expert skip, {b.generated} without")
+        if not all(torch.equal(a, b) for a, b in zip(cont["last_logits"],
+                                                     plain["last_logits"])):
+            fail(f"{tag}: last-step logits differ with the skip off")
+        held = sorted(sum(1 for c in r if c) for r in cont["step_rows"])
+        occupancy = {"experts_held": held,
+                     "median_rows": sorted(
+                         cont["step_rows"],
+                         key=lambda r: sum(1 for c in r if c))[len(held) // 2],
+                     "step_ms_skip_off": plain["step_ms"]}
+        print(f"[{tag}] empty-expert skip off: identical tokens, bit-identical"
+              f" last-step logits; step {np.mean(plain['step_ms']):.3f} ms "
+              f"mean against {np.mean(cont['step_ms']):.3f} with it; experts "
+              f"holding a row per decode MoE call: min {held[0]}, median "
+              f"{held[len(held) // 2]}, max {held[-1]} of "
+              f"{len(cont['step_rows'][0])} ({len(held)} calls)")
     for r in cont["finished"]:
         print(f"[{tag}]   uid {r.uid}: {len(r.prompt)} + "
               f"{len(r.generated)} tokens ({r.finish_reason}), mean MI "
@@ -1457,6 +1614,8 @@ def phase_decode(device, cfg, model, seed, *, prompt_lens=PROMPT_LENS,
         "step_bound_ms": weight_bytes / PEAK_BYTES * 1e3,
     }
     info["moe_drops"] = {k: v["moe_drops"] for k, v in runs.items()}
+    if occupancy is not None:
+        info["occupancy"] = occupancy
     total = {k: launches["contiguous"][k] + launches["paged"][k]
              for k in kernels}
     return total, info
@@ -1615,10 +1774,12 @@ def phase_moe(device):
     return launches, info, cfg, model
 
 
-def phase_moe_times(device, cfg, model):
+def phase_moe_times(device, cfg, model, decode_rows):
     """The batched kernels at the MoE shapes (device times beside plain,
-    library and bound, and the eager call), and the MoE forward eager and
-    in a CUDA graph."""
+    library and bound, and the eager call), and at the decode shapes with
+    ``decode_rows`` (one decode MoE call's kept rows per expert, the
+    median occupancy of the decode phase); the MoE forward eager and in a
+    CUDA graph."""
     import torch
     from repro_torch.core.modes import Mode
     from repro_torch.models import lm
@@ -1631,6 +1792,9 @@ def phase_moe_times(device, cfg, model):
                                   inner=2 if big else 10,
                                   replays=2 if big else 5,
                                   call_iters=3 if big else 30))
+        for shape in (MOE_DECODE_UP, MOE_DECODE_DOWN):
+            rows.append(_time_row("moe-occ", kernel, shape, device,
+                                  rows=decode_rows))
     tokens = _lm_requests(cfg, device)[0]
     row = {"batch": LM_BATCH, "seq": LM_SEQ, "model": cfg.name}
     for impl, iters in (("kernel", 3), ("eager", 2)):
@@ -1655,26 +1819,45 @@ def phase_moe_times(device, cfg, model):
 
 
 def _time_row(label, kernel, shape, device, inner=10, replays=5,
-              call_iters=30):
+              call_iters=30, rows=None):
     """Device ms of the kernel, its plain version and the library call at
-    one shape, its bound, and its time per eager call."""
+    one shape, its bound, and its time per eager call. ``rows``: the
+    batched kernel's kept rows per expert (the rest of x zeroed, as the
+    MoE dispatch leaves it; the bound counts what these rows need)."""
+    import torch
     args = operands(kernel, shape, 1, device)
+    rows_t = None
+    if rows is not None:
+        rows_t = torch.tensor(rows, dtype=torch.int32, device=device)
+        keep = (torch.arange(shape[1], device=device)[None, :, None]
+                < rows_t[:, None, None])
+        args = tuple(torch.where(keep, a, 0.0) if i < 2 else a
+                     for i, a in enumerate(args))
     lib = library_call(kernel, args)
     row = {
         "batch": label, "kernel": kernel, "shape": list(shape),
-        "ms": device_ms(lambda: run_kernel(kernel, args), inner, replays),
-        "plain_ms": device_ms(lambda: run_plain(kernel, args), inner,
-                              replays),
+        "ms": device_ms(lambda: run_kernel(kernel, args, rows_t), inner,
+                        replays),
+        "plain_ms": device_ms(lambda: run_plain(kernel, args, rows_t),
+                              inner, replays),
         "library_ms": device_ms(lib, inner, replays) if lib else None,
-        "call_ms": time_ms(lambda: run_kernel(kernel, args), call_iters,
-                           min(3, call_iters)),
+        "call_ms": time_ms(lambda: run_kernel(kernel, args, rows_t),
+                           call_iters, min(3, call_iters)),
     }
-    row["bound_ms"], row["bound_by"] = bound_ms(kernel, shape)
+    row["bound_ms"], row["bound_by"] = bound_ms(kernel, shape, rows)
+    plan = dense_plan_of(kernel, shape)
+    if plan is not None:
+        row["plan"] = list(plan)
+    if rows is not None:
+        row["rows"] = list(rows)
     lib_s = "-" if lib is None else f"{row['library_ms']:.4f}"
+    plan_s = "" if plan is None else f"  plan {plan}"
+    occ_s = ("" if rows is None else
+             f"  ({sum(1 for r in rows if r)} experts hold {sum(rows)} rows)")
     print(f"[times] B={label:<5} {kernel:18s} {str(shape):36s} kernel "
           f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f}  library {lib_s}"
           f"  bound {row['bound_ms']:.5f} ({row['bound_by']})  eager call "
-          f"{row['call_ms']:.4f}")
+          f"{row['call_ms']:.4f}{plan_s}{occ_s}")
     return row
 
 
@@ -1707,6 +1890,8 @@ def phase_times(device, lm_cfg, lm_model):
         rows.append(_time_row("lm", kernel, shape, device,
                               inner=2 if big else 10, replays=2 if big else 5,
                               call_iters=3 if big else 30))
+    for shape in dict.fromkeys(lm_decode_calls(lm_cfg)):
+        rows.append(_time_row("lm-decode", "dense", shape, device))
     for kernel in CACHE_KERNELS:
         paged = (PAGE_SIZE,) if kernel == "attention_paged" else ()
         for label, shape in (("decode", CACHE_DECODE),
@@ -1949,9 +2134,11 @@ def phase_fused(device, seed, errs):
              f"{tuned} ({len(chosen)} queries)")
     backend = tcache.default_backend(device)
     info["schedules"] = {}
+    fuses = {}
     for (op, key, dtype, _), sched in chosen.items():
         meta = db.get_meta(op, key, dtype, backend)
         info["schedules"][str(key)] = {"schedule": sched.describe(), **meta}
+        fuses[tuple(key)] = meta["fuse"]
         if meta["mode"] != "time" or meta["dropped"]:
             fail(f"fused: {key} was not timed on the card, or candidates "
                  f"failed the check against the unfused chain: {meta}")
@@ -2045,10 +2232,16 @@ def phase_fused(device, seed, errs):
         if a.generated != b.generated:
             fail(f"fused decode uid {a.uid}: tokens {b.generated} != "
                  f"unfused {a.generated}")
+    # The decode step's unit runs fused only where the tuner found the
+    # fused kernel faster than the unfused chain.
+    step_fuses = fuses[(DECODE_SLOTS, cfg.d_model, cfg.d_ff)]
+    fused_launches = runs["fused"]["launches"]["norm_dense_act"]
     if len(runs["fused"]["finished"]) != DECODE_REQUESTS or \
-            runs["fused"]["launches"]["norm_dense_act"] == 0:
-        fail("fused decode: not every request finished, or the fused "
-             "kernel never launched")
+            (fused_launches > 0) != step_fuses:
+        fail(f"fused decode: {len(runs['fused']['finished'])} of "
+             f"{DECODE_REQUESTS} requests finished; the fused kernel "
+             f"launched {fused_launches} times where the DB says "
+             f"{'fuse' if step_fuses else 'stay unfused'}")
     same_logits = all(torch.equal(a, b) for a, b in zip(
         runs["unfused"]["last_logits"], runs["fused"]["last_logits"]))
     print(f"[fused] decode: all {DECODE_REQUESTS} requests give the unfused "
@@ -2128,6 +2321,9 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg):
              if r["kernel"] in CACHE_KERNELS}
     moer = {(r["kernel"], tuple(r["shape"])): r for r in rows
             if r["batch"] == "moe"}
+    occ = {(r["kernel"], tuple(r["shape"])): r for r in rows
+           if r["batch"] == "moe-occ"}
+    dec = {tuple(r["shape"]): r for r in rows if r["batch"] == "lm-decode"}
     fused = {tuple(r["shape"]): r for r in rows if r["batch"] == "fused"}
 
     def summed(kernel, calls):
@@ -2138,7 +2334,7 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg):
                "library_ms": None if None in lib else sum(lib)}
         t_bytes = t_ops = 0.0
         for r in calls:
-            nbytes, ops = work(kernel, tuple(r["shape"]))
+            nbytes, ops = work(kernel, tuple(r["shape"]), r.get("rows"))
             t_bytes += nbytes / PEAK_BYTES * 1e3
             t_ops += ops / PEAK_FP32 * 1e3
         out["bound_ms"] = max(t_bytes, t_ops)
@@ -2164,6 +2360,14 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg):
             extra["decode_step"] = summed(kernel, [
                 moer[(kernel, sh)] for sh in
                 moe_path_calls(moe_cfg, (MOE_DECODE_UP, MOE_DECODE_DOWN))])
+            if occ:
+                # The same step at a real decode occupancy: one MoE call's
+                # kept rows, for every call of the step.
+                extra["decode_step_occupied"] = summed(kernel, [
+                    occ[(kernel, sh)] for sh in moe_path_calls(
+                        moe_cfg, (MOE_DECODE_UP, MOE_DECODE_DOWN))])
+                extra["decode_step_occupied"]["rows"] = \
+                    occ[(kernel, MOE_DECODE_UP)]["rows"]
         elif kernel in CACHE_KERNELS:
             # One decode step: one call per layer at the decode shape; the
             # prefill shape beside it.
@@ -2176,6 +2380,13 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg):
             formulation = "var" if kernel == "dense_var" else "srm"
             calls = [cnn[(k, s)] for k, s in
                      main_path_calls(MAIN_BATCH, formulation) if k == kernel]
+            if kernel == "dense":
+                # Beside: one LM forward's and one LM decode step's calls.
+                extra["lm_forward"] = summed(kernel, [
+                    lmr[(k, s)] for k, s in lm_path_calls(lm_cfg)
+                    if k == kernel])
+                extra["decode_step"] = summed(
+                    kernel, [dec[s] for s in lm_decode_calls(lm_cfg)])
         elif kernel == "layernorm":
             calls = [lmr[(kernel, (LM_BATCH * LM_SEQ, lm_cfg.d_model))]]
         else:
@@ -2227,8 +2438,9 @@ def main():
         device, moe_cfg, moe_model, args.seed,
         prompt_lens=(PREFILL_CHUNK, PREFILL_CHUNK),
         kernels=MOE_DECODE_KERNELS, tag="moe decode")
-    moe_rows, moe_forward, moe_profile = phase_moe_times(device, moe_cfg,
-                                                         moe_model)
+    moe_rows, moe_forward, moe_profile = phase_moe_times(
+        device, moe_cfg, moe_model,
+        moe_decode_info["occupancy"]["median_rows"])
     del moe_model
     torch.cuda.empty_cache()
     rows += moe_rows

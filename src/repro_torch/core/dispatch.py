@@ -23,8 +23,8 @@ norm -> bias-free SRM dense -> activation onto the fused ``norm_dense_act``
 kernel when the tuned-schedule cache (``repro_torch.tuning``) holds a
 schedule for its shape; anything else runs the exact unfused chain. It is
 the only op that consults the cache: no other kernel of the port takes a
-tile. The reference's general ``einsum`` op (with the depthwise lift onto
-``dense_batched``) is not ported yet.
+tile from it. The reference's general ``einsum`` op (with the depthwise
+lift onto ``dense_batched``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -148,32 +148,43 @@ def _add_bias(out: GaussianTensor, b) -> GaussianTensor:
 # dense_batched — one PFP dense per expert (the MoE expert MLP)
 # ---------------------------------------------------------------------------
 @register("dense_batched", "eager")
-def _dense_batched_eager(x, w, formulation):
+def _dense_batched_eager(x, w, formulation, rows):
+    # Rows past a count are zero in x and come out as exact zeros here too.
+    del rows
     return pfp_layers.pfp_einsum("eck,ekn->ecn", x, w, formulation=formulation)
 
 
 @register("dense_batched", "kernel")
-def _dense_batched_kernel(x, w, formulation):
+def _dense_batched_kernel(x, w, formulation, rows):
     dtype = x.dtype
     if not is_gaussian(x):
         # Eq. 13 with a leading expert axis, whatever the formulation.
-        mu, var = ops.pfp_dense_batched(x, x, w.mean, w.var, first_layer=True)
+        mu, var = ops.pfp_dense_batched(x, x, w.mean, w.var, first_layer=True,
+                                        rows=rows)
     elif formulation == "var":
-        mu, var = ops.pfp_dense_batched_var(x.mean, x.var, w.mean, w.var)
+        mu, var = ops.pfp_dense_batched_var(x.mean, x.var, w.mean, w.var,
+                                            rows=rows)
     else:
-        mu, var = ops.pfp_dense_batched(x.mean, x.srm, w.mean, w.srm)
+        mu, var = ops.pfp_dense_batched(x.mean, x.srm, w.mean, w.srm,
+                                        rows=rows)
     return GaussianTensor(mu.to(dtype), var.to(dtype), VAR)
 
 
 def pfp_dense_batched(x, w: GaussianTensor, *, formulation: str = "srm",
-                      impl: Optional[str] = None) -> GaussianTensor:
+                      impl: Optional[str] = None,
+                      rows=None) -> GaussianTensor:
     """Batched-expert PFP dense: (E, C, K) x (E, K, N) -> (E, C, N), one
     independent PFP dense per leading index (the MoE expert MLP's
     'ecd,edf->ecf'). Consumes SRM (VAR for Eq. 7), emits VAR. The kernel
-    impl is one launch over all experts."""
+    impl is one launch over all experts.
+
+    ``rows``: None, or int32 (E,) counts of each expert's leading rows that
+    hold tokens; the rows after them must be zero in ``x``. At decode the
+    kernel impl writes their zeros without reading that expert's
+    weights."""
     _check_formulation(formulation)
     return get_op("dense_batched", impl)(_to_compute_rep(x, formulation), w,
-                                         formulation)
+                                         formulation, rows)
 
 
 # ---------------------------------------------------------------------------

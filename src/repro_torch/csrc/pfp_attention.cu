@@ -76,7 +76,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBK = 32;  // keys per tile: one per lane
 constexpr float kNegInf = -1e30f;  // core/masking.py NEG_INF
 constexpr float kMinL = 1e-18f;
-constexpr int kMaxDevices = 64;
 
 template <int D, int BQ>
 struct Tile {
@@ -401,30 +400,14 @@ pfp_attention_kv_kernel(const float* __restrict__ q,
   }
 }
 
-// Raise a kernel's dynamic shared-memory limit on the current device the
-// first time it is launched there; `raised` is the instantiation's record.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes,
-                       bool (&raised)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && raised[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess && dev < kMaxDevices) raised[dev] = true;
-  return err;
-}
-
 template <int D, int BQ>
 int launch(const float* q, const float* k, const float* vm, const float* vv,
            float* om, float* ov, int B, int H, int Hkv, int Tq, int Tk,
            float scale, int causal, cudaStream_t stream) {
   constexpr int kBytes = Tile<D, BQ>::kBytes;
-  static bool raised[kMaxDevices] = {};
+  static bool raised[pfp::kMaxDevices] = {};
   const cudaError_t err =
-      allow_smem(pfp_attention_kernel<D, BQ>, kBytes, raised);
+      pfp::allow_smem(pfp_attention_kernel<D, BQ>, kBytes, raised);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((Tq + BQ - 1) / BQ),
                   static_cast<unsigned>(B * H));
@@ -445,9 +428,9 @@ struct KvArgs {
 template <int D, int BQ, bool PAGED>
 int launch_kv(const KvArgs& a, cudaStream_t stream) {
   constexpr int kBytes = Tile<D, BQ>::kBytes;
-  static bool raised[kMaxDevices] = {};
-  const cudaError_t err =
-      allow_smem(pfp_attention_kv_kernel<D, BQ, PAGED>, kBytes, raised);
+  static bool raised[pfp::kMaxDevices] = {};
+  const cudaError_t err = pfp::allow_smem(
+      pfp_attention_kv_kernel<D, BQ, PAGED>, kBytes, raised);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(a.H / a.Hkv) * a.Tq;
   const dim3 grid(static_cast<unsigned>((rows + BQ - 1) / BQ),

@@ -17,4 +17,22 @@ constexpr float kSqrt2Pi = 2.50662827463100050242f;
 // the only place its error shows.
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
+constexpr int kMaxDevices = 64;
+
+// Raise a kernel's dynamic shared-memory limit on the current device the
+// first time it is launched there; `raised` is the instantiation's record.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes,
+                       bool (&raised)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && raised[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) raised[dev] = true;
+  return err;
+}
+
 }  // namespace pfp

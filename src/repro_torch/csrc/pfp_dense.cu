@@ -8,20 +8,27 @@
 // _bfirst_layer_kernel) and pfp_dense_batched_var_pallas
 // (_bvar_formulation_kernel), the MoE expert MLP.
 //
-// What bounds it on the H100: on the paper's models K <= 784 and N <= 120,
-// so each output element costs 2-4 products of K terms and the operands
-// are a few MB at most. At batch <= 100 the grid has only a handful of
-// blocks and the kernel is bound by latency (one block walks all of K);
-// at batch 1024 the conv layers (M = 784 * B) are bound by the fp32 FMA
-// rate of the SIMT cores, since the operands stay in L2.
+// What bounds it on the H100, by regime:
+//  * Large (N > 128 and M > 16: LM prefill and forward, MoE prefill): the
+//    fp32 FMA rate of the SIMT cores.
+//  * Narrow (N <= 128: the paper's MLP and LeNet-5): latency. At batch
+//    <= 100 a whole layer is a few blocks, and one block walking K = 784
+//    in synchronous tiles took 0.09 ms for 0.01 ms of bytes.
+//  * Decode (M <= 16, N > 128): the weight stream, every weight's mean
+//    and SRM read once.
 //
 // Design:
-//  * Joint operator, as on the TPU: one block loads each (BM x BK) tile of
-//    the two x operands and each (BK x BN) tile of the two w operands into
+//  * Joint operator, as on the TPU: a block stages each (BM x BK) tile of
+//    the two x operands and each (BK x BN) tile of the two w operands in
 //    shared memory once, and all products of the formulation consume them.
 //  * The TPU carries the K sum in VMEM across sequential grid steps. Blocks
-//    on Hopper run in no order, so the K loop lives inside the block; K is
-//    small on this path, so no cross-block reduction is needed.
+//    on Hopper run in no order, so the K loop lives inside the block, or
+//    inside the CTAs of one cluster (split-K below). Ragged edges are
+//    masked here (zero-filled tiles add exact zeros to every accumulator),
+//    so the wrapper neither pads nor slices.
+//  * The plan (split, BN, TN, TM, stages) is chosen in Python
+//    (kernels/pfp_dense.py dense_plan) and checked here against the list
+//    of instantiated tiles; a plan not in PFP_DENSE_TILES is refused.
 //  * Eq. 12 is a small difference of two large sums when srm ~= mu^2. The
 //    TPU kernel keeps the two sums apart and subtracts once after the K loop
 //    (pfp_dense.py:77); in fp32 that leaves an error of a few ulps of the
@@ -30,37 +37,153 @@
 //    (srm_x*srm_w, then -mu_x^2*mu_w^2), so the accumulator stays at the
 //    size of the variance and so does its rounding error. IEEE fp32 only:
 //    no TF32, no tensor cores.
-//  * N is small and varies per layer (6..120), so the tile width BN is
-//    chosen from N to waste few threads, and the rows per thread (TM) drop
-//    from 4 to 1 when the grid would otherwise leave the SMs idle.
-//  * Ragged edges are masked here (zero-filled tiles contribute exact zeros
-//    to every accumulator), so the wrapper neither pads nor slices.
+//  * One order of summation: every output sums its K terms in order, one
+//    fmaf chain (one per cluster rank, added in rank order, when K is
+//    split), zero-filled past the range's end, whatever the tile, TM, the
+//    stage count or the grid. The split depends on (K, N, mode) only, so a
+//    row's result does too: not on M, E or the other rows.
+//  * Large regime (stages == 1): the synchronous staging loop, x stored
+//    k-major, as before the plan existed: the same sums in the same order,
+//    so the same bits (and, by A/B, the same time).
+//  * Narrow and decode regimes (stages > 1): a ring of `stages` tiles
+//    filled by cp.async (16-byte copies where the row stride and the base
+//    allow it, 4-byte ones otherwise; zero-filled past the edges), so a
+//    block keeps stages - 1 tiles in flight while it computes one. At
+//    decode the tile has TM = 1 and as few thread rows as cover M, since
+//    each staged weight is read from shared memory once per thread row.
+//  * Cluster split-K (narrow regime only, split = 2..8, a function of K
+//    and N): the `split` CTAs of a thread-block cluster each sum one
+//    contiguous, 16-aligned K range of the same output tile with the
+//    single accumulator above; ranks 1.. leave their partial (mu, var)
+//    tiles in shared memory and rank 0 adds them in rank order over
+//    distributed shared memory. One launch, no workspace, no atomics,
+//    deterministic. Every CTA waits at the last cluster barrier, so no
+//    shared memory is freed while rank 0 reads it.
 //  * Batched experts: the expert axis is blockIdx.z and each block offsets
 //    its operands by its expert's strides (in 64 bits: the recurrent lift
-//    puts thousands of problems on that axis). The TPU kernel's block_e
-//    groups experts per grid step to amortise step overhead; here blocks
-//    of all experts run at once, so there is nothing to group. The offsets
-//    are a template flag (BATCHED), taken only when E > 1: held in
-//    registers they cost the TM = 4 tile a block per SM, so the single
-//    dense compiles without them. The flag moves only the operands' base,
-//    never the order of a sum, so an expert's slice comes out bit for bit
-//    as the single dense gives it, and a row's result depends neither on
-//    M nor on the other rows (TM and the grid change which thread holds an
-//    output, never the order of its sum).
-//  * At the MoE shapes (deepseek-moe-16b: E 64, K 2048 / 1408, N 1408 /
-//    2048) the work is the fp32 FMA rate at prefill (M = capacity 240) and
-//    the weight stream at decode (M = 6: every expert's mu and srm, 1.48 GB
-//    a product, read once per M tile).
+//    puts thousands of problems on that axis). Blocks of all experts run
+//    at once, so the TPU kernel's block_e grouping has no use here. The
+//    offsets are a template flag (BATCHED), taken only when E > 1 or a row
+//    count is given, so the single dense compiles without them. The flag
+//    moves only the operands' base, never the order of a sum, so an
+//    expert's slice comes out bit for bit as the single dense gives it.
+//    With `rows` (kept rows per expert, a prefix of the capacity), a ring
+//    block whose first row is past its expert's count writes zeros and
+//    reads no weights: those rows are zero in the input, and zero rows
+//    give exact +0, which the large regime computes instead.
+#include <cooperative_groups.h>
+
 #include "pfp_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBK = 16;
-constexpr long long kFillBlocks = 2 * 132;  // two blocks per H100 SM
+constexpr int kMaxSplit = 8;  // the portable cluster size
+constexpr int kXRow = kBK + 4;  // x row in the ring: 16-byte aligned, and
+                                // thread rows land on different banks
+
+// The instantiated plans (BN, TN, TM, stages). kernels/pfp_dense.py's
+// TILES is this list; tests/test_torch_dense_plan.py holds the two equal.
+#define PFP_DENSE_TILES(X) \
+  X(64, 4, 1, 1)           \
+  X(64, 4, 4, 1)           \
+  X(8, 1, 1, 4)            \
+  X(8, 1, 4, 4)            \
+  X(16, 1, 1, 4)           \
+  X(16, 1, 4, 4)           \
+  X(32, 2, 1, 4)           \
+  X(32, 2, 4, 4)           \
+  X(64, 4, 1, 4)           \
+  X(64, 4, 4, 4)           \
+  X(128, 4, 1, 4)          \
+  X(128, 4, 4, 4)          \
+  X(64, 1, 1, 4)
 
 enum Mode { kSrm = 0, kFirstLayer = 1, kVar = 2 };
 
+// One k term of the formulation for a thread's TM x TN outputs: a[i], b[i]
+// are its rows' x operands and a2[i] = a[i] * a[i]; w[j], v[j] its
+// columns' w operands and w2[j] = w[j] * w[j]. Both kernels run exactly
+// this sequence of fmaf.
+template <int MODE, int TM, int TN>
+__device__ __forceinline__ void fma_step(const float (&a)[TM],
+                                         const float (&a2)[TM],
+                                         const float (&b)[TM],
+                                         const float (&w)[TN],
+                                         const float (&w2)[TN],
+                                         const float (&v)[TN],
+                                         float (&acc_mu)[TM][TN],
+                                         float (&acc_v)[TM][TN]) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      acc_mu[i][j] = fmaf(a[i], w[j], acc_mu[i][j]);
+      if constexpr (MODE == kSrm) {
+        acc_v[i][j] = fmaf(b[i], v[j], acc_v[i][j]);     // + srm_x srm_w
+        acc_v[i][j] = fmaf(-a2[i], w2[j], acc_v[i][j]);  // - mu_x^2 mu_w^2
+      } else if constexpr (MODE == kFirstLayer) {
+        acc_v[i][j] = fmaf(a2[i], v[j], acc_v[i][j]);    // x^2 . var_w
+      } else {
+        acc_v[i][j] = fmaf(b[i], w2[j], acc_v[i][j]);    // var_x . mu_w^2
+        acc_v[i][j] = fmaf(a2[i], v[j], acc_v[i][j]);    // mu_x^2 . var_w
+        acc_v[i][j] = fmaf(b[i], v[j], acc_v[i][j]);     // var_x . var_w
+      }
+    }
+  }
+}
+
+template <int TM, int TN, int TX, int TY>
+__device__ __forceinline__ void store_tile(float* mu_out, float* var_out,
+                                           const float (&acc_mu)[TM][TN],
+                                           const float (&acc_v)[TM][TN],
+                                           int M, int N, long long m0,
+                                           int n0) {
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const long long m = m0 + ty + i * TY;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + tx + j * TX;
+      if (n >= N) continue;
+      const long long off = m * N + n;
+      mu_out[off] = acc_mu[i][j];
+      var_out[off] = acc_v[i][j];
+    }
+  }
+}
+
+// Offsets a block's operands to its expert (blockIdx.z). Returns false,
+// after writing zeros to the block's outputs, when the block's first row
+// is past the expert's row count.
+template <int TM, int TN, int TX, int TY>
+__device__ __forceinline__ bool enter_expert(
+    const float* __restrict__& xa, const float* __restrict__& xb,
+    const float* __restrict__& wa, const float* __restrict__& wb,
+    float* __restrict__& mu_out, float* __restrict__& var_out,
+    const int* __restrict__ rows, int M, int N,
+    long long m0, int n0, long long x_stride, long long w_stride) {
+  const long long expert = blockIdx.z;
+  xa += expert * x_stride;
+  xb += expert * x_stride;
+  wa += expert * w_stride;
+  wb += expert * w_stride;
+  mu_out += expert * M * N;
+  var_out += expert * M * N;
+  if (rows == nullptr || m0 < rows[expert]) return true;
+  const float zero[TM][TN] = {};
+  store_tile<TM, TN, TX, TY>(mu_out, var_out, zero, zero, M, N, m0, n0);
+  return false;
+}
+
+// ---------------------------------------------------------------------------
+// Large regime: the synchronous staging loop
+// ---------------------------------------------------------------------------
 // xa, xb: mu_x and srm_x (kSrm), x and unused (kFirstLayer), mu_x and var_x
 // (kVar); wa, wb: mu_w and srm_w (kSrm), mu_w and var_w (kFirstLayer, kVar).
 template <int MODE, int BN, int TN, int TM, bool BATCHED>
@@ -143,105 +266,331 @@ pfp_dense_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
         w2[j] = w[j] * w[j];
         v[j] = s_wb[kk][tx + j * TX];
       }
+      fma_step<MODE, TM, TN>(a, a2, b, w, w2, v, acc_mu, acc_v);
+    }
+    __syncthreads();
+  }
+  store_tile<TM, TN, TX, TY>(mu_out, var_out, acc_mu, acc_v, M, N, m0, n0);
+}
+
+// ---------------------------------------------------------------------------
+// Narrow and decode regimes: the cp.async ring, and cluster split-K
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The ring's layout in dynamic shared memory, in floats: per stage the x
+// operands (BM rows of kXRow, m-major) then the two w tiles (kBK x BN).
+// After the K loop the same memory holds a split rank's partial sums.
+template <int MODE, int BN, int TN, int TM, int STAGES>
+struct Ring {
+  static constexpr int TX = BN / TN;
+  static constexpr int TY = kThreads / TX;
+  static constexpr int BM = TY * TM;
+  static constexpr int kNX = MODE == kFirstLayer ? 1 : 2;
+  static constexpr int kX = BM * kXRow;
+  static constexpr int kW = kBK * BN;
+  static constexpr int kStage = kNX * kX + 2 * kW;
+  static constexpr int kPartial = 2 * TM * TN * kThreads;
+  static constexpr int kFloats =
+      STAGES * kStage > kPartial ? STAGES * kStage : kPartial;
+  static constexpr int kBytes = kFloats * 4;
+};
+
+// As pfp_dense_kernel, plus: `split` CTAs (a cluster along x) share an
+// output tile, rank r summing K range [r * chunk, (r + 1) * chunk); vec_x
+// and vec_w allow 16-byte copies of the x and w rows.
+template <int MODE, int BN, int TN, int TM, int STAGES, bool BATCHED>
+__global__ void __launch_bounds__(kThreads)
+pfp_dense_ring_kernel(const float* __restrict__ xa,
+                      const float* __restrict__ xb,
+                      const float* __restrict__ wa,
+                      const float* __restrict__ wb,
+                      float* __restrict__ mu_out, float* __restrict__ var_out,
+                      const int* __restrict__ rows, int M, int N, int K,
+                      long long x_stride, long long w_stride, int split,
+                      int chunk, int vec_x, int vec_w) {
+  using R = Ring<MODE, BN, TN, TM, STAGES>;
+  constexpr int TX = R::TX, TY = R::TY, BM = R::BM;
+  constexpr bool kTwoX = MODE != kFirstLayer;
+  extern __shared__ __align__(16) float smem[];
+
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
+  const int rank =
+      split > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  const long long m0 = static_cast<long long>(blockIdx.x / split) * BM;
+  const int n0 = blockIdx.y * BN;
+  if constexpr (BATCHED) {
+    // Every rank of a cluster has the same m0 and expert, so a cluster
+    // leaves whole or not at all.
+    if (!enter_expert<TM, TN, TX, TY>(xa, xb, wa, wb, mu_out, var_out, rows,
+                                      M, N, m0, n0, x_stride, w_stride))
+      return;
+  }
+  const int k_begin = min(K, rank * chunk);
+  const int k_end = min(K, k_begin + chunk);
+  const int tiles = (k_end - k_begin + kBK - 1) / kBK;
+
+  auto load = [&](int stage, int k0) {
+    float* s_xa = smem + stage * R::kStage;
+    float* s_xb = s_xa + R::kX;
+    float* s_wa = s_xa + R::kNX * R::kX;
+    float* s_wb = s_wa + R::kW;
+    if (vec_x) {  // K % 4 == 0 and k_end too: a chunk is in or out whole
+#pragma unroll
+      for (int e = threadIdx.x; e < BM * kBK / 4; e += kThreads) {
+        const int r = e / (kBK / 4), c = e % (kBK / 4) * 4;
+        const long long m = m0 + r;
+        const bool ok = m < M && k0 + c < k_end;
+        const long long off = ok ? m * K + k0 + c : 0;
+        cp_async16(s_xa + r * kXRow + c, xa + off, ok);
+        if constexpr (kTwoX) cp_async16(s_xb + r * kXRow + c, xb + off, ok);
+      }
+    } else {
+#pragma unroll
+      for (int e = threadIdx.x; e < BM * kBK; e += kThreads) {
+        const int r = e / kBK, c = e % kBK;
+        const long long m = m0 + r;
+        const bool ok = m < M && k0 + c < k_end;
+        const long long off = ok ? m * K + k0 + c : 0;
+        cp_async4(s_xa + r * kXRow + c, xa + off, ok);
+        if constexpr (kTwoX) cp_async4(s_xb + r * kXRow + c, xb + off, ok);
+      }
+    }
+    if (vec_w) {  // N % 4 == 0
+#pragma unroll
+      for (int e = threadIdx.x; e < kBK * BN / 4; e += kThreads) {
+        const int r = e / (BN / 4), c = e % (BN / 4) * 4;
+        const bool ok = k0 + r < k_end && n0 + c < N;
+        const long long off =
+            ok ? static_cast<long long>(k0 + r) * N + n0 + c : 0;
+        cp_async16(s_wa + r * BN + c, wa + off, ok);
+        cp_async16(s_wb + r * BN + c, wb + off, ok);
+      }
+    } else {
+#pragma unroll
+      for (int e = threadIdx.x; e < kBK * BN; e += kThreads) {
+        const int r = e / BN, c = e % BN;
+        const bool ok = k0 + r < k_end && n0 + c < N;
+        const long long off =
+            ok ? static_cast<long long>(k0 + r) * N + n0 + c : 0;
+        cp_async4(s_wa + r * BN + c, wa + off, ok);
+        cp_async4(s_wb + r * BN + c, wb + off, ok);
+      }
+    }
+  };
+
+  float acc_mu[TM][TN], acc_v[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      acc_mu[i][j] = 0.0f;
+      acc_v[i][j] = 0.0f;
+    }
+  }
+
+#pragma unroll 1
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < tiles) load(s, k_begin + s * kBK);
+    cp_async_commit();
+  }
+  for (int t = 0; t < tiles; ++t) {
+    // Tile t has landed, this thread's part and (after the barrier) every
+    // thread's; every thread is done with stage t - 1, which is refilled.
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = t + STAGES - 1;
+    if (next < tiles) load(next % STAGES, k_begin + next * kBK);
+    cp_async_commit();
+
+    const float* s_xa = smem + (t % STAGES) * R::kStage;
+    const float* s_xb = s_xa + R::kX;
+    const float* s_wa = s_xa + R::kNX * R::kX;
+    const float* s_wb = s_wa + R::kW;
+#pragma unroll
+    for (int k4 = 0; k4 < kBK; k4 += 4) {
+      float4 xa4[TM], xb4[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int off = (ty + i * TY) * kXRow + k4;
+        xa4[i] = *reinterpret_cast<const float4*>(s_xa + off);
+        if constexpr (kTwoX) {
+          xb4[i] = *reinterpret_cast<const float4*>(s_xb + off);
+        } else {
+          xb4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float a[TM], a2[TM], b[TM], w[TN], w2[TN], v[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          a[i] = q == 0 ? xa4[i].x : q == 1 ? xa4[i].y
+               : q == 2 ? xa4[i].z : xa4[i].w;
+          a2[i] = a[i] * a[i];
+          b[i] = q == 0 ? xb4[i].x : q == 1 ? xb4[i].y
+               : q == 2 ? xb4[i].z : xb4[i].w;
+        }
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          w[j] = s_wa[(k4 + q) * BN + tx + j * TX];
+          w2[j] = w[j] * w[j];
+          v[j] = s_wb[(k4 + q) * BN + tx + j * TX];
+        }
+        fma_step<MODE, TM, TN>(a, a2, b, w, w2, v, acc_mu, acc_v);
+      }
+    }
+  }
+
+  if (split > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is drained: it now holds the partials
+    float* part = smem;
+    constexpr int kOuts = TM * TN;
+    if (rank != 0) {
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
-          acc_mu[i][j] = fmaf(a[i], w[j], acc_mu[i][j]);
-          if constexpr (MODE == kSrm) {
-            acc_v[i][j] = fmaf(b[i], v[j], acc_v[i][j]);     // + srm_x srm_w
-            acc_v[i][j] = fmaf(-a2[i], w2[j], acc_v[i][j]);  // - mu_x^2 mu_w^2
-          } else if constexpr (MODE == kFirstLayer) {
-            acc_v[i][j] = fmaf(a2[i], v[j], acc_v[i][j]);    // x^2 . var_w
-          } else {
-            acc_v[i][j] = fmaf(b[i], w2[j], acc_v[i][j]);    // var_x . mu_w^2
-            acc_v[i][j] = fmaf(a2[i], v[j], acc_v[i][j]);    // mu_x^2 . var_w
-            acc_v[i][j] = fmaf(b[i], v[j], acc_v[i][j]);     // var_x . var_w
+          part[(i * TN + j) * kThreads + threadIdx.x] = acc_mu[i][j];
+          part[(kOuts + i * TN + j) * kThreads + threadIdx.x] = acc_v[i][j];
+        }
+      }
+    }
+    cluster.sync();
+    if (rank == 0) {
+      for (int r = 1; r < split; ++r) {  // rank order: deterministic
+        const float* theirs = cluster.map_shared_rank(part, r);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            acc_mu[i][j] += theirs[(i * TN + j) * kThreads + threadIdx.x];
+            acc_v[i][j] +=
+                theirs[(kOuts + i * TN + j) * kThreads + threadIdx.x];
           }
         }
       }
     }
-    __syncthreads();
+    cluster.sync();  // no rank leaves while rank 0 reads its shared memory
+    if (rank != 0) return;
   }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long m = m0 + ty + i * TY;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + j * TX;
-      if (n >= N) continue;
-      const long long off = m * N + n;
-      mu_out[off] = acc_mu[i][j];
-      var_out[off] = acc_v[i][j];
-    }
-  }
+  store_tile<TM, TN, TX, TY>(mu_out, var_out, acc_mu, acc_v, M, N, m0, n0);
 }
 
 // The problem: E independent (M,K) x (K,N) denses, expert e's operands at
-// e * x_stride / e * w_stride floats, its outputs at e * M * N.
+// e * x_stride / e * w_stride floats, its outputs at e * M * N; rows: null,
+// or E kept-row counts (only read when batched).
 struct Problem {
   const float *xa, *xb, *wa, *wb;
   float *mu, *var;
+  const int* rows;
   int E, M, N, K;
   long long x_stride, w_stride;
 };
 
-template <int MODE, int BN, int TN, int TM>
-void launch(const Problem& p, cudaStream_t stream) {
-  constexpr int BM = (kThreads / (BN / TN)) * TM;
-  const dim3 grid(static_cast<unsigned>((p.M + BM - 1) / BM),
-                  static_cast<unsigned>((p.N + BN - 1) / BN),
-                  static_cast<unsigned>(p.E));
-  if (p.E > 1)
-    pfp_dense_kernel<MODE, BN, TN, TM, true><<<grid, kThreads, 0, stream>>>(
-        p.xa, p.xb, p.wa, p.wb, p.mu, p.var, p.M, p.N, p.K, p.x_stride,
-        p.w_stride);
-  else
-    pfp_dense_kernel<MODE, BN, TN, TM, false><<<grid, kThreads, 0, stream>>>(
-        p.xa, p.xb, p.wa, p.wb, p.mu, p.var, p.M, p.N, p.K, 0, 0);
+bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
 }
 
-template <int MODE, int BN, int TN>
-void launch_rows(const Problem& p, cudaStream_t stream) {
-  constexpr int BM4 = (kThreads / (BN / TN)) * 4;
-  const long long blocks4 = static_cast<long long>((p.M + BM4 - 1) / BM4) *
-                            ((p.N + BN - 1) / BN) * p.E;
-  if (blocks4 >= kFillBlocks)
-    launch<MODE, BN, TN, 4>(p, stream);
-  else
-    launch<MODE, BN, TN, 1>(p, stream);
+template <int MODE, int BN, int TN, int TM, int STAGES, bool BATCHED>
+int launch_tile(const Problem& p, int split, cudaStream_t stream) {
+  constexpr int BM = (kThreads / (BN / TN)) * TM;
+  const long long m_tiles = (p.M + BM - 1) / BM;
+  if (m_tiles * split > 0x7fffffffLL || (p.N + BN - 1) / BN > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (STAGES == 1) {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(static_cast<unsigned>(m_tiles),
+                    static_cast<unsigned>((p.N + BN - 1) / BN),
+                    static_cast<unsigned>(p.E));
+    // Kept-row counts are not read here: a large-regime tile past its
+    // expert's count computes +0 from its zero rows, and the check cost
+    // the loop 2-4% at full occupancy (A/B at (64, 240, 2048, 1408)).
+    pfp_dense_kernel<MODE, BN, TN, TM, BATCHED><<<grid, kThreads, 0,
+                                                  stream>>>(
+        p.xa, p.xb, p.wa, p.wb, p.mu, p.var, p.M, p.N, p.K, p.x_stride,
+        p.w_stride);
+    return pfp::launch_status();
+  } else {
+    using R = Ring<MODE, BN, TN, TM, STAGES>;
+    auto kernel = pfp_dense_ring_kernel<MODE, BN, TN, TM, STAGES, BATCHED>;
+    static bool raised[pfp::kMaxDevices] = {};
+    cudaError_t err = pfp::allow_smem(kernel, R::kBytes, raised);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // Each rank's range: K / split rounded up to whole tiles.
+    const int chunk = ((p.K + split - 1) / split + kBK - 1) / kBK * kBK;
+    const int vec_x = p.K % 4 == 0 && p.x_stride % 4 == 0 &&
+                      aligned16(p.xa) && aligned16(p.xb);
+    const int vec_w = p.N % 4 == 0 && p.w_stride % 4 == 0 &&
+                      aligned16(p.wa) && aligned16(p.wb);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(m_tiles * split),
+                       static_cast<unsigned>((p.N + BN - 1) / BN),
+                       static_cast<unsigned>(p.E));
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = R::kBytes;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = split;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = split > 1 ? 1 : 0;
+    err = cudaLaunchKernelEx(&cfg, kernel, p.xa, p.xb, p.wa, p.wb, p.mu,
+                             p.var, p.rows, p.M, p.N, p.K, p.x_stride,
+                             p.w_stride, split, chunk, vec_x, vec_w);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it: the launch never ran
+      return static_cast<int>(err);
+    }
+    return pfp::launch_status();
+  }
+}
+
+struct Plan {
+  int split, bn, tn, tm, stages;
+};
+
+template <int MODE, bool BATCHED>
+int launch_plan(const Problem& p, const Plan& plan, cudaStream_t stream) {
+#define PFP_DENSE_CASE(BN, TN, TM, ST)                                  \
+  if (plan.bn == BN && plan.tn == TN && plan.tm == TM && plan.stages == ST) \
+    return launch_tile<MODE, BN, TN, TM, ST, BATCHED>(p, plan.split, stream);
+  PFP_DENSE_TILES(PFP_DENSE_CASE)
+#undef PFP_DENSE_CASE
+  return static_cast<int>(cudaErrorInvalidValue);  // not instantiated
 }
 
 template <int MODE>
-void launch_mode(const Problem& p, cudaStream_t stream) {
-  if (p.N <= 8)
-    launch_rows<MODE, 8, 1>(p, stream);
-  else if (p.N <= 16)
-    launch_rows<MODE, 16, 1>(p, stream);
-  else if (p.N <= 32)
-    launch_rows<MODE, 32, 2>(p, stream);
-  else
-    launch_rows<MODE, 64, 4>(p, stream);
-}
-
-int launch_problem(int mode, const Problem& p, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kSrm:
-      launch_mode<kSrm>(p, s);
-      break;
-    case kFirstLayer:
-      launch_mode<kFirstLayer>(p, s);
-      break;
-    case kVar:
-      launch_mode<kVar>(p, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return pfp::launch_status();
+int launch_mode(const Problem& p, const Plan& plan, cudaStream_t stream) {
+  if (p.E > 1 || p.rows != nullptr)
+    return launch_plan<MODE, true>(p, plan, stream);
+  return launch_plan<MODE, false>(p, plan, stream);
 }
 
 }  // namespace
@@ -249,33 +598,51 @@ int launch_problem(int mode, const Problem& p, void* stream) {
 // The batched form, rows 12-13 of the TPU kernels: e independent problems,
 // expert i's x operands at i * x_stride floats and its w operands at
 // i * w_stride (fp32, each slice row-major and contiguous); the outputs are
-// contiguous (e, m, n). Modes as below. Requires 1 <= e <= 65535 (the grid's
+// contiguous (e, m, n). rows: null, or e int32 kept-row counts on the
+// device (expert i's rows from rows[i] on are zero in x, and come out as
+// zeros). Modes as below. The plan (split, bn, tn, tm, stages) must be one
+// of PFP_DENSE_TILES with 1 <= split <= 8 (1 when stages == 1); anything
+// else returns cudaErrorInvalidValue. Requires 1 <= e <= 65535 (the grid's
 // z extent), m, n >= 1 and k >= 0.
-PFP_EXPORT int pfp_dense_batched_launch(int mode, const void* xa,
-                                        const void* xb, const void* wa,
-                                        const void* wb, void* mu, void* var,
-                                        int e, int m, int n, int k,
-                                        long long x_stride,
-                                        long long w_stride, void* stream) {
+PFP_EXPORT int pfp_dense_batched_launch(
+    int mode, const void* xa, const void* xb, const void* wa, const void* wb,
+    void* mu, void* var, const void* rows, int e, int m, int n, int k,
+    long long x_stride, long long w_stride, int split, int bn, int tn, int tm,
+    int stages, void* stream) {
   if (e < 1 || e > 65535 || m < 1 || n < 1 || k < 0 || x_stride < 0 ||
-      w_stride < 0)
+      w_stride < 0 || split < 1 || split > kMaxSplit)
     return static_cast<int>(cudaErrorInvalidValue);
   const Problem p{static_cast<const float*>(xa), static_cast<const float*>(xb),
                   static_cast<const float*>(wa), static_cast<const float*>(wb),
                   static_cast<float*>(mu), static_cast<float*>(var),
-                  e, m, n, k, x_stride, w_stride};
-  return launch_problem(mode, p, stream);
+                  static_cast<const int*>(rows), e, m, n, k, x_stride,
+                  w_stride};
+  const Plan plan{split, bn, tn, tm, stages};
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kSrm:
+      return launch_mode<kSrm>(p, plan, s);
+    case kFirstLayer:
+      return launch_mode<kFirstLayer>(p, plan, s);
+    case kVar:
+      return launch_mode<kVar>(p, plan, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // mode: 0 = Eq. 12 (mu_x, srm_x, mu_w, srm_w), 1 = Eq. 13 (x, unused, mu_w,
 // var_w), 2 = Eq. 7 (mu_x, var_x, mu_w, var_w). All fp32, row-major,
-// contiguous, on the device of `stream`. Requires M, N >= 1 and K >= 0.
+// contiguous, on the device of `stream`. Requires M, N >= 1 and K >= 0;
+// the plan as for pfp_dense_batched_launch.
 PFP_EXPORT int pfp_dense_launch(int mode, const void* xa, const void* xb,
                                 const void* wa, const void* wb, void* mu,
-                                void* var, int m, int n, int k,
+                                void* var, int m, int n, int k, int split,
+                                int bn, int tn, int tm, int stages,
                                 void* stream) {
-  return pfp_dense_batched_launch(mode, xa, xb, wa, wb, mu, var, 1, m, n, k,
-                                  0, 0, stream);
+  return pfp_dense_batched_launch(mode, xa, xb, wa, wb, mu, var, nullptr, 1,
+                                  m, n, k, 0, 0, split, bn, tn, tm, stages,
+                                  stream);
 }
 
 PFP_EXPORT const char* pfp_error_string(int code) {

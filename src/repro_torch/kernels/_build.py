@@ -34,9 +34,10 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "pfp_dense_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "pfp_dense_batched_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _L, _L, _P],
+    "pfp_dense_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _P],
+    "pfp_dense_batched_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _L, _L, _I, _I, _I, _I, _I, _P],
     "pfp_activation_launch": [_I, _P, _P, _P, _P, _L, _P],
     "pfp_glu_launch": [_P, _P, _P, _P, _P, _P, _L, _P],
     "pfp_maxpool2d_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -63,26 +63,30 @@ def pfp_dense_var(mu_x, var_x, mu_w, var_w):
     return _dense(MODE_VAR, mu_x, var_x, mu_w, var_w)
 
 
-def pfp_dense_batched(mu_x, srm_x, mu_w, srm_w, *, first_layer: bool = False):
+def pfp_dense_batched(mu_x, srm_x, mu_w, srm_w, *, first_layer: bool = False,
+                      rows=None):
     """Batched-expert joint PFP dense, Eq. 12, for (E, C, K) x (E, K, N):
     one independent dense per expert. Returns (mean, var), each (E, C, N).
 
     ``first_layer=True`` is Eq. 13: the operands are read as
-    (x, x, mu_w, var_w)."""
+    (x, x, mu_w, var_w). ``rows``: None, or int32 (E,) kept rows per
+    expert (a prefix of C); the rest come out as zeros."""
     if _on_cuda(mu_x):
         mode = MODE_FIRST_LAYER if first_layer else MODE_SRM
-        return pfp_dense_batched_cuda(mu_x, srm_x, mu_w, srm_w, mode=mode)
+        return pfp_dense_batched_cuda(mu_x, srm_x, mu_w, srm_w, mode=mode,
+                                      rows=rows)
     if first_layer:
-        return ref.pfp_dense_batched_first_layer_ref(mu_x, mu_w, srm_w)
-    return ref.pfp_dense_batched_ref(mu_x, srm_x, mu_w, srm_w)
+        return ref.pfp_dense_batched_first_layer_ref(mu_x, mu_w, srm_w, rows)
+    return ref.pfp_dense_batched_ref(mu_x, srm_x, mu_w, srm_w, rows)
 
 
-def pfp_dense_batched_var(mu_x, var_x, mu_w, var_w):
+def pfp_dense_batched_var(mu_x, var_x, mu_w, var_w, *, rows=None):
     """Batched-expert joint PFP dense, Eq. 7, for (E, C, K) x (E, K, N).
-    Returns (mean, var), each (E, C, N)."""
+    Returns (mean, var), each (E, C, N); ``rows`` as above."""
     if _on_cuda(mu_x):
-        return pfp_dense_batched_cuda(mu_x, var_x, mu_w, var_w, mode=MODE_VAR)
-    return ref.pfp_dense_batched_var_ref(mu_x, var_x, mu_w, var_w)
+        return pfp_dense_batched_cuda(mu_x, var_x, mu_w, var_w, mode=MODE_VAR,
+                                      rows=rows)
+    return ref.pfp_dense_batched_var_ref(mu_x, var_x, mu_w, var_w, rows)
 
 
 def pfp_activation(mu, var, *, kind: str = "relu"):

@@ -2,12 +2,18 @@
 
 Replaces ``repro/kernels/pfp_dense.py``: ``pfp_dense_pallas`` (Eq. 12/13)
 and ``pfp_dense_var_pallas`` (Eq. 7). The kernel is ``csrc/pfp_dense.cu``,
-a shared-memory-tiled fp32 SIMT kernel with the K loop inside the block;
-its source says what bounds it and why it is built so. The plain versions
-are ``pfp_dense_ref``, ``pfp_dense_first_layer_ref`` and
-``pfp_dense_var_ref`` (``kernels/ref.py``).
+a shared-memory-tiled fp32 SIMT kernel; its source says what bounds it in
+each regime and why it is built so. The plain versions are
+``pfp_dense_ref``, ``pfp_dense_first_layer_ref`` and ``pfp_dense_var_ref``
+(``kernels/ref.py``).
+
+Every launch runs a plan from :func:`dense_plan`, chosen here so that the
+rule can be read and tested without a card: the cluster split of K, the
+tile, the rows per thread and the depth of the copy ring.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -21,11 +27,111 @@ _COUNTER = {MODE_SRM: "dense", MODE_FIRST_LAYER: "dense_first_layer",
             MODE_VAR: "dense_var"}
 
 
-def pfp_dense_cuda(x_a, x_b, w_a, w_b, *, mode: int):
+class DensePlan(NamedTuple):
+    """How one dense launch is cut. ``split`` CTAs of a cluster share an
+    output tile, each summing a K range; the tile is ``bn`` columns wide,
+    ``tn`` columns and ``tm`` rows per thread; ``stages`` is the depth of
+    the cp.async ring (1: the synchronous loop of the large regime)."""
+
+    split: int
+    bn: int
+    tn: int
+    tm: int
+    stages: int
+
+
+# (bn, tn, tm, stages) of every instantiation: csrc/pfp_dense.cu's
+# PFP_DENSE_TILES, in its order.
+TILES = (
+    (64, 4, 1, 1), (64, 4, 4, 1),                        # large
+    (8, 1, 1, 4), (8, 1, 4, 4), (16, 1, 1, 4), (16, 1, 4, 4),
+    (32, 2, 1, 4), (32, 2, 4, 4), (64, 4, 1, 4), (64, 4, 4, 4),
+    (128, 4, 1, 4), (128, 4, 4, 4),                      # narrow
+    (64, 1, 1, 4),                                       # decode
+)
+THREADS = 256
+SMS = 132                  # the H100's SMs
+FILL_BLOCKS = 2 * SMS      # two blocks an SM
+NARROW_N = 128             # N up to this: one tile holds every column
+DECODE_M = 16              # M up to this: the weight stream
+SPLIT_N = 64               # N from this up to NARROW_N: K is split
+SPLIT_MIN_K = 64           # K up to this (4 tiles): not split
+SPLIT_K = 48               # K per cluster rank, before rounding to tiles
+MAX_SPLIT = 8              # the portable cluster size
+TILE_K = 16                # K of one staged tile
+RING_STAGES = 4            # tiles in the cp.async ring (3 in flight)
+# Narrow tiles (bn, tn): the first with bn >= N is taken.
+_NARROW = ((8, 1), (16, 1), (32, 2), (64, 4), (128, 4))
+# Decode tiles (bn, tn) by the thread rows that cover M.
+_DECODE = {4: (64, 1), 8: (128, 4), 16: (64, 4)}
+
+
+def thread_rows(bn: int, tn: int) -> int:
+    return THREADS // (bn // tn)
+
+
+def split_k(k: int, n: int, mode: int = MODE_SRM) -> int:
+    """The cluster split of K: a function of (K, N, mode) only, so a row's
+    result never depends on M or E.
+
+    1 whenever N > 128 (every LM shape), so the large regime keeps its
+    bits; for N < 64: in the paper's models those are the conv layers'
+    im2col products, whose 196-784 rows per image fill the card unsplit,
+    where the cluster's combine costs (conv2 at batch 1024,
+    ``tools/dense_plan_sweep.py``); and for K <= 64, a loop of at most 4
+    tiles. Else about one rank per 48 of K, at most 8, each rank whole
+    tiles of 16 and none left empty."""
+    del mode   # every formulation splits alike
+    if not SPLIT_N <= n <= NARROW_N or k <= SPLIT_MIN_K:
+        return 1
+    split = min(MAX_SPLIT, -(-k // SPLIT_K))
+    chunk = -(-k // split)
+    chunk = -(-chunk // TILE_K) * TILE_K
+    return -(-k // chunk)
+
+
+def _blocks(m, n, e, bn, tn, tm, split=1):
+    return -(-m // (thread_rows(bn, tn) * tm)) * -(-n // bn) * e * split
+
+
+def dense_plan(m: int, n: int, k: int, e: int = 1,
+               mode: int = MODE_SRM) -> DensePlan:
+    """The plan for E problems of (M, K) x (K, N).
+
+    * Large (N > 128, M > 16): the synchronous loop at (64, 4), TM 4 when
+      that still gives two blocks an SM.
+    * Narrow (N <= 128): the narrowest tile that holds all of N, so x is
+      read once; K split by :func:`split_k` over a cluster; TM 4 once TM 1
+      would give more than two blocks an SM (never for M <= 16).
+    * Decode (M <= 16, N > 128): TM 1 and the fewest thread rows (4, 8 or
+      16) that cover M, at the tile measured fastest for them.
+    """
+    split = split_k(k, n, mode)
+    if n > NARROW_N and m > DECODE_M:
+        tm = 4 if _blocks(m, n, e, 64, 4, 4) >= FILL_BLOCKS else 1
+        return DensePlan(1, 64, 4, tm, 1)
+    if n <= NARROW_N:
+        bn, tn = next(t for t in _NARROW if t[0] >= n)
+        tm = 4 if (m > DECODE_M and _blocks(m, n, e, bn, tn, 1, split)
+                   >= FILL_BLOCKS) else 1
+        return DensePlan(split, bn, tn, tm, RING_STAGES)
+    bn, tn = _DECODE[next(r for r in sorted(_DECODE) if r >= m)]
+    return DensePlan(1, bn, tn, 1, RING_STAGES)
+
+
+def launch_plan(plan: Optional[DensePlan], m, n, k, e, mode) -> DensePlan:
+    """``plan``, or :func:`dense_plan`'s when it is None."""
+    return dense_plan(m, n, k, e, mode) if plan is None else DensePlan(*plan)
+
+
+def pfp_dense_cuda(x_a, x_b, w_a, w_b, *, mode: int,
+                   plan: Optional[DensePlan] = None):
     """Launch the dense kernel on 2-D CUDA operands: (M,K) x (K,N) -> fp32
     (mean, var) of shape (M, N). ``mode`` picks the operands' meaning:
     Eq. 12 (mu_x, srm_x, mu_w, srm_w), Eq. 13 (x, x, mu_w, var_w) or Eq. 7
-    (mu_x, var_x, mu_w, var_w)."""
+    (mu_x, var_x, mu_w, var_w). ``plan`` overrides :func:`dense_plan` (to
+    time one plan against another); one the kernel did not instantiate
+    raises."""
     if mode not in _COUNTER:
         raise ValueError(f"unknown dense mode {mode}")
     x_a, x_b, w_a, w_b = cuda_operands(x_a, x_b, w_a, w_b)
@@ -37,12 +143,13 @@ def pfp_dense_cuda(x_a, x_b, w_a, w_b, *, mode: int):
     var = torch.empty_like(mu)
     if m == 0 or n == 0:
         return mu, var
+    plan = launch_plan(plan, m, n, k, 1, mode)
     lib = _build.load()
     with torch.cuda.device(x_a.device):
         status = lib.pfp_dense_launch(
             mode, x_a.data_ptr(), x_b.data_ptr(), w_a.data_ptr(),
-            w_b.data_ptr(), mu.data_ptr(), var.data_ptr(), m, n, k,
+            w_b.data_ptr(), mu.data_ptr(), var.data_ptr(), m, n, k, *plan,
             stream_ptr(x_a.device))
-    _build.check(status, "pfp_dense_launch")
+    _build.check(status, f"pfp_dense_launch {plan}")
     LAUNCHES[_COUNTER[mode]] += 1
     return mu, var

@@ -11,12 +11,14 @@ plain versions are ``pfp_dense_batched_ref``,
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import LAUNCHES, cuda_operands, stream_ptr
 from repro_torch.kernels.pfp_dense import (MODE_FIRST_LAYER, MODE_SRM,
-                                           MODE_VAR)
+                                           MODE_VAR, DensePlan, launch_plan)
 from repro_torch.kernels.ref import (  # noqa: F401
     pfp_dense_batched_first_layer_ref, pfp_dense_batched_ref,
     pfp_dense_batched_var_ref)
@@ -27,11 +29,18 @@ _COUNTER = {MODE_SRM: "dense_batched",
 MAX_EXPERTS = 65535   # the grid's z extent
 
 
-def pfp_dense_batched_cuda(x_a, x_b, w_a, w_b, *, mode: int):
+def pfp_dense_batched_cuda(x_a, x_b, w_a, w_b, *, mode: int, rows=None,
+                           plan: Optional[DensePlan] = None):
     """Launch the batched dense kernel on 3-D CUDA operands: (E,C,K) x
     (E,K,N) -> fp32 (mean, var) of shape (E, C, N). ``mode`` reads the
     operands as in ``pfp_dense_cuda``: Eq. 12 (mu_x, srm_x, mu_w, srm_w),
-    Eq. 13 (x, x, mu_w, var_w) or Eq. 7 (mu_x, var_x, mu_w, var_w)."""
+    Eq. 13 (x, x, mu_w, var_w) or Eq. 7 (mu_x, var_x, mu_w, var_w).
+
+    ``rows``: None, or an int32 (E,) tensor on the same device, expert e's
+    kept rows (a prefix: rows from ``rows[e]`` on are zero in x). Their
+    outputs come out as +0; at decode (C <= 16) and for N <= 128 a tile
+    of them is written without reading the expert's weights.
+    ``plan`` overrides ``dense_plan``, as in ``pfp_dense_cuda``."""
     if mode not in _COUNTER:
         raise ValueError(f"unknown dense mode {mode}")
     x_a, x_b, w_a, w_b = cuda_operands(x_a, x_b, w_a, w_b)
@@ -47,16 +56,24 @@ def pfp_dense_batched_cuda(x_a, x_b, w_a, w_b, *, mode: int):
     if e > MAX_EXPERTS:
         raise ValueError(f"{e} experts, the kernel takes at most "
                          f"{MAX_EXPERTS}")
+    if rows is not None and (rows.dtype != torch.int32
+                             or tuple(rows.shape) != (e,)
+                             or rows.device != x_a.device):
+        raise ValueError(f"rows must be int32 ({e},) on {x_a.device}, got "
+                         f"{rows.dtype} {tuple(rows.shape)} on "
+                         f"{rows.device}")
     mu = torch.empty((e, c, n), dtype=torch.float32, device=x_a.device)
     var = torch.empty_like(mu)
     if e == 0 or c == 0 or n == 0:
         return mu, var
+    plan = launch_plan(plan, c, n, k, e, mode)
+    rows_ptr = None if rows is None else rows.contiguous().data_ptr()
     lib = _build.load()
     with torch.cuda.device(x_a.device):
         status = lib.pfp_dense_batched_launch(
             mode, x_a.data_ptr(), x_b.data_ptr(), w_a.data_ptr(),
-            w_b.data_ptr(), mu.data_ptr(), var.data_ptr(), e, c, n, k,
-            c * k, k * n, stream_ptr(x_a.device))
-    _build.check(status, "pfp_dense_batched_launch")
+            w_b.data_ptr(), mu.data_ptr(), var.data_ptr(), rows_ptr, e, c,
+            n, k, c * k, k * n, *plan, stream_ptr(x_a.device))
+    _build.check(status, f"pfp_dense_batched_launch {plan}")
     LAUNCHES[_COUNTER[mode]] += 1
     return mu, var

@@ -40,11 +40,28 @@ def pfp_dense_var_ref(mu_x, var_x, mu_w, var_w):
 
 # The batched-expert dense: the same formulas with a leading expert axis,
 # (E,C,K) x (E,K,N) -> (E,C,N), one independent product per expert. ``@``
-# batches over that axis (the reference vmaps its 2-D versions), so the
-# 2-D functions above are the batched ones.
-pfp_dense_batched_ref = pfp_dense_ref
-pfp_dense_batched_first_layer_ref = pfp_dense_first_layer_ref
-pfp_dense_batched_var_ref = pfp_dense_var_ref
+# batches over that axis (the reference vmaps its 2-D versions). ``rows``
+# (None, or E kept-row counts) zeroes each expert's rows from its count on,
+# as the kernel writes them.
+def _zero_rows(out, rows):
+    if rows is None:
+        return out
+    c = out[0].shape[1]
+    keep = (torch.arange(c, device=out[0].device)[None, :, None]
+            < rows.to(out[0].device)[:, None, None])
+    return tuple(torch.where(keep, o, 0.0) for o in out)
+
+
+def pfp_dense_batched_ref(mu_x, srm_x, mu_w, srm_w, rows=None):
+    return _zero_rows(pfp_dense_ref(mu_x, srm_x, mu_w, srm_w), rows)
+
+
+def pfp_dense_batched_first_layer_ref(x, mu_w, var_w, rows=None):
+    return _zero_rows(pfp_dense_first_layer_ref(x, mu_w, var_w), rows)
+
+
+def pfp_dense_batched_var_ref(mu_x, var_x, mu_w, var_w, rows=None):
+    return _zero_rows(pfp_dense_var_ref(mu_x, var_x, mu_w, var_w), rows)
 
 
 ACTIVATION_REFS = {

@@ -18,6 +18,11 @@ assignments, whose (expert, slot) pairs are unique; combine sums each
 token's K contributions in order k = 0 .. K-1. No atomics, so the same
 inputs give the same bits on every run.
 
+The expert MLP is told how many leading rows of each expert's buffer hold
+a token, so at decode the kernel skips the rest (a 4-slot step fills at
+most 24 of 64 experts); the rows it skips are zero and give exact zeros
+either way, so ``empty_expert_skip(False)`` changes no bit.
+
 ``dispatch_mode='a2a'`` is the reference's explicit all-to-all over a mesh;
 without one the reference runs the scatter path, and the port has no mesh
 yet, so both modes run the scatter path here.
@@ -99,6 +104,19 @@ class Routing(NamedTuple):
 
 
 _ROUTE_LOG: Optional[List[Routing]] = None
+_SKIP_EMPTY = True
+
+
+@contextlib.contextmanager
+def empty_expert_skip(enabled: bool):
+    """Inside the ``with`` block, pass (``True``, the default) or do not
+    pass the expert MLP each expert's kept-row count."""
+    global _SKIP_EMPTY
+    outer, _SKIP_EMPTY = _SKIP_EMPTY, enabled
+    try:
+        yield
+    finally:
+        _SKIP_EMPTY = outer
 
 
 @contextlib.contextmanager
@@ -156,23 +174,25 @@ def route(mean: torch.Tensor, router_mu: torch.Tensor, *, num_experts: int,
 # ---------------------------------------------------------------------------
 # The expert MLP
 # ---------------------------------------------------------------------------
-def _expert_dense(param, x, ctx: Context):
-    """Batched per-expert contraction (E, C, d_in) x (E, d_in, d_out)."""
+def _expert_dense(param, x, ctx: Context, rows=None):
+    """Batched per-expert contraction (E, C, d_in) x (E, d_in, d_out);
+    ``rows``: None or each expert's kept-row count (int32, (E,))."""
     w = resolve_weight(param, ctx)
     if isinstance(w, GaussianTensor):
         return dispatch.pfp_dense_batched(x, w, formulation=ctx.formulation,
-                                          impl=ctx.impl)
+                                          impl=ctx.impl, rows=rows)
     return torch.bmm(x.mean if is_gaussian(x) else x, w)
 
 
-def _expert_mlp(experts: Experts, x, ctx: Context, activation: str):
-    up = _expert_dense(experts.w_up, x, ctx)
+def _expert_mlp(experts: Experts, x, ctx: Context, activation: str,
+                rows=None):
+    up = _expert_dense(experts.w_up, x, ctx, rows)
     if experts.w_gate is not None:
-        h = glu_apply(_expert_dense(experts.w_gate, x, ctx), up, activation,
-                      ctx)
+        h = glu_apply(_expert_dense(experts.w_gate, x, ctx, rows), up,
+                      activation, ctx)
     else:
         h = activation_apply(up, activation, ctx)
-    return _expert_dense(experts.w_down, h, ctx)
+    return _expert_dense(experts.w_down, h, ctx, rows)
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +269,11 @@ def _moe_tokens(block: MoE, x, ctx: Context, *, num_experts: int, top_k: int,
                                    scatter(x.srm.reshape(s, d)), SRM)
     else:
         expert_in = scatter(mean_in.reshape(s, d))
-    expert_out = _expert_mlp(block.experts, expert_in, ctx, activation)
+    # Each expert's kept rows are its slots 0 .. count - 1 (slots are one
+    # token-major count). Counted on the device: no host sync.
+    kept = (torch.zeros(num_experts, dtype=torch.int32, device=device)
+            .scatter_add_(0, flat_e, r.keep.int()) if _SKIP_EMPTY else None)
+    expert_out = _expert_mlp(block.experts, expert_in, ctx, activation, kept)
 
     keep_f = r.keep.to(mean_in.dtype)
     gate_flat = r.gate.reshape(-1) * keep_f                        # (S*K,)

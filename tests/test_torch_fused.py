@@ -37,6 +37,7 @@ from repro_torch.core.gaussian import SRM, VAR, GaussianTensor
 from repro_torch.core.modes import Mode
 from repro_torch.kernels import ops
 from repro_torch.kernels._launch import LAUNCHES, reset_launch_counts
+from repro_torch.kernels.pfp_dense import split_k
 from repro_torch.kernels.pfp_fused import TILES
 from repro_torch.models import lm
 from repro_torch.nn.layers import dense_init
@@ -440,10 +441,18 @@ def test_kernel_matches_plain_and_unfused_chain_on_card(cuda, tile):
         want = ops.pfp_norm_dense_act(*(a.cpu() for a in args), norm=norm,
                                       rep=rep, act=act)
         chain = unfused_chain(*args, norm=norm, rep=rep, act=act)
+        # The chain's dense splits K over a cluster for 64 <= N <= 128
+        # (split_k > 1): its sums then run in another order than the fused
+        # kernel's single pass, and the chain is held to the plain version.
+        bitwise = split_k(shape[1], shape[2]) == 1
         for g, w, c in zip(got, want, chain):
             np.testing.assert_allclose(g.cpu().numpy(), w.numpy(),
                                        **DENSE_TOL)
-            assert torch.equal(g, c), (norm, rep, act, shape, tile)
+            if bitwise:
+                assert torch.equal(g, c), (norm, rep, act, shape, tile)
+            else:
+                np.testing.assert_allclose(c.cpu().numpy(), w.numpy(),
+                                           **DENSE_TOL)
 
 
 @pytest.mark.gpu

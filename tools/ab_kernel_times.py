@@ -13,7 +13,19 @@ and times, with CUDA events around a CUDA graph of ``INNER`` calls
   * where the tree has the fused unit: ``norm_dense_act`` at the gate
     projection and at a 4-slot decode step (4, 4096, 14336), rmsnorm and
     silu, at every instantiated tile, and the unfused kernel chain it
-    replaces at both shapes.
+    replaces at both shapes;
+  * the dense kernel at every dense shape of LeNet-5 and the MLP at batch
+    100, in its three modes (Eq. 12, Eq. 13, Eq. 7), and at granite-8b's
+    decode shapes (4, K, N);
+  * the batched expert kernel at deepseek-moe-16b's forward shape
+    (64, 240, 2048, 1408), Eq. 12 and Eq. 7, and at its decode shape
+    (64, 6, 2048, 1408), with every row of every expert, and (where the
+    tree takes ``rows=``) with 24 experts holding one row each, as a
+    4-slot top-6 step at most fills;
+  * LeNet-5 and the MLP forwards (batch 10, 100, 1024) in a CUDA graph,
+    and one 4-slot decode step of granite-8b (2 layers) and of
+    deepseek-moe-16b (3 layers) at full width, eager, with random
+    weights from a seed (ms per call: CUDA events around 10 calls).
 
 Each child also reports which fused calls are not bit for bit the
 unfused chain's, and ptxas' register count of every instantiation of the
@@ -39,6 +51,14 @@ ROOT = Path(__file__).resolve().parent.parent
 INNER, REPLAYS = 5, 5
 NORM_SHAPE = (2048, 4096)
 GATE, DECODE = (2048, 4096, 14336), (4, 4096, 14336)
+# (M, K, N) of the paper's dense layers at batch 100.
+CNN_DENSE = ((78400, 25, 6), (19600, 150, 16), (100, 784, 120),
+             (100, 120, 84), (100, 84, 10), (100, 784, 100), (100, 100, 100),
+             (100, 100, 10))
+LM_DECODE = ((4, 4096, 4096), (4, 4096, 1024), (4, 4096, 14336),
+             (4, 14336, 4096), (4, 4096, 49152))
+MOE_FORWARD, MOE_DECODE = (64, 240, 2048, 1408), (64, 6, 2048, 1408)
+MODES = ("srm", "first", "var")
 REG_KERNELS = ("pfp_norm_kernel", "pfp_norm_dense_act_kernel")
 
 
@@ -85,6 +105,106 @@ def _registers(ptxas_log):
     return out
 
 
+def _dense(ops, mode, *args):
+    if mode == "var":
+        return ops.pfp_dense_var(*args)
+    return ops.pfp_dense(*args, first_layer=mode == "first")
+
+
+def _small_regime(ops, draw):
+    """The dense kernel at the paper's shapes and at decode shapes, and
+    the batched kernel at the MoE decode shape."""
+    import inspect
+
+    import torch
+    rows = {}
+    for m, k, n in CNN_DENSE:
+        xa, xb = draw(m, k), draw(m, k).abs()
+        wa, wb = draw(k, n, scale=0.1), draw(k, n, scale=0.1).abs()
+        for mode in MODES:
+            rows[f"dense {mode} {(m, k, n)}"] = _device_ms(
+                lambda: _dense(ops, mode, xa, xb, wa, wb))
+    for m, k, n in LM_DECODE:
+        xa, xb = draw(m, k), draw(m, k).abs()
+        wa, wb = draw(k, n, scale=0.1), draw(k, n, scale=0.1).abs()
+        rows[f"dense srm {(m, k, n)}"] = _device_ms(
+            lambda: ops.pfp_dense(xa, xb, wa, wb))
+    del xa, xb, wa, wb
+    e, c, k, n = MOE_FORWARD
+    xa, xb = draw(e, c, k), draw(e, c, k).abs()
+    wa, wb = draw(e, k, n, scale=0.1), draw(e, k, n, scale=0.1).abs()
+    rows[f"dense_batched {MOE_FORWARD}"] = _device_ms(
+        lambda: ops.pfp_dense_batched(xa, xb, wa, wb))
+    rows[f"dense_batched_var {MOE_FORWARD}"] = _device_ms(
+        lambda: ops.pfp_dense_batched_var(xa, xb, wa, wb))
+    del xa, xb, wa, wb
+    e, c, k, n = MOE_DECODE
+    xa, xb = draw(e, c, k), draw(e, c, k).abs()
+    wa, wb = draw(e, k, n, scale=0.1), draw(e, k, n, scale=0.1).abs()
+    rows[f"dense_batched {MOE_DECODE}"] = _device_ms(
+        lambda: ops.pfp_dense_batched(xa, xb, wa, wb))
+    if "rows" in inspect.signature(ops.pfp_dense_batched).parameters:
+        held = torch.zeros(e, dtype=torch.int32, device=xa.device)
+        held[::e // 24][:24] = 1        # 24 experts, one row each
+        keep = (torch.arange(c, device=xa.device)[None, :, None]
+                < held[:, None, None])
+        xa, xb = torch.where(keep, xa, 0.0), torch.where(keep, xb, 0.0)
+        rows[f"dense_batched {MOE_DECODE} 24 experts"] = _device_ms(
+            lambda: ops.pfp_dense_batched(xa, xb, wa, wb, rows=held))
+    return rows
+
+
+def _forwards(dev):
+    """CNN forwards in a CUDA graph; LM decode steps, eager."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.bayes.convert import svi_to_pfp
+    from repro_torch.configs import get_config
+    from repro_torch.core.modes import Mode
+    from repro_torch.models import lm
+    from repro_torch.models.simple import MLP, LeNet5
+    from repro_torch.nn.module import Context
+    ctx = Context(mode=Mode.PFP, impl="kernel", device=dev)
+    rows = {}
+    for name, cls in (("lenet5", LeNet5), ("mlp", MLP)):
+        model = svi_to_pfp(cls(sigma_init=1e-3, device=dev,
+                               generator=torch.Generator().manual_seed(0)),
+                           calibration_factor=0.4)
+        for b in (10, 100, 1024):
+            x = torch.rand((b, 28, 28), generator=torch.Generator()
+                           .manual_seed(b)).to(dev)
+            x = x[..., None] if name == "lenet5" else x.reshape(b, -1)
+            rows[f"forward {name} B={b} (CUDA graph)"] = _device_ms(
+                lambda: model(x, ctx))
+    for arch, layers in (("granite-8b", 2), ("deepseek-moe-16b", 3)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  sigma_init=1e-3)
+        model = svi_to_pfp(lm.init_params(
+            cfg, generator=torch.Generator(device=dev).manual_seed(0),
+            device=dev), calibration_factor=0.4)
+        pos = np.asarray([300, 400, 500, 540])
+        inputs = {"tokens": np.asarray([[11], [257], [1031], [4099]]),
+                  "positions": pos[:, None], "cache_len": pos + 1}
+        states = lm.init_decode_state(cfg, 4, 1024, device=dev)
+        for _ in range(2):
+            lm.decode_step(model, cfg, inputs, states, ctx)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            lm.decode_step(model, cfg, inputs, states, ctx)
+        end.record()
+        end.synchronize()
+        rows[f"decode step {arch} ({layers} layers, 4 slots)"] = \
+            start.elapsed_time(end) / 10
+        del model, states
+        torch.cuda.empty_cache()
+    return rows
+
+
 def child(tree):
     import torch
     sys.path.insert(0, str(Path(tree).resolve() / "src"))
@@ -126,6 +246,10 @@ def child(tree):
                 got = ops.pfp_norm_dense_act(*args, schedule=sched)
                 if not all(torch.equal(x, y) for x, y in zip(got, chain)):
                     differ.append(name)
+    del mu, var, srm, wm, ws
+    rows.update(_small_regime(ops, draw))
+    torch.cuda.empty_cache()
+    rows.update(_forwards(dev))
     log = (Path(_build.BUILD_INFO["directory"]) / "ptxas.log").read_text()
     print(json.dumps({"tree": tree, "ms": rows, "differ_from_chain": differ,
                       "registers": _registers(log),
@@ -155,12 +279,12 @@ def main(trees):
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
     print(f"card: {card.strip()}")
     names = list(dict.fromkeys(n for r in runs for n in r["ms"]))
-    print(" " * 45 + "  ".join(f"{Path(r['tree']).name[-9:]:>9s}"
+    print(" " * 53 + "  ".join(f"{Path(r['tree']).name[-9:]:>9s}"
                                for r in runs))
     for name in names:
         cells = [f"{r['ms'][name]:.4f}" if name in r["ms"] else "-"
                  for r in runs]
-        print(f"{name:44s} " + "  ".join(f"{c:>9s}" for c in cells))
+        print(f"{name:52s} " + "  ".join(f"{c:>9s}" for c in cells))
     for r in runs:
         if not r.get("failed"):
             print(f"{r['tree']}: build {r['build_s']:.1f} s; not bit for "
