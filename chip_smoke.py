@@ -82,17 +82,22 @@ Phases, each printing its own lines; any failure exits non-zero:
               granite-8b's fused units (full width, 2 layers: a 4 x 512
               forward and a 4-slot decode step) on the card into
               build/schedules/, timing each against the unfused chain, and
-              the DB is reloaded. With fusion on, the 4 x 512 forward must
-              hit the cache at every fused unit, launch the fused kernel
-              once a layer in place of the gate's dense and activation,
-              give the unfused forward's greedy tokens at every position
-              and moments within NDA_TOL; the decode phase's requests
-              through DecodeStatePool must give the unfused run's tokens,
-              launching the fused kernel where the DB fuses the decode
-              step's unit and not where it stays unfused.
-              Times: the forward eager and in a CUDA graph beside the
-              unfused one, row 8 at the gate and decode shapes beside the
-              unfused chain.
+              the DB is reloaded. A copy of it with every entry set to fuse
+              goes to build/schedules/ beside it. With fusion on and each
+              DB, the 4 x 512 forward must consult the cache at every fused
+              unit and, where the DB fuses the gate, hit it and launch the
+              fused kernel once a layer in place of the gate's dense and
+              activation (else the unfused chain), give the unfused
+              forward's greedy tokens at every position and moments within
+              NDA_TOL; the decode phase's requests through DecodeStatePool
+              must give the unfused run's tokens, launching the fused
+              kernel once per cache hit where the DB fuses the decode
+              step's unit and not where it stays unfused. So the forced DB
+              drives the fused kernel inside the model whatever the tuner
+              chose.
+              Times: the forward eager and in a CUDA graph, fused by the
+              tuned DB, fused at every unit and unfused; row 8 at the gate
+              and decode shapes beside the unfused chain.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and a last JSON line ``{"ok": true, "device": {...}}``. Full numbers go to
@@ -179,6 +184,10 @@ NEAR_TIE = 1e-4   # a routing mismatch at a larger top-k margin is a fault
 NDA_TOL = dict(rtol=1e-3, atol=5e-4)   # tests/test_impl_dispatch.py _NDA_TOL
 FUSED_CHECK_SHAPES = ((37, 200, 130), (4, 4096, 1000))
 SCHEDULE_DB = ROOT / "build" / "schedules" / "granite-8b.json"
+# The tuned DB with every entry set to fuse (the fused phase writes it), and
+# the launch-count label of the fused runs with each DB.
+FORCED_DB = SCHEDULE_DB.with_name("granite-8b.forced.json")
+FUSED_RUNS = {"tuned": "fused", "forced": "fused_forced"}
 # K on both sides of the dense kernel's split boundaries (kernels/pfp_dense.py
 # split_k at N 100: 1 to K 64, 2 to 96, 3 from 97, 7 at 784, 8 from 785).
 SPLIT_CHECK_K = (1, 17, 64, 65, 96, 97, 127, 129, 783, 784, 785)
@@ -316,6 +325,13 @@ def lm_decode_calls(cfg):
     block = [(m, d, cfg.attn_dim), (m, d, kv), (m, d, kv),
              (m, cfg.attn_dim, d), (m, d, f), (m, d, f), (m, f, d)]
     return block * cfg.num_layers + [(m, d, cfg.vocab_size)]
+
+
+def lm_chunk_calls(cfg):
+    """The dense kernel's calls in one paged prefill chunk of
+    PREFILL_CHUNK tokens (one prompt): (M, K, N)."""
+    return [(PREFILL_CHUNK, *shape[1:]) for kernel, shape in lm_path_calls(cfg)
+            if kernel == "dense"]
 
 
 def dense_plan_of(kernel, shape):
@@ -732,7 +748,48 @@ def phase_build():
     print(f"[build] {len(regs)} kernels, {min(regs)}-{max(regs)} registers "
           f"per thread, {spills} bytes of spill stores in all "
           f"(chiprun_out/ptxas.log)")
+    for line in dense_build_lines(log):
+        print(f"[build] {line}")
     return info
+
+
+def ptxas_registers(log, kernel):
+    """{template arguments of ``kernel``'s mangled name: (registers, spill
+    store bytes)} for each instantiation of ``kernel`` in a ptxas log."""
+    out, entry, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            hit = re.search(kernel + r"I(.*)EEv", m.group(1))
+            entry, spill = (hit.group(1) if hit else None), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out[entry] = (int(m.group(1)), spill)
+            entry = None
+    return out
+
+
+def dense_build_lines(log):
+    """ptxas' registers and spill stores of each wide-tile instantiation
+    of the dense kernel (tn 8), and nvcc's seconds for its source."""
+    out = []
+    dense = ptxas_registers(log, "pfp_dense_ring_kernel")
+    for args, (regs, spill) in dense.items():
+        mode, bn, tn, tm, st, batched = re.findall(r"L[ib](\d+)E", args + "E")
+        if tn == "8":
+            form = " batched" if batched == "1" else ""
+            out.append(f"dense wide tile mode {mode} (bn {bn}, tn {tn}, "
+                       f"tm {tm}, stages {st}){form}: {regs} registers, "
+                       f"{spill} bytes spilled")
+    found = re.search(r"== pfp_dense\.cu \(([\d.]+) s\)", log)
+    if found:
+        out.append(f"pfp_dense.cu: {len(dense)} instantiations, nvcc "
+                   f"{found.group(1)} s")
+    return out
 
 
 def _max_err(got, want):
@@ -985,14 +1042,16 @@ def layernorm_offset_check(device):
 
 def m_independence_check(device):
     """A row's bits depend only on (K, N, mode): the first 6 rows of the
-    same operands, bit for bit, at M = 6, 100 and 1024 (three plans), at a
-    split shape and at decode shapes, in each mode."""
+    same operands, bit for bit, at M = 6, 100, 128, 256 and 1024 (up to
+    four plans), at a split shape and at decode and large-regime shapes (at
+    (14336, 4096): the decode tile, the (64, 4) ring tile at TM 4, 64 x 128
+    and 128 x 128), in each mode."""
     import torch
     for kernel in ("dense", "dense_first_layer", "dense_var"):
-        for k, n in ((784, 120), (4096, 1024), (2048, 1408)):
+        for k, n in ((784, 120), (4096, 1024), (2048, 1408), (14336, 4096)):
             args = operands(kernel, (1024, k, n), 31, device)
             first, plans = None, []
-            for m in (6, 100, 1024):
+            for m in (6, 100, 128, 256, 1024):
                 part = tuple(a[:m] if i < 2 else a for i, a in enumerate(args))
                 got = [t[:6] for t in run_kernel(kernel, part)]
                 plans.append(dense_plan_of(kernel, (m, k, n)))
@@ -1002,7 +1061,8 @@ def m_independence_check(device):
                     fail(f"{kernel} (M, {k}, {n}): rows 0-5 at M {m} differ "
                          f"from M 6")
             print(f"[kernels] {kernel:18s} (M, {k}, {n}): rows 0-5 bit for "
-                  f"bit at M 6 / 100 / 1024, plans {plans}")
+                  f"bit at M 6 / 100 / 128 / 256 / 1024, plans {plans}")
+            del args
 
 
 def cancellation_check(device):
@@ -1011,9 +1071,12 @@ def cancellation_check(device):
     than 4x the fp32 plain version's (TF32 would be ~1000x worse)."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.pfp_dense import dense_plan
     # (M, K, N) for the dense kernel; (E, C, K, N) for the batched one.
+    # The last three run the large regime, the last two its 128 x 128 tile.
     for shape in ((100, 784, 100), (10, 784, 120), (19600, 150, 16),
-                  (8, 240, 2048, 128)):
+                  (8, 240, 2048, 128), (512, 4096, 1024), (2048, 4096, 1024),
+                  (8, 240, 2048, 1408)):
         *lead, k, n = shape
         g = torch.Generator(device="cpu").manual_seed(sum(shape))
         mx = torch.relu(torch.randn((*lead, k), generator=g)) + 0.1
@@ -1033,8 +1096,11 @@ def cancellation_check(device):
         err_k = float((var_k.double() - var_64).abs().max())
         err_p = float((var_p.double() - var_64).abs().max())
         scale = float(var_64.abs().max())
+        e, (m, k, n) = (shape[0], shape[1:]) if len(shape) == 4 else (
+            1, shape)
         print(f"[kernels] eq12 cancellation {shape}: max var {scale:.3e}, "
-              f"kernel err {err_k:.3e}, fp32 plain err {err_p:.3e}")
+              f"kernel err {err_k:.3e}, fp32 plain err {err_p:.3e}, plan "
+              f"{tuple(dense_plan(m, n, k, e))}")
         if err_k > 4 * max(err_p, 1e-12):
             fail(f"Eq. 12 cancellation at {shape}: kernel err {err_k:.3e} "
                  f"> 4 x plain err {err_p:.3e}")
@@ -1892,6 +1958,8 @@ def phase_times(device, lm_cfg, lm_model):
                               call_iters=3 if big else 30))
     for shape in dict.fromkeys(lm_decode_calls(lm_cfg)):
         rows.append(_time_row("lm-decode", "dense", shape, device))
+    for shape in dict.fromkeys(lm_chunk_calls(lm_cfg)):
+        rows.append(_time_row("lm-chunk", "dense", shape, device))
     for kernel in CACHE_KERNELS:
         paged = (PAGE_SIZE,) if kernel == "attention_paged" else ()
         for label, shape in (("decode", CACHE_DECODE),
@@ -2151,6 +2219,20 @@ def phase_fused(device, seed, errs):
           f"{time.perf_counter() - t0:.1f} s -> "
           f"{SCHEDULE_DB.relative_to(ROOT)}")
 
+    # A copy of the tuned DB with every entry set to fuse, so that the
+    # fusion pass runs the fused kernel inside the model whatever the tuner
+    # chose. The forward and the decode run with each DB.
+    payload = json.loads(SCHEDULE_DB.read_text())
+    for entry in payload["entries"].values():
+        entry["meta"]["fuse"] = True
+    FORCED_DB.write_text(json.dumps(payload, indent=2, sort_keys=True))
+    dbs = {"tuned": (SCHEDULE_DB, fuses),
+           "forced": (FORCED_DB, dict.fromkeys(fuses, True))}
+
+    def use_db(label):
+        tcache.reset_global_cache()
+        tcache.load_global_cache(str(dbs[label][0]))
+
     # The fused forward against the unfused one.
     cfg, model = _lm_model(device)
     tokens = _lm_requests(cfg, device)[0]
@@ -2160,62 +2242,93 @@ def phase_fused(device, seed, errs):
     for kernel, _ in lm_path_calls(cfg):
         per_forward[kernel] = per_forward.get(kernel, 0) + 1
     want_unfused = {k: per_forward.get(k, 0) for k in kinds}
-    want_fused = dict(want_unfused, norm_dense_act=cfg.num_layers,
-                      activation=want_unfused["activation"] - cfg.num_layers,
-                      dense=want_unfused["dense"] - cfg.num_layers)
     reset_launch_counts()
     base, _, _ = lm.forward(model, cfg, {"tokens": tokens}, ctx)
     launches = {"unfused": {k: LAUNCHES[k] for k in kinds}}
-    reset_launch_counts()
-    tcache.consult_counters(reset=True)
-    with dispatch.fusion(True):
-        fused, _, _ = lm.forward(model, cfg, {"tokens": tokens}, ctx)
-    torch.cuda.synchronize()
-    launches["fused"] = {k: LAUNCHES[k] for k in kinds}
-    consults = tcache.consult_counters()
-    print(f"[fused] forward {LM_BATCH} x {LM_SEQ}: launches fused "
-          f"{launches['fused']}, unfused {launches['unfused']}; cache "
-          f"consults {consults}")
-    if launches != {"unfused": want_unfused, "fused": want_fused}:
-        fail(f"fused forward launches {launches}, expected fused "
-             f"{want_fused}, unfused {want_unfused}")
-    if consults["misses"] or consults["hits"] != cfg.num_layers:
-        fail(f"fused forward: cache consults {consults}, expected "
-             f"{cfg.num_layers} hits and no miss")
-    greedy = bool(torch.equal(fused.mean.argmax(-1), base.mean.argmax(-1)))
-    errs_fwd = {}
-    for part in ("mean", "var"):
-        got, want = getattr(fused, part), getattr(base, part)
-        errs_fwd[part] = float((got - want).abs().max())
-        if not torch.isfinite(got).all() or \
-                not torch.allclose(got, want, **NDA_TOL):
-            fail(f"fused forward {part}: max abs diff {errs_fwd[part]:.3e} "
-                 f"outside NDA_TOL of the unfused forward")
-    bitwise = torch.equal(fused.mean, base.mean) and \
-        torch.equal(fused.var, base.var)
-    print(f"[fused] forward: greedy tokens {'equal' if greedy else 'DIFFER'}"
-          f" at all {LM_BATCH} x {LM_SEQ} positions; logits max abs diff "
-          f"mean {errs_fwd['mean']:.3e}, var {errs_fwd['var']:.3e}"
-          f"{' (bit for bit)' if bitwise else ''}")
-    if not greedy:
-        fail("fused forward: greedy tokens differ from the unfused forward")
-    del base, fused
+    if launches["unfused"] != want_unfused:
+        fail(f"unfused forward launches {launches['unfused']}, expected "
+             f"{want_unfused}")
+    info["forward"] = {}
+    for db in dbs:
+        use_db(db)
+        # The gate's unit runs fused only where the DB says fuse.
+        gate_fuses = dbs[db][1][(LM_BATCH * LM_SEQ, cfg.d_model, cfg.d_ff)]
+        fused_units = cfg.num_layers if gate_fuses else 0
+        want_fused = dict(want_unfused, norm_dense_act=fused_units,
+                          activation=want_unfused["activation"] - fused_units,
+                          dense=want_unfused["dense"] - fused_units)
+        label = FUSED_RUNS[db]
+        reset_launch_counts()
+        tcache.consult_counters(reset=True)
+        with dispatch.fusion(True):
+            fused, _, _ = lm.forward(model, cfg, {"tokens": tokens}, ctx)
+        torch.cuda.synchronize()
+        launches[label] = {k: LAUNCHES[k] for k in kinds}
+        consults = tcache.consult_counters()
+        print(f"[fused] forward {LM_BATCH} x {LM_SEQ}, {db} DB: launches "
+              f"{launches[label]}, unfused {launches['unfused']}; cache "
+              f"consults {consults}")
+        if launches[label] != want_fused:
+            fail(f"fused forward ({db} DB) launches {launches[label]}, "
+                 f"expected {want_fused}")
+        if consults["consults"] != cfg.num_layers or \
+                consults["hits"] != fused_units:
+            fail(f"fused forward ({db} DB): cache consults {consults}, "
+                 f"expected {cfg.num_layers} consults and {fused_units} hits "
+                 f"(the DB says {'fuse' if gate_fuses else 'stay unfused'} "
+                 f"at the gate)")
+        greedy = bool(torch.equal(fused.mean.argmax(-1),
+                                  base.mean.argmax(-1)))
+        errs_fwd = {}
+        for part in ("mean", "var"):
+            got, want = getattr(fused, part), getattr(base, part)
+            errs_fwd[part] = float((got - want).abs().max())
+            if not torch.isfinite(got).all() or \
+                    not torch.allclose(got, want, **NDA_TOL):
+                fail(f"fused forward ({db} DB) {part}: max abs diff "
+                     f"{errs_fwd[part]:.3e} outside NDA_TOL of the unfused "
+                     f"forward")
+        bitwise = torch.equal(fused.mean, base.mean) and \
+            torch.equal(fused.var, base.var)
+        print(f"[fused] forward, {db} DB: greedy tokens "
+              f"{'equal' if greedy else 'DIFFER'} at all {LM_BATCH} x "
+              f"{LM_SEQ} positions; logits max abs diff mean "
+              f"{errs_fwd['mean']:.3e}, var {errs_fwd['var']:.3e}"
+              f"{' (bit for bit)' if bitwise else ''}")
+        if not greedy:
+            fail(f"fused forward ({db} DB): greedy tokens differ from the "
+                 f"unfused forward")
+        info["forward"][db] = {"launches": launches[label],
+                               "consults": consults, "greedy_equal": greedy,
+                               "bitwise": bitwise, "max_abs_diff": errs_fwd}
+        del fused
+    del base
     times = {}
-    for label, on in (("unfused", False), ("fused", True)):
+    for label, on, db in (("unfused", False, "tuned"),
+                          ("fused", True, "tuned"),
+                          ("fused_forced", True, "forced")):
+        use_db(db)
         with dispatch.fusion(on):
             fwd = lambda: lm.forward(model, cfg, {"tokens": tokens},  # noqa
                                      ctx)
             times[f"{label}_ms"] = time_ms(fwd, iters=3, warmup=1)
             times[f"{label}_graph_ms"] = device_ms(fwd, inner=1, replays=3)
+    info["forward"]["times"] = times
     print(f"[times] forward {cfg.name} ({cfg.num_layers} layers) B={LM_BATCH}"
-          f" T={LM_SEQ} fused {times['fused_ms']:.2f} ms (CUDA graph "
-          f"{times['fused_graph_ms']:.2f}), unfused {times['unfused_ms']:.2f}"
-          f" ms (CUDA graph {times['unfused_graph_ms']:.2f})")
+          f" T={LM_SEQ} fused by the tuned DB {times['fused_ms']:.2f} ms "
+          f"(CUDA graph {times['fused_graph_ms']:.2f}), fused at every unit "
+          f"{times['fused_forced_ms']:.2f} ms (CUDA graph "
+          f"{times['fused_forced_graph_ms']:.2f}), unfused "
+          f"{times['unfused_ms']:.2f} ms (CUDA graph "
+          f"{times['unfused_graph_ms']:.2f})")
 
-    # Decode through DecodeStatePool, unfused then fused.
+    # Decode through DecodeStatePool: unfused, then fused with each DB.
     requests = _decode_requests(cfg, seed)
     runs = {}
-    for label, on in (("unfused", False), ("fused", True)):
+    for label, on, db in (("unfused", False, "tuned"),
+                          ("fused", True, "tuned"),
+                          ("fused_forced", True, "forced")):
+        use_db(db)
         reset_launch_counts()
         tcache.consult_counters(reset=True)
         with dispatch.fusion(on):
@@ -2228,34 +2341,36 @@ def phase_fused(device, seed, errs):
               f"{np.mean(run['step_ms']):.3f} ms mean, prefill "
               f"{np.mean(run['prefill_ms']):.2f} ms per prompt; launches "
               f"{run['launches']}; cache consults {run['consults']}")
-    for a, b in zip(runs["unfused"]["finished"], runs["fused"]["finished"]):
-        if a.generated != b.generated:
-            fail(f"fused decode uid {a.uid}: tokens {b.generated} != "
-                 f"unfused {a.generated}")
-    # The decode step's unit runs fused only where the tuner found the
-    # fused kernel faster than the unfused chain.
-    step_fuses = fuses[(DECODE_SLOTS, cfg.d_model, cfg.d_ff)]
-    fused_launches = runs["fused"]["launches"]["norm_dense_act"]
-    if len(runs["fused"]["finished"]) != DECODE_REQUESTS or \
-            (fused_launches > 0) != step_fuses:
-        fail(f"fused decode: {len(runs['fused']['finished'])} of "
-             f"{DECODE_REQUESTS} requests finished; the fused kernel "
-             f"launched {fused_launches} times where the DB says "
-             f"{'fuse' if step_fuses else 'stay unfused'}")
-    same_logits = all(torch.equal(a, b) for a, b in zip(
-        runs["unfused"]["last_logits"], runs["fused"]["last_logits"]))
-    print(f"[fused] decode: all {DECODE_REQUESTS} requests give the unfused "
-          f"run's tokens; last-step logits "
-          f"{'bit for bit equal' if same_logits else 'differ in bits'}")
-    launches["fused_decode"] = runs["fused"]["launches"]
-    info["forward"] = {"launches": launches, "consults": consults,
-                       "greedy_equal": greedy, "bitwise": bitwise,
-                       "max_abs_diff": errs_fwd, **times}
-    info["decode"] = {label: {k: run[k] for k in ("steps", "step_ms",
-                                                  "prefill_ms", "launches",
-                                                  "consults")}
-                      for label, run in runs.items()}
-    info["decode"]["last_logits_bitwise"] = same_logits
+    info["decode"] = {}
+    for db, label in FUSED_RUNS.items():
+        run = runs[label]
+        for a, b in zip(runs["unfused"]["finished"], run["finished"]):
+            if a.generated != b.generated:
+                fail(f"fused decode ({db} DB) uid {a.uid}: tokens "
+                     f"{b.generated} != unfused {a.generated}")
+        # The decode step's unit runs fused only where the DB says fuse;
+        # each cache hit launches the fused kernel once.
+        step_fuses = dbs[db][1][(DECODE_SLOTS, cfg.d_model, cfg.d_ff)]
+        fused_launches = run["launches"]["norm_dense_act"]
+        if len(run["finished"]) != DECODE_REQUESTS or \
+                (fused_launches > 0) != step_fuses or \
+                fused_launches != run["consults"]["hits"]:
+            fail(f"fused decode ({db} DB): {len(run['finished'])} of "
+                 f"{DECODE_REQUESTS} requests finished; the fused kernel "
+                 f"launched {fused_launches} times on "
+                 f"{run['consults']['hits']} cache hits where the DB says "
+                 f"{'fuse' if step_fuses else 'stay unfused'}")
+        same_logits = all(torch.equal(a, b) for a, b in zip(
+            runs["unfused"]["last_logits"], run["last_logits"]))
+        print(f"[fused] decode, {db} DB: all {DECODE_REQUESTS} requests give "
+              f"the unfused run's tokens; last-step logits "
+              f"{'bit for bit equal' if same_logits else 'differ in bits'}")
+        launches[f"{label}_decode"] = run["launches"]
+        info["decode"][f"{db}_last_logits_bitwise"] = same_logits
+    for label, run in runs.items():
+        info["decode"][label] = {k: run[k] for k in (
+            "steps", "step_ms", "prefill_ms", "launches", "consults")}
+    use_db("tuned")
 
     # Row 8 at the gate and decode shapes, beside the unfused chain.
     rows = []
@@ -2324,6 +2439,7 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg):
     occ = {(r["kernel"], tuple(r["shape"])): r for r in rows
            if r["batch"] == "moe-occ"}
     dec = {tuple(r["shape"]): r for r in rows if r["batch"] == "lm-decode"}
+    chunk = {tuple(r["shape"]): r for r in rows if r["batch"] == "lm-chunk"}
     fused = {tuple(r["shape"]): r for r in rows if r["batch"] == "fused"}
 
     def summed(kernel, calls):
@@ -2387,6 +2503,8 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg):
                     if k == kernel])
                 extra["decode_step"] = summed(
                     kernel, [dec[s] for s in lm_decode_calls(lm_cfg)])
+                extra["prefill_chunk"] = summed(
+                    kernel, [chunk[s] for s in lm_chunk_calls(lm_cfg)])
         elif kernel == "layernorm":
             calls = [lmr[(kernel, (LM_BATCH * LM_SEQ, lm_cfg.d_model))]]
         else:
@@ -2446,8 +2564,8 @@ def main():
     rows += moe_rows
     fused_launches, fused_info, fused_rows = phase_fused(device, args.seed,
                                                          errs)
-    launches["fused"] = fused_launches["fused"]
-    launches["fused_decode"] = fused_launches["fused_decode"]
+    launches.update({k: v for k, v in fused_launches.items()
+                     if k != "unfused"})
     rows += fused_rows
     forwards.append(moe_forward)
     if moe_profile is not None:

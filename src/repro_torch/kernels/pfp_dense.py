@@ -2,10 +2,10 @@
 
 Replaces ``repro/kernels/pfp_dense.py``: ``pfp_dense_pallas`` (Eq. 12/13)
 and ``pfp_dense_var_pallas`` (Eq. 7). The kernel is ``csrc/pfp_dense.cu``,
-a shared-memory-tiled fp32 SIMT kernel; its source says what bounds it in
-each regime and why it is built so. The plain versions are
-``pfp_dense_ref``, ``pfp_dense_first_layer_ref`` and ``pfp_dense_var_ref``
-(``kernels/ref.py``).
+an fp32 SIMT kernel on a ``cp.async`` ring of shared-memory tiles; its
+source says what bounds it in each regime and why it is built so. The
+plain versions are ``pfp_dense_ref``, ``pfp_dense_first_layer_ref`` and
+``pfp_dense_var_ref`` (``kernels/ref.py``).
 
 Every launch runs a plan from :func:`dense_plan`, chosen here so that the
 rule can be read and tested without a card: the cluster split of K, the
@@ -30,8 +30,9 @@ _COUNTER = {MODE_SRM: "dense", MODE_FIRST_LAYER: "dense_first_layer",
 class DensePlan(NamedTuple):
     """How one dense launch is cut. ``split`` CTAs of a cluster share an
     output tile, each summing a K range; the tile is ``bn`` columns wide,
-    ``tn`` columns and ``tm`` rows per thread; ``stages`` is the depth of
-    the cp.async ring (1: the synchronous loop of the large regime)."""
+    ``tn`` columns and ``tm`` rows per thread (``tn`` 8: a wide tile of
+    the large regime, each thread's columns in two groups of 4
+    neighbours); ``stages`` is the depth of the cp.async ring."""
 
     split: int
     bn: int
@@ -43,7 +44,7 @@ class DensePlan(NamedTuple):
 # (bn, tn, tm, stages) of every instantiation: csrc/pfp_dense.cu's
 # PFP_DENSE_TILES, in its order.
 TILES = (
-    (64, 4, 1, 1), (64, 4, 4, 1),                        # large
+    (128, 8, 8, 2), (128, 8, 4, 2),                      # large
     (8, 1, 1, 4), (8, 1, 4, 4), (16, 1, 1, 4), (16, 1, 4, 4),
     (32, 2, 1, 4), (32, 2, 4, 4), (64, 4, 1, 4), (64, 4, 4, 4),
     (128, 4, 1, 4), (128, 4, 4, 4),                      # narrow
@@ -60,10 +61,18 @@ SPLIT_K = 48               # K per cluster rank, before rounding to tiles
 MAX_SPLIT = 8              # the portable cluster size
 TILE_K = 16                # K of one staged tile
 RING_STAGES = 4            # tiles in the cp.async ring (3 in flight)
+WIDE_STAGES = 2            # the same for the wide tiles, of 32 k each
 # Narrow tiles (bn, tn): the first with bn >= N is taken.
 _NARROW = ((8, 1), (16, 1), (32, 2), (64, 4), (128, 4))
 # Decode tiles (bn, tn) by the thread rows that cover M.
 _DECODE = {4: (64, 1), 8: (128, 4), 16: (64, 4)}
+# Large tiles (bn, tn, tm, stages), fastest per block first: the wide
+# 128 x 128 and 64 x 128, then the interleaved 64 x 64 and 16 x 64 ring
+# tiles, which give more blocks where few rows or columns leave the card
+# idle.
+_LARGE = ((128, 8, 8, WIDE_STAGES), (128, 8, 4, WIDE_STAGES),
+          (64, 4, 4, RING_STAGES), (64, 4, 1, RING_STAGES))
+FILL_LARGE = SMS * 5 // 6  # blocks that keep the card busy in one wave
 
 
 def thread_rows(bn: int, tn: int) -> int:
@@ -74,8 +83,8 @@ def split_k(k: int, n: int, mode: int = MODE_SRM) -> int:
     """The cluster split of K: a function of (K, N, mode) only, so a row's
     result never depends on M or E.
 
-    1 whenever N > 128 (every LM shape), so the large regime keeps its
-    bits; for N < 64: in the paper's models those are the conv layers'
+    1 whenever N > 128 (every LM shape: prefill and decode rows agree bit
+    for bit); for N < 64: in the paper's models those are the conv layers'
     im2col products, whose 196-784 rows per image fill the card unsplit,
     where the cluster's combine costs (conv2 at batch 1024,
     ``tools/dense_plan_sweep.py``); and for K <= 64, a loop of at most 4
@@ -98,8 +107,12 @@ def dense_plan(m: int, n: int, k: int, e: int = 1,
                mode: int = MODE_SRM) -> DensePlan:
     """The plan for E problems of (M, K) x (K, N).
 
-    * Large (N > 128, M > 16): the synchronous loop at (64, 4), TM 4 when
-      that still gives two blocks an SM.
+    * Large (N > 128, M > 16): the first of the 128 x 128 wide tile (8 x
+      8 outputs a thread), 64 x 128, and the ring tiles (64, 4) at TM 4
+      and 1 that gives FILL_LARGE blocks, else the last: where rows or
+      columns are few (a prefill chunk of 128 rows), more blocks beat a
+      faster block (``tools/dense_plan_sweep.py``). Every tile sums an
+      output alike, so the choice moves no bit.
     * Narrow (N <= 128): the narrowest tile that holds all of N, so x is
       read once; K split by :func:`split_k` over a cluster; TM 4 once TM 1
       would give more than two blocks an SM (never for M <= 16).
@@ -108,8 +121,9 @@ def dense_plan(m: int, n: int, k: int, e: int = 1,
     """
     split = split_k(k, n, mode)
     if n > NARROW_N and m > DECODE_M:
-        tm = 4 if _blocks(m, n, e, 64, 4, 4) >= FILL_BLOCKS else 1
-        return DensePlan(1, 64, 4, tm, 1)
+        tile = next((t for t in _LARGE
+                     if _blocks(m, n, e, *t[:3]) >= FILL_LARGE), _LARGE[-1])
+        return DensePlan(1, *tile)
     if n <= NARROW_N:
         bn, tn = next(t for t in _NARROW if t[0] >= n)
         tm = 4 if (m > DECODE_M and _blocks(m, n, e, bn, tn, 1, split)

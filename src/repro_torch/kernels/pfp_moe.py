@@ -38,8 +38,8 @@ def pfp_dense_batched_cuda(x_a, x_b, w_a, w_b, *, mode: int, rows=None,
 
     ``rows``: None, or an int32 (E,) tensor on the same device, expert e's
     kept rows (a prefix: rows from ``rows[e]`` on are zero in x). Their
-    outputs come out as +0; at decode (C <= 16) and for N <= 128 a tile
-    of them is written without reading the expert's weights.
+    outputs come out as +0, a tile of them written without reading the
+    expert's weights.
     ``plan`` overrides ``dense_plan``, as in ``pfp_dense_cuda``."""
     if mode not in _COUNTER:
         raise ValueError(f"unknown dense mode {mode}")

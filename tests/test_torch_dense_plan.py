@@ -1,17 +1,19 @@
 """The dense kernel's launch plan and the MoE expert-row counts.
 
 On the CPU: ``kernels/pfp_dense.py``'s ``dense_plan`` (the K split depends
-only on (K, N, mode); no split at any LM shape; TM 1 for M <= 16; every
-plan it gives is one ``csrc/pfp_dense.cu`` instantiates), the batched
+only on (K, N, mode); no split at any LM shape; TM 1 for M <= 16; the
+128 x 128 wide tile exactly where it fills the card; every plan it
+gives is one ``csrc/pfp_dense.cu`` instantiates), the batched
 plain versions with ``rows=``, the counts ``nn/moe.py`` passes to the
 expert MLP, and ``moe_apply`` with and without them, bit for bit.
 
 The tests marked ``gpu`` hold the kernel on the card: against its plain
 version at the paper's shapes at batch 10, 100 and 1024, at ragged K on
-both sides of each split boundary and at granite-8b's decode shapes; a
-row's bits independent of M; the Eq. 12 cancellation check at a split
-shape; the batched kernel with ``rows``; and a plan the kernel did not
-instantiate refused. They skip where there is no card:
+both sides of each split boundary, at granite-8b's decode shapes and at
+ragged large-regime shapes under both wide tiles (single, and batched
+with ``rows``); a row's bits independent of M; the Eq. 12 cancellation
+check at a split shape; the batched kernel with ``rows``; and a plan the
+kernel did not instantiate refused. They skip where there is no card:
 ``python -m pytest -m gpu tests/test_torch_dense_plan.py``.
 """
 import re
@@ -25,8 +27,9 @@ from repro_torch.configs import get_config
 from repro_torch.core.gaussian import SRM, GaussianTensor
 from repro_torch.core.modes import Mode
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.pfp_dense import (MODE_FIRST_LAYER, MODE_SRM,
-                                           MODE_VAR, TILES, DensePlan,
+from repro_torch.kernels.pfp_dense import (FILL_LARGE, MODE_FIRST_LAYER,
+                                           MODE_SRM, MODE_VAR, RING_STAGES,
+                                           TILES, WIDE_STAGES, DensePlan,
                                            dense_plan, pfp_dense_cuda,
                                            split_k, thread_rows)
 from repro_torch.kernels.pfp_moe import pfp_dense_batched_cuda
@@ -100,7 +103,8 @@ def test_split_boundaries():
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_no_split_at_any_lm_shape(arch):
-    """N > 128 everywhere, so S = 1: the LM forward keeps its bits."""
+    """N > 128 everywhere, so S = 1: prefill and decode rows agree bit for
+    bit."""
     cfg = get_config(arch)
     experts = max(cfg.num_experts, 1)
     for k, n in lm_dense_kn(cfg):
@@ -110,8 +114,47 @@ def test_no_split_at_any_lm_shape(arch):
                 plan = dense_plan(m, n, k, e)
                 assert plan.split == 1, (arch, m, k, n, e)
                 assert plan[1:] in TILES
-                if m > 16:   # the large regime's synchronous loop
-                    assert (plan.bn, plan.tn, plan.stages) == (64, 4, 1)
+                assert plan.stages > 1   # the cp.async ring, every regime
+
+
+@pytest.mark.parametrize("arch", ("granite-8b", "deepseek-moe-16b"))
+def test_wide_tile_exactly_where_it_fills_the_card(arch):
+    """At the prefill chunk (M 128), the MoE capacity (240) and the forward
+    (2048), for one problem and for every expert: 128 x 128 (8 x 8 outputs
+    a thread) exactly where that gives FILL_LARGE blocks (5/6 of the SMs);
+    elsewhere the first smaller tile that does, or the one with the most
+    blocks."""
+    cfg = get_config(arch)
+    for k, n in lm_dense_kn(cfg):
+        for m in (128, 240, 2048):
+            for e in {1, max(cfg.num_experts, 1)}:
+                plan = dense_plan(m, n, k, e)
+                assert plan.split == 1 and plan.stages == (
+                    WIDE_STAGES if plan.tn == 8 else RING_STAGES)
+                rows = plan.tm * thread_rows(plan.bn, plan.tn)
+                blocks = -(-m // rows) * -(-n // plan.bn) * e
+                fills = -(-m // 128) * -(-n // 128) * e >= FILL_LARGE
+                assert ((plan.bn, plan.tn, plan.tm) == (128, 8, 8)) == fills
+                assert blocks >= FILL_LARGE or plan == (1, 64, 4, 1,
+                                                        RING_STAGES)
+
+
+def test_wide_tiles_at_the_main_paths():
+    """granite's forward: every dense at 128 x 128; its prefill chunks of
+    128 rows: 128 x 128 where N is 14336 or more, the ring tiles where it
+    is 1024 or 4096 (16 x 64 and 64 x 64, 128 blocks each); deepseek's
+    experts at 128 x 128."""
+    wide = DensePlan(1, 128, 8, 8, 2)
+    chunk = {1024: DensePlan(1, 64, 4, 1, 4), 4096: DensePlan(1, 64, 4, 4, 4)}
+    for k, n in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                 (4096, 49152)):
+        assert dense_plan(2048, n, k) == wide
+        assert dense_plan(128, n, k) == chunk.get(n, wide)
+    assert dense_plan(256, 4096, 4096) == DensePlan(1, 128, 8, 4, 2)
+    assert dense_plan(240, 1408, 2048, 64) == wide
+    assert dense_plan(240, 2048, 1408, 64) == wide
+    assert DensePlan(1, 64, 4, 4, 1)[1:] not in TILES   # no synchronous loop
+    assert all(stages > 1 for *_, stages in TILES)
 
 
 @pytest.mark.parametrize("m", range(1, 17))
@@ -326,20 +369,69 @@ def test_dense_at_granite_decode_shapes_on_card(cuda, form, n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("k,n", [(784, 120), (150, 16), (2048, 1408),
-                                 (4096, 1024)])
+                                 (4096, 1024), (14336, 4096)])
 @pytest.mark.parametrize("form", FORMS)
 def test_row_bits_independent_of_m_on_card(cuda, form, k, n):
-    """The first 6 rows, bit for bit, at M = 6, 100 and 1024 (three plans
-    for the same weights)."""
+    """The first 6 rows, bit for bit, at M = 6, 100, 128, 256 and 1024 (up
+    to four plans for the same weights; at (14336, 4096) the decode tile,
+    the (64, 4) ring tile at TM 4, 64 x 128 and 128 x 128)."""
     mode = dict(zip(FORMS, MODES))[form]
     big = _operands(1024, k, n, 5, form, cuda)
     first = None
-    for m in (6, 100, 1024):
+    for m in (6, 100, 128, 256, 1024):
         args = [a[:m] if i < 2 else a for i, a in enumerate(big)]
         got = [t[:6] for t in pfp_dense_cuda(*args, mode=mode)]
         if first is None:
             first = got
         assert all(torch.equal(a, b) for a, b in zip(got, first)), m
+
+
+LARGE_RAGGED = ((300, 4100, 1000), (2049, 4096, 1031))
+WIDE_PLANS = (DensePlan(1, 128, 8, 8, 2), DensePlan(1, 128, 8, 4, 2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", LARGE_RAGGED)
+@pytest.mark.parametrize("form", FORMS)
+def test_large_regime_ragged_on_card(cuda, form, shape):
+    """M, K and N off the tile: both wide tiles against the plain version,
+    and bit for bit each other."""
+    m, k, n = shape
+    mode = dict(zip(FORMS, MODES))[form]
+    args = _operands(m, k, n, sum(shape), form, cuda)
+    want = _check_dense(form, args)
+    for plan in WIDE_PLANS:
+        got = pfp_dense_cuda(*args, mode=mode, plan=plan)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 300, 4100, 1000),
+                                   (2, 2049, 1031, 260)])
+@pytest.mark.parametrize("form", FORMS)
+def test_large_regime_batched_rows_on_card(cuda, form, shape):
+    """The batched wide tiles with kept-row counts against the plain
+    version with the same counts, and each expert bit for bit the single
+    dense kernel on its zero-padded rows."""
+    e, c, k, n = shape
+    mode = dict(zip(FORMS, MODES))[form]
+    g = torch.Generator().manual_seed(sum(shape))
+    rows = torch.randint(1, c + 1, (e,), generator=g, dtype=torch.int32)
+    rows[-1] = c
+    args = [a.to(cuda) for a in _batched(e, c, k, n, seed=sum(shape))]
+    keep = (torch.arange(c)[None, :, None] < rows[:, None, None]).to(cuda)
+    args[:2] = [torch.where(keep, a, 0.0) for a in args[:2]]
+    rows = rows.to(cuda)
+    want = _plain(form, args, rows)
+    for plan in WIDE_PLANS:
+        got = pfp_dense_batched_cuda(*args, mode=mode, rows=rows, plan=plan)
+        torch.cuda.synchronize()
+        for gt, w in zip(got, want):
+            torch.testing.assert_close(gt, w, **DENSE_TOL)
+        for ex in range(e):
+            one = pfp_dense_cuda(*(a[ex] for a in args), mode=mode)
+            assert torch.equal(one[0], got[0][ex]), (plan, ex)
+            assert torch.equal(one[1], got[1][ex]), (plan, ex)
 
 
 @pytest.mark.gpu
@@ -395,7 +487,9 @@ def test_batched_rows_on_card(cuda, form, shape):
 def test_plan_not_instantiated_raises_on_card(cuda):
     args = _operands(4, 64, 256, 0, "srm", cuda)
     for plan in (DensePlan(1, 64, 4, 2, 1), DensePlan(2, 64, 4, 1, 1),
-                 DensePlan(9, 128, 4, 1, 4), DensePlan(1, 128, 4, 1, 3)):
+                 DensePlan(9, 128, 4, 1, 4), DensePlan(1, 128, 4, 1, 3),
+                 DensePlan(1, 64, 4, 4, 1), DensePlan(2, 128, 8, 8, 2),
+                 DensePlan(1, 128, 8, 8, 4)):
         with pytest.raises(RuntimeError, match="invalid argument"):
             pfp_dense_cuda(*args, mode=MODE_SRM, plan=plan)
     with pytest.raises(ValueError, match="rows must be int32"):

@@ -17,19 +17,29 @@ and times, with CUDA events around a CUDA graph of ``INNER`` calls
   * the dense kernel at every dense shape of LeNet-5 and the MLP at batch
     100, in its three modes (Eq. 12, Eq. 13, Eq. 7), and at granite-8b's
     decode shapes (4, K, N);
-  * the batched expert kernel at deepseek-moe-16b's forward shape
-    (64, 240, 2048, 1408), Eq. 12 and Eq. 7, and at its decode shape
+  * the batched expert kernel at deepseek-moe-16b's decode shape
     (64, 6, 2048, 1408), with every row of every expert, and (where the
     tree takes ``rows=``) with 24 experts holding one row each, as a
     4-slot top-6 step at most fills;
+  * the large regime, Eq. 12 and Eq. 7: the dense kernel at granite-8b's
+    five forward shapes at M 2048 (4 x 512 tokens) and at its paged
+    prefill's chunks of 128 rows, and the batched kernel at
+    deepseek-moe-16b's two forward shapes (64, 240, 2048, 1408) and
+    (64, 240, 1408, 2048), also with kept-row counts of every row where
+    the tree takes them; each call's outputs are hashed (``digests``),
+    so that two trees can be shown bit for bit equal;
   * LeNet-5 and the MLP forwards (batch 10, 100, 1024) in a CUDA graph,
     and one 4-slot decode step of granite-8b (2 layers) and of
     deepseek-moe-16b (3 layers) at full width, eager, with random
-    weights from a seed (ms per call: CUDA events around 10 calls).
+    weights from a seed: ms per step, the median and the least of
+    ``STEP_BLOCKS`` blocks of 10 steps (CUDA events around each block),
+    and the device-busy ms per step that torch.profiler sees over 10 more.
 
 Each child also reports which fused calls are not bit for bit the
-unfused chain's, and ptxas' register count of every instantiation of the
-norm kernel and the fused kernel (from the build's ``ptxas.log``).
+unfused chain's, and ptxas' register count and spill stores of every
+instantiation of the norm, fused and dense kernels (from the build's
+``ptxas.log``). The parent prints which large-regime digests differ
+between the trees.
 
 Usage, on the card: give the trees in the order to run them, for an A/B
 parent, change, change, parent::
@@ -41,14 +51,17 @@ A tree is a directory holding ``src/repro_torch`` (``git archive <rev>
 src/repro_torch | tar -x -C <dir>``). The rows go to stdout and, in full,
 to ``chiprun_out/ab_kernel_times.json``.
 """
+import hashlib
 import json
-import re
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+from chip_smoke import _profile, ptxas_registers  # noqa: E402
 INNER, REPLAYS = 5, 5
+STEP_BLOCKS = 5   # blocks of 10 eager decode steps, each timed alone
 NORM_SHAPE = (2048, 4096)
 GATE, DECODE = (2048, 4096, 14336), (4, 4096, 14336)
 # (M, K, N) of the paper's dense layers at batch 100.
@@ -59,7 +72,16 @@ LM_DECODE = ((4, 4096, 4096), (4, 4096, 1024), (4, 4096, 14336),
              (4, 14336, 4096), (4, 4096, 49152))
 MOE_FORWARD, MOE_DECODE = (64, 240, 2048, 1408), (64, 6, 2048, 1408)
 MODES = ("srm", "first", "var")
-REG_KERNELS = ("pfp_norm_kernel", "pfp_norm_dense_act_kernel")
+# The large regime: granite-8b's forward (4 x 512 tokens) and paged
+# prefill chunks, (M, K, N); deepseek-moe-16b's expert products at 4 x 512
+# tokens, (E, C, K, N).
+LM_FORWARD = ((2048, 4096, 4096), (2048, 4096, 1024), (2048, 4096, 14336),
+              (2048, 14336, 4096), (2048, 4096, 49152))
+LM_CHUNK = tuple((128, k, n) for _, k, n in LM_FORWARD)
+MOE_LARGE = (MOE_FORWARD, (64, 240, 1408, 2048))
+LARGE_MODES = ("srm", "var")
+REG_KERNELS = ("pfp_norm_kernel", "pfp_norm_dense_act_kernel",
+               "pfp_dense_ring_kernel")
 
 
 def _device_ms(fn):
@@ -87,22 +109,19 @@ def _device_ms(fn):
 
 
 def _registers(ptxas_log):
-    """{kernel: {template arguments: registers}} for REG_KERNELS."""
-    out = {name: {} for name in REG_KERNELS}
-    entry = None
-    for line in ptxas_log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            entry = m.group(1)
-            continue
-        m = re.search(r"Used (\d+) registers", line)
-        if m and entry:
-            for name in REG_KERNELS:
-                hit = re.search(name + r"I(.*)EEv", entry)
-                if hit:
-                    out[name][hit.group(1)] = int(m.group(1))
-            entry = None
-    return out
+    """{kernel: {template arguments: registers, or [registers, spill
+    store bytes] where it spills}} for REG_KERNELS."""
+    return {name: {args: [regs, spill] if spill else regs
+                   for args, (regs, spill) in
+                   ptxas_registers(ptxas_log, name).items()}
+            for name in REG_KERNELS}
+
+
+def _digest(tensors):
+    h = hashlib.blake2b(digest_size=8)
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def _dense(ops, mode, *args):
@@ -130,14 +149,6 @@ def _small_regime(ops, draw):
         rows[f"dense srm {(m, k, n)}"] = _device_ms(
             lambda: ops.pfp_dense(xa, xb, wa, wb))
     del xa, xb, wa, wb
-    e, c, k, n = MOE_FORWARD
-    xa, xb = draw(e, c, k), draw(e, c, k).abs()
-    wa, wb = draw(e, k, n, scale=0.1), draw(e, k, n, scale=0.1).abs()
-    rows[f"dense_batched {MOE_FORWARD}"] = _device_ms(
-        lambda: ops.pfp_dense_batched(xa, xb, wa, wb))
-    rows[f"dense_batched_var {MOE_FORWARD}"] = _device_ms(
-        lambda: ops.pfp_dense_batched_var(xa, xb, wa, wb))
-    del xa, xb, wa, wb
     e, c, k, n = MOE_DECODE
     xa, xb = draw(e, c, k), draw(e, c, k).abs()
     wa, wb = draw(e, k, n, scale=0.1), draw(e, k, n, scale=0.1).abs()
@@ -152,6 +163,46 @@ def _small_regime(ops, draw):
         rows[f"dense_batched {MOE_DECODE} 24 experts"] = _device_ms(
             lambda: ops.pfp_dense_batched(xa, xb, wa, wb, rows=held))
     return rows
+
+
+def _large_regime(ops, dev):
+    """The large regime's calls in Eq. 12 and Eq. 7: (times, digests).
+    Operands come from a generator seeded by the shape, so every tree sees
+    the same ones. Where the tree takes kept-row counts, the batched
+    calls are also timed with every row kept."""
+    import inspect
+
+    import torch
+    rows, digests = {}, {}
+    for shape in LM_FORWARD + LM_CHUNK + MOE_LARGE:
+        g = torch.Generator(device=dev).manual_seed(sum(shape))
+        *lead, k, n = shape
+
+        def draw(*dims, scale=1.0):
+            return scale * torch.randn(dims, generator=g, device=dev)
+
+        xa, xb = draw(*lead, k), draw(*lead, k).abs()
+        wa = draw(*lead[:-1], k, n, scale=0.1)
+        wb = draw(*lead[:-1], k, n, scale=0.1).abs()
+        for mode in LARGE_MODES:
+            if len(shape) == 4:
+                fn = (ops.pfp_dense_batched_var if mode == "var"
+                      else ops.pfp_dense_batched)
+            else:
+                fn = ops.pfp_dense_var if mode == "var" else ops.pfp_dense
+            name = f"large {mode} {shape}"
+            rows[name] = _device_ms(lambda: fn(xa, xb, wa, wb))
+            digests[name] = _digest(fn(xa, xb, wa, wb))
+            if len(shape) == 4 and "rows" in inspect.signature(
+                    fn).parameters:
+                # Every row kept: what reading the counts costs.
+                full = torch.full(lead[:1], lead[1], dtype=torch.int32,
+                                  device=dev)
+                rows[name + " rows"] = _device_ms(
+                    lambda: fn(xa, xb, wa, wb, rows=full))
+        del xa, xb, wa, wb
+        torch.cuda.empty_cache()
+    return rows, digests
 
 
 def _forwards(dev):
@@ -188,18 +239,26 @@ def _forwards(dev):
         inputs = {"tokens": np.asarray([[11], [257], [1031], [4099]]),
                   "positions": pos[:, None], "cache_len": pos + 1}
         states = lm.init_decode_state(cfg, 4, 1024, device=dev)
+        step = lambda: lm.decode_step(model, cfg, inputs, states,  # noqa
+                                      ctx)
         for _ in range(2):
-            lm.decode_step(model, cfg, inputs, states, ctx)
+            step()
         torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(10):
-            lm.decode_step(model, cfg, inputs, states, ctx)
-        end.record()
-        end.synchronize()
-        rows[f"decode step {arch} ({layers} layers, 4 slots)"] = \
-            start.elapsed_time(end) / 10
+        blocks = []
+        for _ in range(STEP_BLOCKS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(10):
+                step()
+            end.record()
+            end.synchronize()
+            blocks.append(start.elapsed_time(end) / 10)
+        name = f"decode step {arch} ({layers} layers, 4 slots)"
+        rows[name] = sorted(blocks)[STEP_BLOCKS // 2]
+        rows[f"{name} min"] = min(blocks)
+        busy = _profile(name, step, reps=10, warmup=1)
+        rows[f"{name} device busy"] = busy["busy_ms"] if busy else 0.0
         del model, states
         torch.cuda.empty_cache()
     return rows
@@ -249,10 +308,12 @@ def child(tree):
     del mu, var, srm, wm, ws
     rows.update(_small_regime(ops, draw))
     torch.cuda.empty_cache()
+    large, digests = _large_regime(ops, dev)
+    rows.update(large)
     rows.update(_forwards(dev))
     log = (Path(_build.BUILD_INFO["directory"]) / "ptxas.log").read_text()
     print(json.dumps({"tree": tree, "ms": rows, "differ_from_chain": differ,
-                      "registers": _registers(log),
+                      "digests": digests, "registers": _registers(log),
                       "build_s": _build.BUILD_INFO["seconds"]}))
 
 
@@ -274,7 +335,7 @@ def main(trees):
                   f"{out.stderr[-4000:]}", file=sys.stderr)
             failed += 1
             runs.append({"tree": tree, "ms": {}, "registers": {},
-                         "build_s": None, "failed": True})
+                         "digests": {}, "build_s": None, "failed": True})
             continue
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
     print(f"card: {card.strip()}")
@@ -290,6 +351,12 @@ def main(trees):
             print(f"{r['tree']}: build {r['build_s']:.1f} s; not bit for "
                   f"bit the unfused chain: {r['differ_from_chain'] or 'none'}"
                   f"; registers {json.dumps(r['registers'])}")
+    done = [r["digests"] for r in runs if not r.get("failed")]
+    differ = sorted(n for n in done[0] if len({d.get(n) for d in done}) > 1
+                    ) if done else []
+    print(f"large-regime digests ({len(done[0]) if done else 0} calls): "
+          + (f"differ between trees at {differ}" if differ
+             else "equal in every tree"))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "ab_kernel_times.json").write_text(json.dumps(

@@ -10,10 +10,16 @@ from. For each shape it times the plan the rule picks and its rivals:
     holds all of N;
   * granite-8b's decode shapes (4, K, N) and deepseek-moe-16b's expert
     shapes at a 4-slot step (E 64, C 6): every instantiated ring tile with
-    one row per thread whose thread rows cover M.
+    one row per thread whose thread rows cover M;
+  * the large regime, Eq. 12 and Eq. 7: granite-8b's forward shapes at
+    M 2048 (4 x 512 tokens) and its paged prefill's chunks of 128 rows,
+    and deepseek-moe-16b's expert shapes at 4 x 512 tokens (E 64, C 240):
+    every wide tile (tn 8) and, as rivals with more blocks, the
+    interleaved (64, 4) ring tiles at TM 1 and 4.
 
-Each time is the median of 5 replays of a CUDA graph of 10 calls, between
-CUDA events, operands hot in L2 where they fit. Usage, on the card::
+Each time is the median of 5 replays of a CUDA graph of 10 calls (of 2
+replays of 2 calls above 1e11 operations), between CUDA events, operands
+hot in L2 where they fit. Usage, on the card::
 
     python3 tools/dense_plan_sweep.py
 
@@ -28,25 +34,25 @@ ROOT = Path(__file__).resolve().parent.parent
 INNER, REPLAYS = 10, 5
 
 
-def device_ms(fn):
+def device_ms(fn, inner=INNER, replays=REPLAYS):
     import torch
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(INNER):
+        for _ in range(inner):
             fn()
     graph.replay()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPLAYS):
+    for _ in range(replays):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / INNER)
+        times.append(start.elapsed_time(end) / inner)
     return sorted(times)[len(times) // 2]
 
 
@@ -66,10 +72,11 @@ def main():
 
     rows = []
 
-    def run(label, shape, mode, plans, launch):
+    def run(label, shape, mode, plans, launch, big=False):
         chosen = pd.dense_plan(*shape, mode=mode)
         for plan in dict.fromkeys([chosen] + plans):
-            ms = device_ms(lambda: launch(plan))
+            ms = (device_ms(lambda: launch(plan), 2, 2) if big
+                  else device_ms(lambda: launch(plan)))
             rows.append({"shape": label, "mode": mode, "plan": list(plan),
                          "chosen": plan == chosen, "ms": ms})
             print(f"{label:28s} mode {mode} {str(tuple(plan)):22s} "
@@ -108,6 +115,27 @@ def main():
                 xa, xb, wa, wb, mode=0, plan=p))
         run(str((e, m, k, n)), (m, n, k, e), 0, plans, launch)
         del xa, xb, wa, wb
+    large = [(1, m, k, n) for m in (2048, 128)
+             for k, n in ((4096, 4096), (4096, 1024), (4096, 14336),
+                          (14336, 4096), (4096, 49152))]
+    large += [(64, 240, 2048, 1408), (64, 240, 1408, 2048)]
+    plans = [pd.DensePlan(1, bn, tn, tm, st) for bn, tn, tm, st in pd.TILES
+             if tn == 8]
+    plans += [pd.DensePlan(1, 64, 4, tm, pd.RING_STAGES) for tm in (4, 1)]
+    for e, m, k, n in large:
+        xa, xb = draw(e, m, k), draw(e, m, k).abs()
+        wa, wb = draw(e, k, n, scale=0.1), draw(e, k, n, scale=0.1).abs()
+        big = 6 * e * m * k * n > 1e11
+        for mode in (0, 2):
+            if e == 1:
+                launch = (lambda p: pd.pfp_dense_cuda(
+                    xa[0], xb[0], wa[0], wb[0], mode=mode, plan=p))
+            else:
+                launch = (lambda p: pfp_dense_batched_cuda(
+                    xa, xb, wa, wb, mode=mode, plan=p))
+            run(str((e, m, k, n)), (m, n, k, e), mode, plans, launch, big)
+        del xa, xb, wa, wb
+        torch.cuda.empty_cache()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
