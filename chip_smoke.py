@@ -15,7 +15,11 @@ Phases, each printing its own lines; any failure exits non-zero:
               offset by 100, both against fp64; a dense row's bits
               independent of M (M 6, 100, 1024: three plans); the batched
               kernel with kept-row counts (skipped rows +0, the rest bit
-              for bit the kernel without them)
+              for bit the kernel without them); the cache kernels' bit
+              contract: the rows of one slot from one 512-row call come
+              out bit for bit in chunks of 128 and at Tq 1 in a batch of
+              4, through shuffled pages of 16 rows and under every
+              cluster size (kernels/pfp_attention.py attention_plan)
   4. serving: LeNet-5 and MLP at full width (random weights from a seed,
               sigma_init 1e-3, converted with calibration factor 0.4) answer
               Dirty-MNIST batches of 100 per split with impl="kernel"; the
@@ -46,7 +50,8 @@ Phases, each printing its own lines; any failure exits non-zero:
   7. times  : device times (CUDA graph replays between CUDA events) of
               each kernel at batch 10, 100 and 1024 and at the LM's shapes
               (the dense kernel also at a 4-slot decode step's shapes, the
-              cache kernels at a decode and a prefill shape), beside its
+              cache kernels at granite-8b's and deepseek-moe-16b's decode
+              and at a prefill shape, each with a [plan] line), beside its
               plain version, a one-call PyTorch yardstick and its bound,
               plus its time per eager call and each dense call's plan;
               whole-model forwards, eager and captured in a CUDA graph
@@ -152,6 +157,9 @@ CACHE_DECODE = (4, 32, 8, 1, 1024, 128, (0, 340, 681, 1023),
                 (1, 341, 682, 1024), None)
 CACHE_PREFILL = (4, 32, 8, 512, 1024, 128, (0, 256, 0, 256),
                  (512, 768, 512, 768), None)
+# deepseek-moe-16b's decode: 16 query heads over 16 KV heads (G 1).
+CACHE_DECODE_MOE = (4, 16, 16, 1, 1024, 128, (0, 340, 681, 1023),
+                    (1, 341, 682, 1024), None)
 CACHE_CHECKS = {
     "decode": CACHE_DECODE,
     "prefill chunk": CACHE_PREFILL,
@@ -160,6 +168,7 @@ CACHE_CHECKS = {
     "kv_len 0": (4, 32, 8, 1, 1024, 128, (0, 10, 0, 500), (0, 11, 0, 501),
                  None),
     "head_dim 16": (2, 4, 2, 7, 100, 16, (0, 50), (7, 57), None),
+    "decode-moe": CACHE_DECODE_MOE,
 }
 CHECK_PAGE_SIZES = (1, 16, 24)
 # The MoE phase: deepseek-moe-16b at full width, cut to MOE_LAYERS layers
@@ -332,6 +341,22 @@ def lm_chunk_calls(cfg):
     PREFILL_CHUNK tokens (one prompt): (M, K, N)."""
     return [(PREFILL_CHUNK, *shape[1:]) for kernel, shape in lm_path_calls(cfg)
             if kernel == "dense"]
+
+
+def attention_plan_line(label, kernel, shape):
+    """Print the cache kernel's launch plan at ``shape``; return it."""
+    from repro_torch.kernels.pfp_attention import (SEGMENT, attention_plan,
+                                                   plan_blocks, segments)
+    b, h, hkv, tq, s, d = shape[:6]
+    cap = s if kernel == "attention_cache" else -(-s // shape[9]) * shape[9]
+    plan = attention_plan(b, h, hkv, tq, cap, d)
+    fold = ("partials folded by rank 0 over distributed shared memory"
+            if plan.cluster > 1 else "segments folded in turn by the block")
+    print(f"[plan] {kernel} B={label}: segment {SEGMENT} keys, "
+          f"{segments(cap)} segments of {cap} keys, block rows "
+          f"{plan.block_rows}, cluster {plan.cluster}, "
+          f"{plan_blocks(plan, b, h, hkv, tq)} blocks, {fold}")
+    return list(plan)
 
 
 def dense_plan_of(kernel, shape):
@@ -852,6 +877,7 @@ def phase_kernels(device):
     m_independence_check(device)
     lm_kernel_checks(device, errs)
     cache_kernel_checks(device, errs)
+    bit_contract_check(device)
     layernorm_offset_check(device)
     moe_kernel_checks(device, errs)
     return errs
@@ -1012,6 +1038,60 @@ def cache_kernel_checks(device, errs):
                      f"cache kernel on the same keys")
             print(f"[kernels] attention_paged    {label + f', ps {ps}':44s} "
                   f"max_abs_err {perr:.3e}, bitwise the cache kernel's")
+
+
+def bit_contract_check(device):
+    """The cache kernels' rows depend on their own query and keys only
+    (csrc/pfp_attention.cu: segments of fixed keys, one left fold). One
+    slot at granite-8b's widths (32 / 8 heads of 128, 1024 keys): its rows
+    at positions 300-811 from one Tq 512 call against the same rows in
+    chunks of 128 rows and at Tq 1 (positions 300, 427, 428, 811) as slot
+    0 of a 4-slot batch, under every cluster size of the decode block
+    (plan=) and through shuffled pages of 16 rows; all torch.equal."""
+    import torch
+    from repro_torch.kernels.pfp_attention import (MAX_CLUSTER,
+                                                   pfp_attention_cache_cuda,
+                                                   pfp_attention_paged_cuda)
+    _, h, hkv, _, s, d = CACHE_DECODE[:6]
+    n0, n = 300, 512
+    g = torch.Generator().manual_seed(800)
+    q_all = torch.randn((h, n0 + n, d), generator=g).to(device)
+    caches = [torch.randn((4, hkv, s, d), generator=g).to(device)
+              for _ in range(3)]
+    caches[2] = caches[2].abs()
+
+    def run(q_start, tq, b=1, ps=None, plan=None):
+        q = torch.randn((b, h, tq, d), generator=g).to(device)
+        q[0] = q_all[:, q_start:q_start + tq]
+        lens = [q_start + tq] + [500] * (b - 1)
+        ints = [torch.tensor(v, dtype=torch.int32, device=device)
+                for v in ([q_start] + [100] * (b - 1), lens)]
+        kv = [c[:b] for c in caches]
+        if ps is None:
+            mu, var = pfp_attention_cache_cuda(q, *kv, *ints, scale=d ** -0.5,
+                                               plan=plan)
+        else:
+            pools, table = paged_from_cache(kv, lens, ps, 801, device)
+            mu, var = pfp_attention_paged_cuda(q, *pools, table, *ints,
+                                               scale=d ** -0.5, plan=plan)
+        return mu[0], var[0]
+
+    whole = run(n0, n)
+    runs = [(n0 + 128 * c, 128, 1, None, None) for c in range(n // 128)]
+    for pos in (n0, n0 + 127, n0 + 128, n0 + n - 1):
+        runs += [(pos, 1, 4, None, (8, c)) for c in range(1, MAX_CLUSTER + 1)]
+        runs.append((pos, 1, 4, PAGE_SIZE, None))
+    for q_start, tq, b, ps, plan in runs:
+        got = run(q_start, tq, b, ps, plan)
+        rows = slice(q_start - n0, q_start - n0 + tq)
+        if not all(torch.equal(x, w[:, rows]) for x, w in zip(got, whole)):
+            fail(f"bit contract: rows {q_start}..{q_start + tq - 1} (Tq "
+                 f"{tq}, B {b}, pages {ps}, plan {plan}) differ from the "
+                 f"Tq {n} call's")
+    torch.cuda.synchronize()
+    print(f"[kernels] bit contract: {len(runs) + 1} calls, every row of "
+          f"the slot bit for bit (Tq 512 / 128 / 1, B 1 / 4, clusters "
+          f"1-{MAX_CLUSTER}, pages of {PAGE_SIZE})")
 
 
 def layernorm_offset_check(device):
@@ -1914,6 +1994,8 @@ def _time_row(label, kernel, shape, device, inner=10, replays=5,
     plan = dense_plan_of(kernel, shape)
     if plan is not None:
         row["plan"] = list(plan)
+    if kernel in CACHE_KERNELS:
+        row["attention_plan"] = attention_plan_line(label, kernel, shape)
     if rows is not None:
         row["rows"] = list(rows)
     lib_s = "-" if lib is None else f"{row['library_ms']:.4f}"
@@ -1956,6 +2038,12 @@ def phase_times(device, lm_cfg, lm_model):
         rows.append(_time_row("lm", kernel, shape, device,
                               inner=2 if big else 10, replays=2 if big else 5,
                               call_iters=3 if big else 30))
+    # Row 2 (Eq. 7) at the LM's dense shapes: on no path of these models,
+    # timed for its plain version and library call beside the kernel.
+    for shape in dict.fromkeys(s for k, s in lm_path_calls(lm_cfg)
+                               if k == "dense"):
+        rows.append(_time_row("lm", "dense_var", shape, device, inner=2,
+                              replays=2, call_iters=3))
     for shape in dict.fromkeys(lm_decode_calls(lm_cfg)):
         rows.append(_time_row("lm-decode", "dense", shape, device))
     for shape in dict.fromkeys(lm_chunk_calls(lm_cfg)):
@@ -1963,6 +2051,7 @@ def phase_times(device, lm_cfg, lm_model):
     for kernel in CACHE_KERNELS:
         paged = (PAGE_SIZE,) if kernel == "attention_paged" else ()
         for label, shape in (("decode", CACHE_DECODE),
+                             ("decode-moe", CACHE_DECODE_MOE),
                              ("prefill", CACHE_PREFILL)):
             rows.append(_time_row(label, kernel, shape + paged, device))
     models = _models(device)
@@ -2419,10 +2508,12 @@ def moe_path_calls(cfg, shapes):
 def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg):
     """Per kernel: for the CNN path's kernels, its calls at batch 100,
     times and bounds summed over one LeNet-5 and one MLP forward (Eq. 12
-    forwards; Eq. 7 for dense_var); for the LM's norm, GLU and attention,
+    forwards; Eq. 7 for dense_var), with one LM forward's dense calls
+    beside (for dense_var in Eq. 7); for the LM's norm, GLU and attention,
     its calls in one LM forward (layernorm, on no path: one call at the
     LM's norm shape); for the cache kernels, their calls in one decode
-    step at CACHE_DECODE, with one call at CACHE_PREFILL beside; for the
+    step at CACHE_DECODE, with one deepseek-moe-16b decode step's calls
+    (CACHE_DECODE_MOE) and one call at CACHE_PREFILL beside; for the
     batched expert kernels, their calls in one MoE forward of 4 x 512
     tokens (dense_batched_first_layer, on no path: one call at the expert
     up shape), with one MoE decode step's calls beside; for the fused
@@ -2488,6 +2579,8 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg):
             # One decode step: one call per layer at the decode shape; the
             # prefill shape beside it.
             calls = [cache[(kernel, "decode")]] * lm_cfg.num_layers
+            extra["decode_step_deepseek"] = summed(
+                kernel, [cache[(kernel, "decode-moe")]] * moe_cfg.num_layers)
             pre = cache[(kernel, "prefill")]
             extra["prefill_per_call"] = {
                 k: pre[k] for k in ("shape", "ms", "plain_ms", "library_ms",
@@ -2505,6 +2598,11 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg):
                     kernel, [dec[s] for s in lm_decode_calls(lm_cfg)])
                 extra["prefill_chunk"] = summed(
                     kernel, [chunk[s] for s in lm_chunk_calls(lm_cfg)])
+            if kernel == "dense_var":
+                # Beside: one LM forward's dense calls in Eq. 7.
+                extra["lm_forward"] = summed(kernel, [
+                    lmr[(kernel, s)] for k, s in lm_path_calls(lm_cfg)
+                    if k == "dense"])
         elif kernel == "layernorm":
             calls = [lmr[(kernel, (LM_BATCH * LM_SEQ, lm_cfg.d_model))]]
         else:

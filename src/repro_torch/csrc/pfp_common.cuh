@@ -1,5 +1,6 @@
-// Shared by the port's CUDA sources: the C interface they export and the
-// fp32 constants of the moment formulas (repro_torch/core/pfp_math.py).
+// Shared by the port's CUDA sources: the C interface they export, the fp32
+// constants of the moment formulas (repro_torch/core/pfp_math.py) and the
+// cp.async copies of the kernels' rings.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,6 +34,32 @@ cudaError_t allow_smem(Kernel kernel, int bytes,
                              bytes);
   if (err == cudaSuccess && dev < kMaxDevices) raised[dev] = true;
   return err;
+}
+
+// cp.async: a 16-byte (or 4-byte) copy from global to shared memory that
+// zero-fills the destination when !ok; commit closes a group of copies and
+// wait<N> waits until at most N groups are in flight.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace pfp

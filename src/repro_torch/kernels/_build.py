@@ -47,7 +47,9 @@ _SIGNATURES = {
     "pfp_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _F, _I, _P],
     "pfp_attention_kv_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+                                _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                                _I, _P],
+    "pfp_attention_kv_block": [_I, _I, _I, _P, _P],
 }
 
 

@@ -28,6 +28,15 @@ and times, with CUDA events around a CUDA graph of ``INNER`` calls
     (64, 240, 1408, 2048), also with kept-row counts of every row where
     the tree takes them; each call's outputs are hashed (``digests``),
     so that two trees can be shown bit for bit equal;
+  * rows 10 and 11, the cache and the paged attention kernel (pages of 16
+    rows), at granite-8b's and deepseek-moe-16b's 4-slot decode (kv_len
+    1 / 341 / 682 / 1024 of 1024), one slot and 32 slots at 1024, a
+    4 x 512 prefill (q_start 0 / 256 / 0 / 256) and a 128-row chunk of one
+    slot at q_start 384; each hot (the same operands every call) and
+    L2-cold (a graph that cycles through ``COLD_COPIES`` or more copies of
+    the operands, over ``COLD_BYTES`` in all), with the plan where the
+    tree has one, and row 9 (no cache) at granite's prefill; each call's
+    outputs are hashed into the digests;
   * LeNet-5 and the MLP forwards (batch 10, 100, 1024) in a CUDA graph,
     and one 4-slot decode step of granite-8b (2 layers) and of
     deepseek-moe-16b (3 layers) at full width, eager, with random
@@ -47,9 +56,12 @@ parent, change, change, parent::
     python3 tools/ab_kernel_times.py build/ab/parent build/ab/change \\
         build/ab/change build/ab/parent
 
+``--only attention`` times rows 9-11 and the two decode steps alone.
+
 A tree is a directory holding ``src/repro_torch`` (``git archive <rev>
 src/repro_torch | tar -x -C <dir>``). The rows go to stdout and, in full,
-to ``chiprun_out/ab_kernel_times.json``.
+to ``chiprun_out/ab_kernel_times.json``; the digests that differ between
+trees are listed last.
 """
 import hashlib
 import json
@@ -81,7 +93,23 @@ LM_CHUNK = tuple((128, k, n) for _, k, n in LM_FORWARD)
 MOE_LARGE = (MOE_FORWARD, (64, 240, 1408, 2048))
 LARGE_MODES = ("srm", "var")
 REG_KERNELS = ("pfp_norm_kernel", "pfp_norm_dense_act_kernel",
-               "pfp_dense_ring_kernel")
+               "pfp_dense_ring_kernel", "pfp_attention_kv_kernel")
+# Rows 10 and 11: (B, H, Hkv, Tq, S, D, q_start, kv_len) by name.
+DECODE_STARTS, DECODE_LENS = (0, 340, 681, 1023), (1, 341, 682, 1024)
+ATTENTION = {
+    "granite decode": (4, 32, 8, 1, 1024, 128, DECODE_STARTS, DECODE_LENS),
+    "deepseek decode": (4, 16, 16, 1, 1024, 128, DECODE_STARTS,
+                        DECODE_LENS),
+    "granite 1 slot": (1, 32, 8, 1, 1024, 128, (1023,), (1024,)),
+    "granite 32 slots": (32, 32, 8, 1, 1024, 128, (1023,) * 32,
+                         (1024,) * 32),
+    "granite prefill": (4, 32, 8, 512, 1024, 128, (0, 256, 0, 256),
+                        (512, 768, 512, 768)),
+    "granite chunk": (1, 32, 8, 128, 1024, 128, (384,), (512,)),
+}
+PAGE = 16
+COLD_COPIES, COLD_BYTES = 4, 100e6
+ROW9 = (4, 32, 8, 512, 128)   # (B, H, Hkv, T, D), causal
 
 
 def _device_ms(fn):
@@ -205,8 +233,104 @@ def _large_regime(ops, dev):
     return rows, digests
 
 
-def _forwards(dev):
-    """CNN forwards in a CUDA graph; LM decode steps, eager."""
+def _attention(ops, dev):
+    """Rows 9-11: (times, digests, plans). Rows 10 and 11 hot and L2-cold;
+    operands from a generator seeded by the shape's name, so every tree
+    sees the same ones."""
+    import torch
+    rows, digests, plans = {}, {}, {}
+    try:
+        from repro_torch.kernels.pfp_attention import attention_plan
+    except ImportError:   # a tree from before the plan
+        attention_plan = None
+    for name, (b, h, hkv, tq, s, d, starts, lens) in ATTENTION.items():
+        g = torch.Generator(device=dev).manual_seed(len(name) * 1000 + b)
+
+        def draw(*dims):
+            return torch.randn(dims, generator=g, device=dev)
+
+        def operands():
+            q = draw(b, h, tq, d)
+            k, vm = draw(b, hkv, s, d), draw(b, hkv, s, d)
+            vv = draw(b, hkv, s, d).abs()
+            ints = [torch.tensor(v, dtype=torch.int32, device=dev)
+                    for v in (starts, lens)]
+            # The same rows in pages of PAGE, the pool's pages in reverse:
+            # logical page j of slot i at pool row b * p - 1 - (i * p + j).
+            p = s // PAGE
+            table = (b * p - 1 - torch.arange(b * p, device=dev,
+                                              dtype=torch.int32)).view(b, p)
+            pools = [c.view(b, hkv, p, PAGE, d).transpose(1, 2)
+                     .reshape(b * p, hkv, PAGE, d).flip(0).contiguous()
+                     for c in (k, vm, vv)]
+            return (q, k, vm, vv, *ints), (q, *pools, table, *ints)
+
+        cache_args, paged_args = operands()
+        nbytes = 3 * 4 * b * hkv * s * d
+        copies = max(COLD_COPIES, int(COLD_BYTES // nbytes) + 1)
+        cold = [operands() for _ in range(copies - 1)]
+        scale = d ** -0.5
+        calls = {
+            "attention_cache": lambda a: ops.pfp_attention_cache(
+                *a, scale=scale),
+            "attention_paged": lambda a: ops.pfp_attention_paged(
+                *a, scale=scale),
+        }
+        for kernel, fn in calls.items():
+            args = cache_args if kernel == "attention_cache" else paged_args
+            sets = [args] + [c[0] if kernel == "attention_cache" else c[1]
+                             for c in cold]
+            label = f"{kernel} {name}"
+            rows[f"{label} hot"] = _device_ms(lambda: fn(args))
+            rows[f"{label} cold"] = _cold_ms(fn, sets)
+            digests[label] = _digest(fn(args))
+            if attention_plan is not None:
+                plan = attention_plan(b, h, hkv, tq, s, d)
+                plans[label] = list(plan)
+        del cache_args, paged_args, cold
+        torch.cuda.empty_cache()
+    b, h, hkv, t, d = ROW9
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn((b, h, t, d), generator=g, device=dev)
+    k, vm = (torch.randn((b, hkv, t, d), generator=g, device=dev)
+             for _ in range(2))
+    vv = torch.randn((b, hkv, t, d), generator=g, device=dev).abs()
+    rows[f"attention {ROW9}"] = _device_ms(
+        lambda: ops.pfp_attention(q, k, vm, vv, scale=d ** -0.5))
+    digests[f"attention {ROW9}"] = _digest(
+        ops.pfp_attention(q, k, vm, vv, scale=d ** -0.5))
+    return rows, digests, plans
+
+
+def _cold_ms(fn, sets):
+    """Median ms per call over REPLAYS replays of a CUDA graph that calls
+    ``fn`` once on each operand set in turn: each call finds its operands
+    out of L2, which the other sets have flushed."""
+    import torch
+    for a in sets:
+        fn(a)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for a in sets:
+            fn(a)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPLAYS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / len(sets))
+    return sorted(times)[len(times) // 2]
+
+
+def _forwards(dev, cnn=True):
+    """CNN forwards in a CUDA graph (with ``cnn``); LM decode steps,
+    eager."""
     import dataclasses
 
     import numpy as np
@@ -219,7 +343,7 @@ def _forwards(dev):
     from repro_torch.nn.module import Context
     ctx = Context(mode=Mode.PFP, impl="kernel", device=dev)
     rows = {}
-    for name, cls in (("lenet5", LeNet5), ("mlp", MLP)):
+    for name, cls in (("lenet5", LeNet5), ("mlp", MLP)) if cnn else ():
         model = svi_to_pfp(cls(sigma_init=1e-3, device=dev,
                                generator=torch.Generator().manual_seed(0)),
                            calibration_factor=0.4)
@@ -264,7 +388,7 @@ def _forwards(dev):
     return rows
 
 
-def child(tree):
+def child(tree, only=None):
     import torch
     sys.path.insert(0, str(Path(tree).resolve() / "src"))
     import repro_torch  # noqa: F401  (IEEE fp32 for cuBLAS)
@@ -276,49 +400,61 @@ def child(tree):
     def draw(*shape, scale=1.0):
         return scale * torch.randn(shape, generator=g, device=dev)
 
-    rows, differ = {}, []
-    m, d = NORM_SHAPE
-    mu, var = draw(m, d), draw(m, d).abs()
-    gain = 1.0 + 0.1 * draw(d)
-    rows["rmsnorm (2048, 4096)"] = _device_ms(
-        lambda: ops.pfp_rmsnorm(mu, var, gain, rep="var"))
-    wm = draw(GATE[1], GATE[2], scale=0.1)
-    ws = draw(GATE[1], GATE[2], scale=0.1).abs() + wm * wm
-    srm = var + mu * mu
-    rows[f"dense {GATE}"] = _device_ms(lambda: ops.pfp_dense(mu, srm, wm, ws))
-    if hasattr(ops, "pfp_norm_dense_act"):
-        from repro_torch.kernels.pfp_fused import TILES
-        from repro_torch.tuning.measure import unfused_chain
-        from repro_torch.tuning.schedules import Schedule
-        for shape in (GATE, DECODE):
-            x_mu, x_var = mu[:shape[0]], var[:shape[0]]
-            args = (x_mu, x_var, gain, None, wm, ws)
-            rows[f"unfused chain {shape}"] = _device_ms(
-                lambda: unfused_chain(*args))
-            chain = unfused_chain(*args)
-            for bm, bn in TILES:
-                sched = Schedule.make("norm_dense_act", block_m=bm,
-                                      block_n=bn)
-                name = f"norm_dense_act {shape} ({bm}, {bn})"
-                rows[name] = _device_ms(
-                    lambda: ops.pfp_norm_dense_act(*args, schedule=sched))
-                got = ops.pfp_norm_dense_act(*args, schedule=sched)
-                if not all(torch.equal(x, y) for x, y in zip(got, chain)):
-                    differ.append(name)
-    del mu, var, srm, wm, ws
-    rows.update(_small_regime(ops, draw))
+    rows, differ, digests = {}, [], {}
+    if only is None:
+        m, d = NORM_SHAPE
+        mu, var = draw(m, d), draw(m, d).abs()
+        gain = 1.0 + 0.1 * draw(d)
+        rows["rmsnorm (2048, 4096)"] = _device_ms(
+            lambda: ops.pfp_rmsnorm(mu, var, gain, rep="var"))
+        wm = draw(GATE[1], GATE[2], scale=0.1)
+        ws = draw(GATE[1], GATE[2], scale=0.1).abs() + wm * wm
+        srm = var + mu * mu
+        rows[f"dense {GATE}"] = _device_ms(
+            lambda: ops.pfp_dense(mu, srm, wm, ws))
+        if hasattr(ops, "pfp_norm_dense_act"):
+            from repro_torch.kernels.pfp_fused import TILES
+            from repro_torch.tuning.measure import unfused_chain
+            from repro_torch.tuning.schedules import Schedule
+            for shape in (GATE, DECODE):
+                x_mu, x_var = mu[:shape[0]], var[:shape[0]]
+                args = (x_mu, x_var, gain, None, wm, ws)
+                rows[f"unfused chain {shape}"] = _device_ms(
+                    lambda: unfused_chain(*args))
+                chain = unfused_chain(*args)
+                for bm, bn in TILES:
+                    sched = Schedule.make("norm_dense_act", block_m=bm,
+                                          block_n=bn)
+                    name = f"norm_dense_act {shape} ({bm}, {bn})"
+                    rows[name] = _device_ms(
+                        lambda: ops.pfp_norm_dense_act(*args,
+                                                       schedule=sched))
+                    got = ops.pfp_norm_dense_act(*args, schedule=sched)
+                    if not all(torch.equal(x, y) for x, y in zip(got, chain)):
+                        differ.append(name)
+        del mu, var, srm, wm, ws
+        rows.update(_small_regime(ops, draw))
+        torch.cuda.empty_cache()
+        large, digests = _large_regime(ops, dev)
+        rows.update(large)
+    att, att_digests, plans = _attention(ops, dev)
+    rows.update(att)
+    digests.update(att_digests)
     torch.cuda.empty_cache()
-    large, digests = _large_regime(ops, dev)
-    rows.update(large)
-    rows.update(_forwards(dev))
+    rows.update(_forwards(dev, cnn=only is None))
     log = (Path(_build.BUILD_INFO["directory"]) / "ptxas.log").read_text()
     print(json.dumps({"tree": tree, "ms": rows, "differ_from_chain": differ,
-                      "digests": digests, "registers": _registers(log),
+                      "digests": digests, "plans": plans,
+                      "registers": _registers(log),
                       "build_s": _build.BUILD_INFO["seconds"]}))
 
 
-def main(trees):
+def main(argv):
     import torch
+    only = None
+    if argv[:1] == ["--only"]:
+        only, argv = argv[1], argv[2:]
+    trees = argv
     if not trees or not torch.cuda.is_available():
         print("ab_kernel_times: give tree directories, on a CUDA card",
               file=sys.stderr)
@@ -328,14 +464,16 @@ def main(trees):
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     runs, failed = [], 0
     for tree in trees:
-        out = subprocess.run([sys.executable, __file__, "--child", tree],
+        out = subprocess.run([sys.executable, __file__, "--child", tree]
+                             + ([only] if only else []),
                              capture_output=True, text=True)
         if out.returncode != 0:   # a tree that does not build or run
             print(f"{tree}: failed\n{out.stdout[-4000:]}"
                   f"{out.stderr[-4000:]}", file=sys.stderr)
             failed += 1
             runs.append({"tree": tree, "ms": {}, "registers": {},
-                         "digests": {}, "build_s": None, "failed": True})
+                         "digests": {}, "plans": {}, "build_s": None,
+                         "failed": True})
             continue
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
     print(f"card: {card.strip()}")
@@ -354,7 +492,10 @@ def main(trees):
     done = [r["digests"] for r in runs if not r.get("failed")]
     differ = sorted(n for n in done[0] if len({d.get(n) for d in done}) > 1
                     ) if done else []
-    print(f"large-regime digests ({len(done[0]) if done else 0} calls): "
+    for r in runs:
+        for label, plan in r.get("plans", {}).items():
+            print(f"[plan] {Path(r['tree']).name}: {label} {plan}")
+    print(f"digests ({len(done[0]) if done else 0} calls): "
           + (f"differ between trees at {differ}" if differ
              else "equal in every tree"))
     out_dir = ROOT / "chiprun_out"
@@ -366,6 +507,6 @@ def main(trees):
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
-        child(sys.argv[2])
+        child(sys.argv[2], *sys.argv[3:4])
     else:
         sys.exit(main(sys.argv[1:]))
