@@ -19,7 +19,11 @@ Phases, each printing its own lines; any failure exits non-zero:
               contract: the rows of one slot from one 512-row call come
               out bit for bit in chunks of 128 and at Tq 1 in a batch of
               4, through shuffled pages of 16 rows and under every
-              cluster size (kernels/pfp_attention.py attention_plan)
+              cluster size (kernels/pfp_attention.py attention_plan); the
+              attention kernel without a cache (row 9) at the LM's shape
+              and at ragged ones (Tq and Tk on no multiple of its block
+              or tile, Tq below and above Tk, G 4 and 1, head_dim 16 and
+              128, causal and not), each twice with the same bits
   4. serving: LeNet-5 and MLP at full width (random weights from a seed,
               sigma_init 1e-3, converted with calibration factor 0.4) answer
               Dirty-MNIST batches of 100 per split with impl="kernel"; the
@@ -99,7 +103,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               kernel once per cache hit where the DB fuses the decode
               step's unit and not where it stays unfused. So the forced DB
               drives the fused kernel inside the model whatever the tuner
-              chose.
+              chose. It prints whether the tuned DB fuses the forward and
+              the decode step, each forward's fused launches, and one
+              decode step's device busy unfused and fused by the tuned DB.
               Times: the forward eager and in a CUDA graph, fused by the
               tuned DB, fused at every unit and unfused; row 8 at the gate
               and decode shapes beside the unfused chain.
@@ -984,11 +990,18 @@ def lm_kernel_checks(device, errs):
     check("glu_product", f"({odd[0].numel()},) unaligned",
           ops.pfp_glu_product(*odd), ref.pfp_glu_ref(*odd), ELEMENTWISE_TOL)
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    # Row 9 at the LM's shape and at ragged ones: Tq and Tk on no multiple
+    # of the block's 64 rows or the tile's 32 keys, G 4 and G 1, both
+    # head_dims, causal and not.
     for shape in ((LM_BATCH, h, hkv, LM_SEQ, LM_SEQ, dh, True),
                   (LM_BATCH, h, hkv, LM_SEQ, LM_SEQ, dh, False),
                   (2, 4, 2, 37, 37, dh, True),      # ragged
                   (2, 4, 2, 5, 37, dh, True),       # Tq < Tk
+                  (2, 4, 2, 45, 203, dh, False),    # Tq < Tk, not causal
+                  (2, 4, 4, 130, 161, dh, True),    # G 1, Tq < Tk
+                  (2, 4, 4, 77, 77, dh, False),     # G 1, not causal
                   (2, 4, 2, 37, 37, 16, True),      # reduced head_dim
+                  (2, 4, 4, 45, 203, 16, False),    # head_dim 16, G 1
                   (2, 4, 2, 37, 16, dh, True)):     # rows without a key
         seed += 1
         args = operands("attention", shape, seed, device)
@@ -999,6 +1012,11 @@ def lm_kernel_checks(device, errs):
         if causal and tq > tk and float(got[0][:, :, :tq - tk].abs().max()
                                         + got[1][:, :, :tq - tk].abs().max()):
             fail(f"attention{shape}: rows without a valid key are not 0")
+        again = run_kernel("attention", args)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"attention{shape}: two calls gave different bits")
+    print("[kernels] attention          two calls give the same bits at "
+          "every shape above")
 
 
 def cache_kernel_checks(device, errs):
@@ -2307,6 +2325,13 @@ def phase_fused(device, seed, errs):
     print(f"[fused] autotune + save + reload in "
           f"{time.perf_counter() - t0:.1f} s -> "
           f"{SCHEDULE_DB.relative_to(ROOT)}")
+    gate_key = (LM_BATCH * LM_SEQ, lm_config().d_model, lm_config().d_ff)
+    step_key = (DECODE_SLOTS, lm_config().d_model, lm_config().d_ff)
+    info["tuned_fuses"] = {"forward": fuses[gate_key],
+                           "decode": fuses[step_key]}
+    print(f"[fused] the tuned DB fuses: forward "
+          f"{'yes' if fuses[gate_key] else 'no'}, decode step "
+          f"{'yes' if fuses[step_key] else 'no'}")
 
     # A copy of the tuned DB with every entry set to fuse, so that the
     # fusion pass runs the fused kernel inside the model whatever the tuner
@@ -2355,8 +2380,9 @@ def phase_fused(device, seed, errs):
         launches[label] = {k: LAUNCHES[k] for k in kinds}
         consults = tcache.consult_counters()
         print(f"[fused] forward {LM_BATCH} x {LM_SEQ}, {db} DB: launches "
-              f"{launches[label]}, unfused {launches['unfused']}; cache "
-              f"consults {consults}")
+              f"{launches[label]} (norm_dense_act "
+              f"{launches[label]['norm_dense_act']}), unfused "
+              f"{launches['unfused']}; cache consults {consults}")
         if launches[label] != want_fused:
             fail(f"fused forward ({db} DB) launches {launches[label]}, "
                  f"expected {want_fused}")
@@ -2460,6 +2486,23 @@ def phase_fused(device, seed, errs):
         info["decode"][label] = {k: run[k] for k in (
             "steps", "step_ms", "prefill_ms", "launches", "consults")}
     use_db("tuned")
+
+    # One 4-slot decode step's device time, unfused and fused by the tuned
+    # DB (stale cache rows: only the time is read).
+    pos = np.asarray([300, 400, 500, 540])
+    step_inputs = {"tokens": np.ones((DECODE_SLOTS, 1), np.int64),
+                   "positions": pos[:, None], "cache_len": pos + 1}
+    states = lm.init_decode_state(cfg, DECODE_SLOTS, DECODE_MAX_LEN,
+                                  device=device)
+    info["decode"]["step_busy_ms"] = {}
+    for label, on in (("unfused", False), ("fused", True)):
+        with dispatch.fusion(on):
+            row = _profile(f"{cfg.name} decode step B={DECODE_SLOTS}, "
+                           f"{label}", lambda: lm.decode_step(
+                               model, cfg, step_inputs, states, ctx), 5, 2)
+        info["decode"]["step_busy_ms"][label] = (
+            None if row is None else row["busy_ms"])
+    del states
 
     # Row 8 at the gate and decode shapes, beside the unfused chain.
     rows = []

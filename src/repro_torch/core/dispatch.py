@@ -36,6 +36,7 @@ from repro_torch.core.gaussian import (SRM, VAR, GaussianTensor, as_gaussian,
                                        is_gaussian)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.pfp_activations import KINDS
+from repro_torch.kernels.pfp_fused import fusable
 from repro_torch.tuning import cache as schedule_cache
 
 IMPLS = ("eager", "kernel")
@@ -552,13 +553,15 @@ class _PendingNormDense(_PendingFusion):
     def fuse(self, act: str, impl: Optional[str]):
         """The fused result, or None: the caller then runs the unfused
         activation over this pending's value. The cache is consulted on
-        every attempt, hit or miss, so shape recording finds the unit and
-        the consult counters see it."""
-        if (self._value is not None or act not in KINDS
-                or not _fusion_active(impl)):
-            return None
+        every attempt at a shape the fused kernel reproduces bit for bit
+        (``pfp_fused.fusable``), hit or miss, so shape recording finds the
+        unit and the consult counters see it."""
         norm = self.pending_norm
         x, w = norm.x, self.w
+        if (self._value is not None or act not in KINDS
+                or not _fusion_active(impl)
+                or not fusable(x.shape[-1], w.mean.shape[-1])):
+            return None
         shape_key = (_rows(x.shape), x.shape[-1], w.mean.shape[-1])
         sched = _schedule_for("norm_dense_act", shape_key, x.dtype,
                               x.mean.device)

@@ -4,8 +4,7 @@
 //     out_mu  = softmax(q k^T * scale) @ mu_v
 //     out_var = softmax(q k^T * scale)^2 @ var_v
 //
-// Three kernels, on two tile bodies (attend_tile, and score / accumulate in
-// the cache kernel):
+// Three kernels:
 //
 //  * pfp_attention_kernel, without a KV cache: q (B, H, Tq, D) against
 //    k / mu_v / var_v (B, Hkv, Tk, D), causality right-aligned by index
@@ -28,7 +27,8 @@
 // accumulator by alpha^2 (p^2 shares the running max and normaliser), and
 // the end divides by l and l^2 with l clamped at 1e-18, so a query row with
 // no valid key comes out 0 rather than NaN. fp32 throughout: IEEE products,
-// accurate expf, no tensor cores and no TF32.
+// no tensor cores and no TF32; the cache kernels take accurate expf, the
+// kernel without a cache exp2f of scores in base 2.
 //
 // What bounds them on the H100:
 //  * without a cache, at the granite-8b prefill shape (B 4, H 32, T 512,
@@ -39,17 +39,17 @@
 //    (50 MB at B 4, Hkv 8, kv_len 1024, D 128: 15 us at 3.35 TB/s), and does
 //    ~6 operations per byte read. At prefill (Tq = 512) operations again.
 //
-// Design of the kernel without a cache: a block of 8 warps owns BQ = 64
-// query rows and walks the key tiles itself, so nothing crosses blocks (the
-// TPU carries m, l and both accumulators across sequential K grid steps
-// instead). Per tile of 32 keys the block stages K, mu_v and var_v in shared
-// memory. Each warp owns 8 query rows, and lane l scores key l against them
-// (float4 reads along D from rows padded to D + 4 floats, which keeps the 32
-// lanes on distinct banks). The row max and sum are warp shuffles; p goes to
-// shared memory, and for P.V lane l owns output columns l, l + 32, ... of
-// the warp's rows, so the V reads are conflict-free and p is a broadcast.
-// Tiles that hold no valid key for any row of the block are skipped: they
-// would add exact zeros, so skipping them changes no bit.
+// Design of the kernel without a cache (Flash, below): a block owns 128
+// rows of one KV head's query heads and walks the key tiles itself, so
+// nothing crosses blocks (the TPU carries m, l and both accumulators across
+// sequential K grid steps instead). To keep the SIMT cores' FMAs fed from
+// shared memory, both products are register-blocked as the dense wide tile
+// is: each thread computes 4 rows x 4 keys of S and 8 rows x D / 16
+// columns of each output, reading float4s only. K, mu_v and var_v arrive
+// through a cp.async ring. Tiles that hold no
+// valid key for any row of the block are skipped: they would add exact
+// zeros. No bit contract ties this kernel to the cache kernels; it is
+// deterministic (no atomics; every sum in a fixed order).
 //
 // The cache kernels (pfp_attention_kv_kernel) pack the G = H / Hkv query
 // heads of one KV head and the Tq query rows into a block's rows,
@@ -128,55 +128,6 @@ constexpr int kBK = 32;  // keys per tile: one per lane
 constexpr float kNegInf = -1e30f;  // core/masking.py NEG_INF
 constexpr float kMinL = 1e-18f;
 
-template <int D, int BQ>
-struct Tile {
-  static constexpr int kRowsPerWarp = BQ / kWarps;
-  static constexpr int kColsPerLane = D >= 32 ? D / 32 : 1;
-  static constexpr int kLd = D + 4;  // padded row of the Q and K tiles
-  static constexpr int kFloats = BQ * kLd + kBK * kLd + 2 * kBK * D + BQ * kBK;
-  static constexpr int kBytes = kFloats * 4;
-  static_assert(BQ % kWarps == 0, "BQ must be a multiple of the warp count");
-  static_assert(D % 4 == 0, "D must be a multiple of 4");
-  static_assert(D < 32 || D % 32 == 0, "D >= 32 must be a multiple of 32");
-};
-
-// The block's shared tiles: Q (BQ x kLd), K (kBK x kLd), mu_v and var_v
-// (kBK x D), P (BQ x kBK).
-template <int D, int BQ>
-struct Smem {
-  float *q, *k, *vm, *vv, *p;
-  __device__ explicit Smem(float* base) {
-    using T = Tile<D, BQ>;
-    q = base;
-    k = q + BQ * T::kLd;
-    vm = k + kBK * T::kLd;
-    vv = vm + kBK * D;
-    p = vv + kBK * D;
-  }
-};
-
-// One warp's running softmax state and accumulators for its rows, on this
-// lane's output columns.
-template <int D, int BQ>
-struct Rows {
-  static constexpr int RW = Tile<D, BQ>::kRowsPerWarp;
-  static constexpr int CPL = Tile<D, BQ>::kColsPerLane;
-  float m[RW], l[RW], mu[RW][CPL], var[RW][CPL];
-
-  __device__ __forceinline__ Rows() {
-#pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      m[i] = kNegInf;
-      l[i] = 0.0f;
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        mu[i][c] = 0.0f;
-        var[i][c] = 0.0f;
-      }
-    }
-  }
-};
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -191,166 +142,347 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One staged tile of kBK keys against the warp's rows row0 .. row0 + RW - 1
-// (_score_tile, then _accumulate). valid(i) says whether key k0 + lane is
-// a valid key of the warp's row i.
-template <int D, int BQ, typename Valid>
-__device__ __forceinline__ void attend_tile(const Smem<D, BQ>& sm, int row0,
-                                            int lane, float scale,
-                                            const Valid& valid,
-                                            Rows<D, BQ>& st) {
-  constexpr int RW = Rows<D, BQ>::RW;
-  constexpr int CPL = Rows<D, BQ>::CPL;
-  constexpr int LD = Tile<D, BQ>::kLd;
+using pfp::cp_async16;
+using pfp::cp_async_commit;
+using pfp::cp_async_wait;
 
-  // Scores of key k0 + lane against the warp's RW query rows.
-  float s[RW];
-#pragma unroll
-  for (int i = 0; i < RW; ++i) s[i] = 0.0f;
-#pragma unroll 4
-  for (int d4 = 0; d4 < D / 4; ++d4) {
-    const float4 kv =
-        *reinterpret_cast<const float4*>(sm.k + lane * LD + 4 * d4);
-#pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      const float4 qv =
-          *reinterpret_cast<const float4*>(sm.q + (row0 + i) * LD + 4 * d4);
-      s[i] = fmaf(qv.x, kv.x, s[i]);
-      s[i] = fmaf(qv.y, kv.y, s[i]);
-      s[i] = fmaf(qv.z, kv.z, s[i]);
-      s[i] = fmaf(qv.w, kv.w, s[i]);
-    }
-  }
+// ---------------------------------------------------------------------------
+// The kernel without a cache (row 9): register-blocked products on a ring
+// ---------------------------------------------------------------------------
+// A block owns kRows = 128 rows of one (batch, KV head): the G query heads
+// of the KV head packed position-major (block row R is query row R / G of
+// head kvh * G + R % G), so each K / V tile is staged once for G heads and
+// a block's rows span 128 / G positions, which keeps the causal diagonal's
+// masked work to a fraction of a tile. Both products are register-blocked,
+// each with its own map of the 256 threads, and exchange p and alpha
+// through shared memory: on the H100 a shared-memory load costs a
+// wavefront per 32 values a warp reads (broadcast or not), against 4 FFMA
+// issues a cycle an SM, so a thread must do 4 FMAs per value it loads.
+//  * S = Q K^T: thread (sx, sy) of 8 x 32 takes rows 4 sy .. 4 sy + 3 and
+//    keys sx, sx + 8, sx + 16, sx + 24 of the 32-key tile: 8 values a d
+//    for 16 FMAs. The online softmax of a row runs in its 8 lanes (xor
+//    shuffles over 1, 2, 4); m and l stay in those lanes' registers; p
+//    and p^2 go to P and P^2 as one float4 of 4 rows a key, alpha to
+//    s_alpha.
+//  * P.mu_v and P^2.var_v: thread (vx, vy) of 16 x 16 takes rows 4 vy ..
+//    and 64 + 4 vy .. and columns 4 vx + 64 g .. (column vx at D 16): per
+//    key 8 values of p, 8 of p^2 and D / 8 of V for D / 2 FMAs, 4 a value
+//    at D 128, and no other arithmetic.
+// K, mu_v and var_v come through a 2-deep cp.async ring (zero-filled past
+// the block's last key), Q with the first tile; two block barriers a tile
+// (the ring's, and S before P.V). Causal blocks start heaviest first (the
+// row tile is gridDim.y - 1 - blockIdx.y and y varies slowest), so the
+// last wave is the lightest.
+template <int D>
+struct Flash {
+  static constexpr int kRows = 128;  // kernels/pfp_attention.py FLASH_ROWS
+  static constexpr int kDepth = 2;   // tiles in the ring
+  static constexpr int SX = 8, SY = kThreads / SX;  // the S map
+  static constexpr int VX = 16, VY = kThreads / VX;  // the P.V map
+  static constexpr int SR = kRows / SY, SK = kBK / SX;  // 4 rows x 4 keys
+  static constexpr int VR = kRows / VY;  // 8 rows
+  static constexpr int CT = D / VX;      // columns a thread
+  static constexpr int VEC = CT >= 4 ? 4 : 1;  // neighbouring columns
+  static constexpr int kLd = D + 4;     // Q and K rows: banks staggered
+  static constexpr int kPLd = kRows + 4;  // P and P^2 rows, one a key
+  static constexpr int kStage = kBK * kLd + 2 * kBK * D;
+  static constexpr int kP = kRows * kLd;
+  static constexpr int kP2 = kP + kBK * kPLd;
+  static constexpr int kAlpha = kP2 + kBK * kPLd;
+  static constexpr int kRing = kAlpha + kRows;
+  static constexpr int kFloats = kRing + kDepth * kStage;
+  static constexpr int kBytes = kFloats * 4;
+  static_assert(SR == 4 && SK == 4 && VR == 8, "the thread patches");
+  static_assert(D % 16 == 0 && CT % VEC == 0, "head_dim");
+  static_assert(kBytes <= 227 * 1024, "shared memory of a block");
 
-  // Joint online softmax: one row per i, one key per lane.
-  float alpha[RW];
-#pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    const bool ok = valid(i);
-    const float sc = ok ? s[i] * scale : kNegInf;
-    const float m_next = fmaxf(st.m[i], warp_max(sc));
-    alpha[i] = expf(st.m[i] - m_next);
-    const float p = ok ? expf(sc - m_next) : 0.0f;
-    st.l[i] = st.l[i] * alpha[i] + warp_sum(p);
-    st.m[i] = m_next;
-    sm.p[(row0 + i) * kBK + lane] = p;
+  // P.V thread row i (of VR) and column c (of CT).
+  __device__ __forceinline__ static int vrow(int vy, int i) {
+    return (i / 4) * (kRows / 2) + 4 * vy + i % 4;
   }
-  __syncwarp();
+  __device__ __forceinline__ static int vcol(int vx, int c) {
+    return (c / VEC) * VX * VEC + vx * VEC + c % VEC;
+  }
+};
 
-  // mu = mu * alpha + P . mu_v;  var = var * alpha^2 + P^2 . var_v, on the
-  // warp's rows and this lane's columns.
-#pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    const float a2 = alpha[i] * alpha[i];
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) {
-      st.mu[i][c] *= alpha[i];
-      st.var[i][c] *= a2;
-    }
-  }
-  if (D >= 32 || lane < D) {
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float vmj[CPL], vvj[CPL];
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        vmj[c] = sm.vm[j * D + lane + 32 * c];
-        vvj[c] = sm.vv[j * D + lane + 32 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        const float p = sm.p[(row0 + i) * kBK + j];
-        const float p2 = p * p;
-#pragma unroll
-        for (int c = 0; c < CPL; ++c) {
-          st.mu[i][c] = fmaf(p, vmj[c], st.mu[i][c]);
-          st.var[i][c] = fmaf(p2, vvj[c], st.var[i][c]);
-        }
-      }
-    }
-  }
-}
-
-// _finalize for the warp's row i, written at `out_row` (floats): a row with
-// a valid key has l >= 1; a row without one has l == 0 and zero
-// accumulators, and the clamp keeps l^2 finite.
-template <int D, int BQ>
-__device__ __forceinline__ void write_row(const Rows<D, BQ>& st, int i,
-                                          int lane, long long out_row,
-                                          float* __restrict__ om,
-                                          float* __restrict__ ov) {
-  if (D < 32 && lane >= D) return;
-  const float l = fmaxf(st.l[i], kMinL);
-  const float l2 = l * l;
-#pragma unroll
-  for (int c = 0; c < Rows<D, BQ>::CPL; ++c) {
-    om[out_row + lane + 32 * c] = st.mu[i][c] / l;
-    ov[out_row + lane + 32 * c] = st.var[i][c] / l2;
-  }
-}
-
-template <int D, int BQ>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 pfp_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ vm,
                      const float* __restrict__ vv, float* __restrict__ om,
                      float* __restrict__ ov, int H, int Hkv, int Tq, int Tk,
                      float scale, int causal) {
-  constexpr int RW = Tile<D, BQ>::kRowsPerWarp;
-  constexpr int LD = Tile<D, BQ>::kLd;
+  using F = Flash<D>;
+  constexpr int D4 = D / 4, SR = F::SR, SK = F::SK, VR = F::VR, CT = F::CT;
+  constexpr int LD = F::kLd, PLD = F::kPLd;
   extern __shared__ float4 smem4[];
-  const Smem<D, BQ> sm(reinterpret_cast<float*>(smem4));
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* s_q = smem;
+  float* s_p = smem + F::kP;
+  float* s_p2 = smem + F::kP2;
+  float* s_alpha = smem + F::kAlpha;
+  float* ring = smem + F::kRing;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const long long kvh = static_cast<long long>(b) * Hkv + h / (H / Hkv);
-  const int q0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x;
+  const int sx = tid % F::SX, sy = tid / F::SX;
+  const int vx = tid % F::VX, vy = tid / F::VX;
+  const int b = blockIdx.x / Hkv, kvh = blockIdx.x % Hkv;
+  const int G = H / Hkv;
+  const int rows = G * Tq;
+  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int r0 = tile * F::kRows;
+  const int nrows = min(F::kRows, rows - r0);
   const int qoff = Tk - Tq;  // right-aligned causality
-  const float* qb = q + static_cast<long long>(bh) * Tq * D;
-  const float* kb = k + kvh * Tk * D;
-  const float* vmb = vm + kvh * Tk * D;
-  const float* vvb = vv + kvh * Tk * D;
+  // Scores and their running max in base 2 (times log2 e), so that exp2f
+  // of a difference is expf of the natural one.
+  const float scale2 = scale * 1.44269504088896341f;
+  // Keys any row of the block can see.
+  const int hi = causal ? max(0, min(Tk, (r0 + nrows - 1) / G + qoff + 1))
+                        : Tk;
+  const int tiles = (hi + kBK - 1) / kBK;
+  const long long kv0 = (static_cast<long long>(b) * Hkv + kvh) * Tk * D;
+  // The last position among the P.V map's rows of this warp (a bound: the
+  // warp's last row below the block's end).
+  const int last_pos =
+      (r0 + min(nrows - 1, F::vrow(2 * (tid / 32) + 1, VR - 1))) / G + qoff;
 
-  for (int e = threadIdx.x; e < BQ * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    sm.q[r * LD + c] = q0 + r < Tq
-                           ? qb[static_cast<long long>(q0 + r) * D + c]
-                           : 0.0f;
+  // Q, zero past the rows, with the first tile's group.
+  for (int e = tid; e < F::kRows * D4; e += kThreads) {
+    const int r = e / D4, c = e % D4, R = r0 + r;
+    const bool ok = r < nrows;
+    const long long row =
+        ok ? (static_cast<long long>(b) * H + kvh * G + R % G) * Tq + R / G
+           : 0;
+    cp_async16(s_q + r * LD + 4 * c, q + row * D + 4 * c, ok);
+  }
+  auto load = [&](int t, int st) {
+    float* sk = ring + st * F::kStage;
+    float* svm = sk + kBK * LD;
+    float* svv = svm + kBK * D;
+    for (int e = tid; e < kBK * D4; e += kThreads) {
+      const int r = e / D4, c = e % D4, j = t * kBK + r;
+      const bool ok = j < hi;
+      const long long off = ok ? kv0 + static_cast<long long>(j) * D + 4 * c
+                               : 0;
+      cp_async16(sk + r * LD + 4 * c, k + off, ok);
+      cp_async16(svm + r * D + 4 * c, vm + off, ok);
+      cp_async16(svv + r * D + 4 * c, vv + off, ok);
+    }
+  };
+
+  // The S map's rows: live (below the block's rows), position among the
+  // keys, running max and normaliser (alike in the row's 8 lanes).
+  bool live[SR];
+  int pos[SR];
+  float m[SR], l[SR];
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+    const int r = SR * sy + i;
+    live[i] = r < nrows;
+    pos[i] = (r0 + r) / G + qoff;
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+  }
+  // The P.V map's sums.
+  float mu[VR][CT], var[VR][CT];
+#pragma unroll
+  for (int i = 0; i < VR; ++i) {
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      mu[i][c] = 0.0f;
+      var[i][c] = 0.0f;
+    }
   }
 
-  Rows<D, BQ> st;
-  int num_tiles = (Tk + kBK - 1) / kBK;
-  if (causal) {
-    const int last_key = min(Tk - 1, q0 + BQ - 1 + qoff);
-    num_tiles = last_key < 0 ? 0 : last_key / kBK + 1;
-  }
-  const int row0 = warp * RW;
+  if (tiles > 0) load(0, 0);
+  cp_async_commit();
+#pragma unroll 1
+  for (int t = 0; t < tiles; ++t) {
+    // Tile t has landed (and Q); every thread is done with tile t - 1's
+    // stage, P and alpha.
+    cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < tiles) load(t + 1, (t + 1) % F::kDepth);
+    cp_async_commit();
+    const float* sk = ring + (t % F::kDepth) * F::kStage;
+    const float* svm = sk + kBK * LD;
+    const float* svv = svm + kBK * D;
 
-  for (int t = 0; t < num_tiles; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // the previous tile's K / V are no longer read
-    for (int e = threadIdx.x; e < kBK * D; e += kThreads) {
-      const int r = e / D, c = e % D;
-      const bool ok = k0 + r < Tk;
-      const long long off = static_cast<long long>(k0 + r) * D + c;
-      sm.k[r * LD + c] = ok ? kb[off] : 0.0f;
-      sm.vm[r * D + c] = ok ? vmb[off] : 0.0f;
-      sm.vv[r * D + c] = ok ? vvb[off] : 0.0f;
+    // S: one fmaf chain over d for each of the thread's rows and keys.
+    float s[SR][SK];
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+#pragma unroll
+      for (int jj = 0; jj < SK; ++jj) s[i][jj] = 0.0f;
+    }
+#pragma unroll 4
+    for (int d4 = 0; d4 < D4; ++d4) {
+      float4 kv[SK];
+#pragma unroll
+      for (int jj = 0; jj < SK; ++jj)
+        kv[jj] = *reinterpret_cast<const float4*>(
+            sk + (sx + F::SX * jj) * LD + 4 * d4);
+#pragma unroll
+      for (int i = 0; i < SR; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(
+            s_q + (SR * sy + i) * LD + 4 * d4);
+#pragma unroll
+        for (int jj = 0; jj < SK; ++jj) {
+          s[i][jj] = fmaf(qv.x, kv[jj].x, s[i][jj]);
+          s[i][jj] = fmaf(qv.y, kv[jj].y, s[i][jj]);
+          s[i][jj] = fmaf(qv.z, kv[jj].z, s[i][jj]);
+          s[i][jj] = fmaf(qv.w, kv[jj].w, s[i][jj]);
+        }
+      }
+    }
+
+    // The online softmax of each row over its 8 lanes; p to P, alpha to
+    // s_alpha.
+    float p[SR][SK];
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      float sc[SK], mx = kNegInf;
+      bool ok[SK];
+#pragma unroll
+      for (int jj = 0; jj < SK; ++jj) {
+        const int key = t * kBK + sx + F::SX * jj;
+        ok[jj] = live[i] && key < Tk && (!causal || key <= pos[i]);
+        sc[jj] = ok[jj] ? s[i][jj] * scale2 : kNegInf;
+        mx = fmaxf(mx, sc[jj]);
+      }
+#pragma unroll
+      for (int off = 1; off < F::SX; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_next = fmaxf(m[i], mx);
+      const float alpha = exp2f(m[i] - m_next);
+      float sum = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < SK; ++jj) {
+        p[i][jj] = ok[jj] ? exp2f(sc[jj] - m_next) : 0.0f;
+        sum += p[i][jj];
+      }
+#pragma unroll
+      for (int off = 1; off < F::SX; off <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_next;
+      if (sx == 0) s_alpha[SR * sy + i] = alpha;
+    }
+#pragma unroll
+    for (int jj = 0; jj < SK; ++jj) {
+      const int off = (sx + F::SX * jj) * PLD + SR * sy;
+      *reinterpret_cast<float4*>(s_p + off) =
+          make_float4(p[0][jj], p[1][jj], p[2][jj], p[3][jj]);
+      *reinterpret_cast<float4*>(s_p2 + off) =
+          make_float4(p[0][jj] * p[0][jj], p[1][jj] * p[1][jj],
+                      p[2][jj] * p[2][jj], p[3][jj] * p[3][jj]);
     }
     __syncthreads();
-    const int key = k0 + lane;
-    attend_tile(sm, row0, lane, scale, [&](int i) {
-      return key < Tk && (!causal || q0 + row0 + i + qoff >= key);
-    }, st);
-  }
 
+    // mu = mu alpha + P . mu_v; var = var alpha^2 + P^2 . var_v, keys in
+    // order.
+    float al[VR];
 #pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    const int row = q0 + row0 + i;
-    if (row < Tq)
-      write_row(st, i, lane, (static_cast<long long>(bh) * Tq + row) * D, om,
-                ov);
+    for (int h = 0; h < VR; h += 4) {
+      const float4 a4 =
+          *reinterpret_cast<const float4*>(s_alpha + F::vrow(vy, h));
+      al[h] = a4.x, al[h + 1] = a4.y, al[h + 2] = a4.z, al[h + 3] = a4.w;
+    }
+    // Once the rows' maxima settle, alpha is 1 (and x * 1 is x): the warp
+    // skips the rescale.
+    bool moved = false;
+#pragma unroll
+    for (int i = 0; i < VR; ++i) moved |= al[i] != 1.0f;
+    if (__any_sync(0xffffffffu, moved)) {
+#pragma unroll
+      for (int i = 0; i < VR; ++i) {
+        const float a2 = al[i] * al[i];
+#pragma unroll
+        for (int c = 0; c < CT; ++c) {
+          mu[i][c] *= al[i];
+          var[i][c] *= a2;
+        }
+      }
+    }
+    // Keys past the last one any of the warp's rows sees have p = 0 for
+    // all of them (the causal diagonal, the end of the keys): the warp
+    // stops there.
+    const int jend = min(kBK, min(Tk, causal ? last_pos + 1 : Tk) - t * kBK);
+#pragma unroll 2
+    for (int j = 0; j < jend; ++j) {
+      float pj[VR], p2j[VR];
+#pragma unroll
+      for (int h = 0; h < VR; h += 4) {
+        const int off = j * PLD + F::vrow(vy, h);
+        const float4 p4 = *reinterpret_cast<const float4*>(s_p + off);
+        const float4 q4 = *reinterpret_cast<const float4*>(s_p2 + off);
+        pj[h] = p4.x, pj[h + 1] = p4.y, pj[h + 2] = p4.z, pj[h + 3] = p4.w;
+        p2j[h] = q4.x, p2j[h + 1] = q4.y, p2j[h + 2] = q4.z,
+        p2j[h + 3] = q4.w;
+      }
+      float vmj[CT], vvj[CT];
+#pragma unroll
+      for (int c = 0; c < CT; c += F::VEC) {
+        const int col = F::vcol(vx, c);
+        if constexpr (F::VEC == 4) {
+          const float4 a4 =
+              *reinterpret_cast<const float4*>(svm + j * D + col);
+          const float4 b4 =
+              *reinterpret_cast<const float4*>(svv + j * D + col);
+          vmj[c] = a4.x, vmj[c + 1] = a4.y, vmj[c + 2] = a4.z,
+          vmj[c + 3] = a4.w;
+          vvj[c] = b4.x, vvj[c + 1] = b4.y, vvj[c + 2] = b4.z,
+          vvj[c + 3] = b4.w;
+        } else {
+          vmj[c] = svm[j * D + col];
+          vvj[c] = svv[j * D + col];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < VR; ++i) {
+#pragma unroll
+        for (int c = 0; c < CT; ++c) {
+          mu[i][c] = fmaf(pj[i], vmj[c], mu[i][c]);
+          var[i][c] = fmaf(p2j[i], vvj[c], var[i][c]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // Scale by 1 / l and 1 / l^2, l clamped at 1e-18: a row with a valid
+  // key has l >= 1; a row without one has l == 0, zero sums and zero
+  // outputs. l goes from the S map to the P.V map through s_alpha. The
+  // outputs leave as float4s of whole 16-byte groups.
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < SR; ++i)
+    if (sx == 0) s_alpha[SR * sy + i] = l[i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < VR; ++i) {
+    const int r = F::vrow(vy, i);
+    if (r >= nrows) continue;
+    const int R = r0 + r;
+    const long long out =
+        ((static_cast<long long>(b) * H + kvh * G + R % G) * Tq + R / G) * D;
+    const float lr = fmaxf(s_alpha[r], kMinL);
+    const float inv = 1.0f / lr, inv2 = 1.0f / (lr * lr);
+#pragma unroll
+    for (int c = 0; c < CT; c += F::VEC) {
+      const int col = F::vcol(vx, c);
+      if constexpr (F::VEC == 4) {
+        *reinterpret_cast<float4*>(om + out + col) =
+            make_float4(mu[i][c] * inv, mu[i][c + 1] * inv,
+                        mu[i][c + 2] * inv, mu[i][c + 3] * inv);
+        *reinterpret_cast<float4*>(ov + out + col) =
+            make_float4(var[i][c] * inv2, var[i][c + 1] * inv2,
+                        var[i][c + 2] * inv2, var[i][c + 3] * inv2);
+      } else {
+        om[out + col] = mu[i][c] * inv;
+        ov[out + col] = var[i][c] * inv2;
+      }
+    }
   }
 }
 
@@ -363,10 +495,6 @@ constexpr int kMaxCluster = 8;  // the portable cluster size
 
 // The instantiated block sizes (rows): kernels/pfp_attention.py BLOCK_ROWS.
 #define PFP_ATTENTION_BLOCKS(X) X(8) X(64)
-
-using pfp::cp_async16;
-using pfp::cp_async_commit;
-using pfp::cp_async_wait;
 
 // The fold of a segment's partial (m_b, l_b, acc_b) into a running state
 // (m, l, acc) of one row: m' = max(m, m_b), alpha = exp(m - m'),
@@ -735,18 +863,21 @@ pfp_attention_kv_kernel(const float* __restrict__ q,
   }
 }
 
-template <int D, int BQ>
+template <int D>
 int launch(const float* q, const float* k, const float* vm, const float* vv,
            float* om, float* ov, int B, int H, int Hkv, int Tq, int Tk,
            float scale, int causal, cudaStream_t stream) {
-  constexpr int kBytes = Tile<D, BQ>::kBytes;
+  using F = Flash<D>;
+  const long long tiles = (static_cast<long long>(H / Hkv) * Tq + F::kRows - 1) /
+                          F::kRows;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   static bool raised[pfp::kMaxDevices] = {};
   const cudaError_t err =
-      pfp::allow_smem(pfp_attention_kernel<D, BQ>, kBytes, raised);
+      pfp::allow_smem(pfp_attention_kernel<D>, F::kBytes, raised);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((Tq + BQ - 1) / BQ),
-                  static_cast<unsigned>(B * H));
-  pfp_attention_kernel<D, BQ><<<grid, kThreads, kBytes, stream>>>(
+  const dim3 grid(static_cast<unsigned>(B * Hkv),
+                  static_cast<unsigned>(tiles));
+  pfp_attention_kernel<D><<<grid, kThreads, F::kBytes, stream>>>(
       q, k, vm, vv, om, ov, H, Hkv, Tq, Tk, scale, causal);
   return pfp::launch_status();
 }
@@ -837,14 +968,15 @@ int kv_block_rows(int block_rows, int* bytes, int* per_sm) {
 // q (B, H, Tq, D); k, v_mu, v_var (B, Hkv, Tk, D); outputs (B, H, Tq, D).
 // head_dim D in {16, 128} (the reduced test config, granite-8b; other
 // widths are instantiated with the models that need them); H % Hkv == 0;
-// B * H <= 65535.
+// B * Hkv <= 2^31 - 1; (H / Hkv) * Tq / 64 row tiles <= 65535. All
+// pointers 16-byte aligned.
 PFP_EXPORT int pfp_attention_launch(const void* q, const void* k,
                                     const void* v_mu, const void* v_var,
                                     void* out_mu, void* out_var, int B, int H,
                                     int Hkv, int Tq, int Tk, int D,
                                     float scale, int causal, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || Tq < 1 || Tk < 1 ||
-      static_cast<long long>(B) * H > 65535)
+      static_cast<long long>(B) * Hkv > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* pq = static_cast<const float*>(q);
   const auto* pk = static_cast<const float*>(k);
@@ -855,11 +987,11 @@ PFP_EXPORT int pfp_attention_launch(const void* q, const void* k,
   auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch<16, 64>(pq, pk, pvm, pvv, om, ov, B, H, Hkv, Tq, Tk,
-                            scale, causal, s);
+      return launch<16>(pq, pk, pvm, pvv, om, ov, B, H, Hkv, Tq, Tk, scale,
+                        causal, s);
     case 128:
-      return launch<128, 64>(pq, pk, pvm, pvv, om, ov, B, H, Hkv, Tq, Tk,
-                             scale, causal, s);
+      return launch<128>(pq, pk, pvm, pvv, om, ov, B, H, Hkv, Tq, Tk, scale,
+                         causal, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -81,30 +81,4 @@ __device__ __forceinline__ void activation_moments(float mu, float var,
   }
 }
 
-// Any kind, chosen at run time: a switch over the kinds above, each the
-// code of activation_moments<KIND> (the fused kernel keeps one
-// instantiation for all five). A kind out of range is the launcher's to
-// reject; it gets sigmoid here.
-__device__ __forceinline__ void activation_moments_of(int kind, float mu,
-                                                      float var,
-                                                      float* mean_out,
-                                                      float* srm_out) {
-  switch (kind) {
-    case kRelu:
-      activation_moments<kRelu>(mu, var, mean_out, srm_out);
-      break;
-    case kGelu:
-      activation_moments<kGelu>(mu, var, mean_out, srm_out);
-      break;
-    case kSilu:
-      activation_moments<kSilu>(mu, var, mean_out, srm_out);
-      break;
-    case kTanh:
-      activation_moments<kTanh>(mu, var, mean_out, srm_out);
-      break;
-    default:
-      activation_moments<kSigmoid>(mu, var, mean_out, srm_out);
-  }
-}
-
 }  // namespace pfp

@@ -4,13 +4,12 @@
 // same operations in the same order, and the fused unit equals the
 // unfused chain bit for bit.
 //
-// A row's statistics are sums over its d entries. The norm kernel forms
-// each with one block of kNormThreads threads: thread t sums the terms
-// j = t, t + 256, ... in order (the partial_* functions), then block_sum
-// adds the 256 partial sums by a shuffle tree in each warp and the 8 warp
-// totals in order. warp_block_sum gives the same total from one warp:
-// lane l stands in for threads l, 32 + l, ..., 224 + l, one per warp of
-// the block, so the fused kernel forms the statistics of 8 rows at once.
+// A row's statistics are sums over its d entries, each formed by one block
+// of kNormThreads threads: thread t sums the terms j = t, t + 256, ... in
+// order (the partial_* functions), then block_sum adds the 256 partial
+// sums by a shuffle tree in each warp and the 8 warp totals in order.
+// block_row_stats is that whole reduction, for the norm kernel and the
+// fused unit's norm pass alike.
 #pragma once
 
 #include "pfp_moments.cuh"
@@ -56,16 +55,6 @@ __device__ __forceinline__ float block_sum(float v, float* s_part) {
   return total;
 }
 
-// What block_sum returns when thread t holds partial(t), from one warp.
-template <typename Partial>
-__device__ __forceinline__ float warp_block_sum(Partial partial, int lane) {
-  float total = 0.0f;
-#pragma unroll
-  for (int w = 0; w < kNormWarps; ++w)
-    total += warp_sum(partial(w * 32 + lane));
-  return total;
-}
-
 // Thread t's partial sums over a row m, s of d entries.
 template <int REP>
 __device__ __forceinline__ float partial_srm(const float* m, const float* s,
@@ -105,28 +94,25 @@ __device__ __forceinline__ float normaliser(float total, float inv_d,
 }
 
 // The row statistics (LayerNorm's token mean, 0 for RMSNorm, and the
-// normaliser) of row m, s of d entries, formed by one warp as block_sum
-// forms them in the norm kernel.
+// normaliser) of row m, s of d entries, formed by a block of kNormThreads
+// threads; every thread gets them. s_part holds kNormWarps floats.
 template <int NORM, int REP>
-__device__ __forceinline__ void warp_row_stats(const float* m, const float* s,
-                                               int d, float eps, int lane,
-                                               float* mu_tok, float* norm) {
+__device__ __forceinline__ void block_row_stats(const float* m, const float* s,
+                                                int d, float eps,
+                                                float* s_part, float* mu_tok,
+                                                float* norm) {
   const float inv_d = 1.0f / static_cast<float>(d);
   if constexpr (NORM == kRms) {
     *mu_tok = 0.0f;
     *norm = normaliser(
-        warp_block_sum([&](int t) { return partial_srm<REP>(m, s, d, t); },
-                       lane),
-        inv_d, eps);
+        block_sum(partial_srm<REP>(m, s, d, threadIdx.x), s_part), inv_d,
+        eps);
   } else {
     const float tok =
-        warp_block_sum([&](int t) { return partial_mean(m, d, t); }, lane) *
-        inv_d;
+        block_sum(partial_mean(m, d, threadIdx.x), s_part) * inv_d;
     *mu_tok = tok;
     *norm = normaliser(
-        warp_block_sum(
-            [&](int t) { return partial_spread<REP>(m, s, d, t, tok); },
-            lane),
+        block_sum(partial_spread<REP>(m, s, d, threadIdx.x, tok), s_part),
         inv_d, eps);
   }
 }

@@ -55,21 +55,8 @@ pfp_norm_kernel(const float* __restrict__ mu, const float* __restrict__ sec,
   const long long base = static_cast<long long>(blockIdx.x) * d;
   const float* m = mu + base;
   const float* s = sec + base;
-  const float inv_d = 1.0f / static_cast<float>(d);
-
-  float mu_tok = 0.0f, norm;
-  if constexpr (NORM == kRms) {
-    norm = pfp::normaliser(
-        pfp::block_sum(pfp::partial_srm<REP>(m, s, d, threadIdx.x), s_part),
-        inv_d, eps);
-  } else {
-    mu_tok = pfp::block_sum(pfp::partial_mean(m, d, threadIdx.x), s_part) *
-             inv_d;
-    norm = pfp::normaliser(
-        pfp::block_sum(pfp::partial_spread<REP>(m, s, d, threadIdx.x, mu_tok),
-                       s_part),
-        inv_d, eps);
-  }
+  float mu_tok, norm;
+  pfp::block_row_stats<NORM, REP>(m, s, d, eps, s_part, &mu_tok, &norm);
 
   for (int j = threadIdx.x; j < d; j += kThreads) {
     float mean, var;

@@ -24,7 +24,7 @@ from repro_torch.kernels.pfp_attention import (pfp_attention_cache_cuda,
                                                pfp_attention_paged_cuda)
 from repro_torch.kernels.pfp_dense import (MODE_FIRST_LAYER, MODE_SRM,
                                            MODE_VAR, pfp_dense_cuda)
-from repro_torch.kernels.pfp_fused import (DEFAULT_TILE, check_config,
+from repro_torch.kernels.pfp_fused import (check_config, default_tile,
                                            pfp_norm_dense_act_cuda)
 from repro_torch.kernels.pfp_maxpool import pfp_maxpool2d_cuda
 from repro_torch.kernels.pfp_moe import pfp_dense_batched_cuda
@@ -131,14 +131,15 @@ def pfp_norm_dense_act(mu, second, gain, bias, mu_w, srm_w, *,
     the norm input's (mean, second) in ``rep``, the norm's gain and
     (LayerNorm) ``bias``, the dense weight's (mean, srm). Returns
     (mean, srm). ``schedule`` (a ``norm_dense_act`` Schedule) picks the
-    kernel's tile; without one it is ``DEFAULT_TILE``. Norm, rep,
-    activation and tile are checked on either device, so the plain
-    version takes exactly what the kernel takes."""
-    tile = DEFAULT_TILE if schedule is None else (
-        schedule.block("block_m"), schedule.block("block_n"))
-    check_config(norm, rep, act, tile)
+    kernel's tile; without one it is the tile the unfused chain's dense
+    runs (``pfp_fused.default_tile``). Norm, rep, activation and tile are
+    checked on either device, so the plain version takes exactly what the
+    kernel takes."""
     lead, k, n = mu.shape[:-1], mu.shape[-1], mu_w.shape[-1]
     mu, second = mu.reshape(-1, k), second.reshape(-1, k)
+    tile = default_tile(mu.shape[0], n, k) if schedule is None else (
+        schedule.block("block_m"), schedule.block("block_n"))
+    check_config(norm, rep, act, tile)
     if _on_cuda(mu):
         mean, srm = pfp_norm_dense_act_cuda(mu, second, gain, bias, mu_w,
                                             srm_w, norm=norm, rep=rep,

@@ -4,7 +4,9 @@ out_var = P^2.var_v from one online softmax.
 Replaces the three entry points of ``repro/kernels/pfp_attention.py``:
 
   * ``pfp_attention_pallas``, without a KV cache: ``pfp_attention_cuda``,
-    one block per (batch x head, 64 query rows), bound by fp32 operations;
+    one block per (batch x KV head, 128 rows of its query heads), both
+    products register-blocked on a ``cp.async`` ring, bound by fp32
+    operations;
   * ``pfp_attention_cache_pallas``, the KV cache with per-batch
     ``q_start`` / ``kv_len``: ``pfp_attention_cache_cuda``;
   * ``pfp_attention_paged_pallas``, the paged cache read through a page
@@ -38,6 +40,7 @@ from repro_torch.kernels.ref import (pfp_attention_cache_ref,  # noqa: F401
 # come with the paths that serve those models.
 HEAD_DIMS = (16, 128)
 
+FLASH_ROWS = 128       # rows a block without a cache: Flash<D>::kRows
 SEGMENT = 128          # keys a segment: csrc/pfp_attention.cu kSegment
 BLOCK_ROWS = (8, 64)   # rows a block (decode, else): PFP_ATTENTION_BLOCKS
 MAX_CLUSTER = 8        # the portable cluster size: its kMaxCluster
@@ -144,8 +147,12 @@ def pfp_attention_cuda(q_mu, k_mu, v_mu, v_var, *, scale: float,
     if d not in HEAD_DIMS:
         raise ValueError(f"no attention kernel for head_dim {d}; built for "
                          f"{HEAD_DIMS}")
-    if b * h > 65535:
-        raise ValueError(f"B * H = {b * h} is above the grid's 65535")
+    row_tiles = -(-(h // hkv) * tq // FLASH_ROWS)
+    if row_tiles > 65535:
+        raise ValueError(f"{row_tiles} row tiles of {FLASH_ROWS} are above "
+                         f"the grid's 65535")
+    q_mu, k_mu, v_mu, v_var = (aligned16(t) for t in (q_mu, k_mu, v_mu,
+                                                       v_var))
     out_mu = torch.empty_like(q_mu)
     out_var = torch.empty_like(q_mu)
     if q_mu.numel() == 0:

@@ -124,6 +124,9 @@ def tune_op(op: str, shape_key: ShapeKey, dtype: str = "float32", *,
     mode = default_mode(device)
     shape_key = tuple(int(d) for d in shape_key)
     cands = search.candidates(op, shape_key, limit=limit)
+    if not cands:
+        raise ValueError(f"{op} does not fuse at {shape_key}: the unfused "
+                         f"chain's dense splits K there")
     if mode == "rank":
         records = [{"schedule": c.describe(), "blocks": c.as_dict(),
                     "seconds": None} for c in cands]

@@ -25,6 +25,8 @@ version and the unfused kernel chain on the card and skip where there is
 none: ``python -m pytest -m gpu tests/test_torch_fused.py``.
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -37,8 +39,9 @@ from repro_torch.core.gaussian import SRM, VAR, GaussianTensor
 from repro_torch.core.modes import Mode
 from repro_torch.kernels import ops
 from repro_torch.kernels._launch import LAUNCHES, reset_launch_counts
-from repro_torch.kernels.pfp_dense import split_k
-from repro_torch.kernels.pfp_fused import TILES
+from repro_torch.kernels.pfp_dense import dense_plan, split_k
+from repro_torch.kernels.pfp_fused import (PLANS, TILES, default_tile,
+                                           fusable, tile_of)
 from repro_torch.models import lm
 from repro_torch.nn.layers import dense_init
 from repro_torch.nn.mlp import MLPBlock, mlp_apply
@@ -48,11 +51,15 @@ from repro_torch.tuning import search
 from repro_torch.tuning.measure import unfused_chain
 from repro_torch.tuning.schedules import Schedule
 
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 DENSE_TOL = dict(rtol=1e-5, atol=1e-4)    # tests/test_kernels.py
 NDA_TOL = dict(rtol=1e-3, atol=5e-4)      # tests/test_impl_dispatch.py
 ARCH, SIGMA, CAL = "granite-8b", 0.02, 0.4
 NORMS, REPS = ("rmsnorm", "layernorm"), ("var", "srm")
 ACTS = ("relu", "gelu", "silu", "tanh", "sigmoid")
+# granite-8b's gate projection cut to a few hundred rows and columns (M
+# and N ragged against every tile), and a 4-slot decode step of it.
+REDUCED_GATE, DECODE_STEP = (250, 4096, 1800), (4, 4096, 1800)
 # Every activation with both norms; each norm with both input reps.
 OP_CASES = [(norm, REPS[(i + j) % 2], act, shape)
             for i, (act, shape) in enumerate(zip(ACTS, [
@@ -166,6 +173,60 @@ def test_op_rejects_what_the_kernel_is_not_built_for():
                                            block_n=8))):
         with pytest.raises(ValueError, match="no fused norm_dense_act"):
             ops.pfp_norm_dense_act(*args, **kw)
+
+
+def _x_macro(source, name):
+    """The (bn, tn, tm, stages) entries of an X-macro list in a source."""
+    text = (CSRC / source).read_text()
+    body = re.search(rf"#define {name}\(X\)(.*?)\n\n", text, re.S).group(1)
+    return [tuple(int(v) for v in x) for x in
+            re.findall(r"X\((\d+), (\d+), (\d+), (\d+)\)", body)]
+
+
+def test_every_fused_tile_is_a_dense_plan_of_split_1():
+    """The fused unit runs on the dense kernel's own plans: PLANS is
+    csrc/pfp_fused.cu's PFP_FUSED_TILES, each one of pfp_dense.cu's
+    PFP_DENSE_TILES, and together exactly the plans (all of split 1) the
+    unfused chain's dense runs at N > 128, at whose tiles the fused unit
+    runs by default."""
+    fused = _x_macro("pfp_fused.cu", "PFP_FUSED_TILES")
+    assert fused == list(PLANS)
+    assert set(fused) <= set(_x_macro("pfp_dense.cu", "PFP_DENSE_TILES"))
+    assert TILES == tuple(tile_of(p) for p in PLANS)
+    assert len(set(TILES)) == len(TILES)
+    chain = set()
+    for m in (1, 2, 4, 5, 8, 9, 16, 17, 64, 128, 250, 512, 1024, 2048):
+        for n in (129, 1024, 1800, 2048, 4096, 14336):
+            plan = dense_plan(m, n, 4096)
+            assert plan.split == 1
+            chain.add(tuple(plan[1:]))
+            assert default_tile(m, n, 4096) == tile_of(plan[1:])
+    assert chain == set(PLANS)
+
+
+def test_fusion_pass_runs_the_chain_where_the_dense_splits_k(clean_fusion):
+    """At 64 <= N <= 128 and K > 64 the chain's dense splits K over a
+    cluster, so the fused unit is not its bits: the pass consults no cache
+    there, even one that holds the shape, and the chain runs."""
+    k, n = 130, 70
+    assert not fusable(k, n) and fusable(64, 128) and fusable(k, 129)
+    assert search.candidates("norm_dense_act", (6, k, n)) == []
+    x = _gauss((2, 3, k), 16)
+    gain = torch.linspace(0.5, 1.5, k)
+    layer = svi_to_pfp(dense_init(k, n, sigma_init=0.05, device="cpu"))
+    wg = resolve_weight(layer.w, Context(mode=Mode.PFP, device="cpu"))
+    want = dispatch.pfp_activation(
+        dispatch.pfp_dense(dispatch.pfp_rmsnorm(x, gain), wg), "silu")
+    tcache.global_cache().put("norm_dense_act", (6, k, n), "float32", "cpu",
+                              Schedule.make("norm_dense_act", block_m=64,
+                                            block_n=64))
+    tcache.consult_counters(reset=True)
+    with dispatch.fusion(True):
+        got = dispatch.pfp_activation(
+            dispatch.pfp_dense(dispatch.pfp_rmsnorm(x, gain), wg), "silu")
+    assert tcache.consult_counters()["consults"] == 0
+    assert torch.equal(got.mean, want.mean)
+    assert torch.equal(got.second, want.second)
 
 
 # ---------------------------------------------------------------------------
@@ -453,6 +514,26 @@ def test_kernel_matches_plain_and_unfused_chain_on_card(cuda, tile):
             else:
                 np.testing.assert_allclose(c.cpu().numpy(), w.numpy(),
                                            **DENSE_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", TILES)
+def test_every_tile_is_the_chain_bitwise_at_a_gate_and_a_step(cuda, tile):
+    """Every tile, both norms and both reps, at a reduced gate projection
+    and at M 4: the unfused kernel chain's bits exactly."""
+    sched = Schedule.make("norm_dense_act", block_m=tile[0],
+                          block_n=tile[1])
+    for shape in (REDUCED_GATE, DECODE_STEP):
+        for i, (norm, rep) in enumerate((a, b) for a in NORMS for b in REPS):
+            mu, second, gain, bias, mu_w, srm_w = _t(
+                _operands(*shape, seed=50 + i, rep=rep), cuda)
+            bias = bias if norm == "layernorm" else None
+            kw = dict(norm=norm, rep=rep, act="silu")
+            got = ops.pfp_norm_dense_act(mu, second, gain, bias, mu_w,
+                                         srm_w, schedule=sched, **kw)
+            chain = unfused_chain(mu, second, gain, bias, mu_w, srm_w, **kw)
+            for g, c in zip(got, chain):
+                assert torch.equal(g, c), (shape, norm, rep, tile)
 
 
 @pytest.mark.gpu

@@ -63,16 +63,18 @@ def test_schedule_validates_and_round_trips():
 def test_candidates_are_the_legal_instantiated_tiles():
     gate = search.candidates(OP, (2048, 4096, 14336), limit=4)
     assert [(s.block("block_m"), s.block("block_n")) for s in gate] == [
-        (128, 64), (64, 128), (64, 64), (32, 64)]
+        (128, 128), (64, 128), (64, 64), (16, 64)]
     decode = search.candidates(OP, (4, 4096, 14336))
     assert [(s.block("block_m"), s.block("block_n")) for s in decode] == [
-        (16, 128), (16, 64)]
+        (16, 64), (8, 128), (4, 64)]
     narrow = search.candidates(OP, (4, 8, 16))
     assert [(s.block("block_m"), s.block("block_n")) for s in narrow] == [
-        (16, 64)]
+        (16, 64), (4, 64)]
     every = search.candidates(OP, (4096, 8, 4096), limit=99)
     assert sorted((s.block("block_m"), s.block("block_n"))
                   for s in every) == sorted(TILES)
+    # Where the unfused chain's dense splits K the unit does not fuse.
+    assert search.candidates(OP, (4, 130, 70)) == []
 
 
 def test_cache_save_load_round_trip(tmp_path):

@@ -13,14 +13,16 @@ and times, with CUDA events around a CUDA graph of ``INNER`` calls
   * where the tree has the fused unit: ``norm_dense_act`` at the gate
     projection and at a 4-slot decode step (4, 4096, 14336), rmsnorm and
     silu, at every instantiated tile, and the unfused kernel chain it
-    replaces at both shapes;
+    replaces at both shapes; each tree's fastest tile is set beside its
+    chain;
   * the dense kernel at every dense shape of LeNet-5 and the MLP at batch
     100, in its three modes (Eq. 12, Eq. 13, Eq. 7), and at granite-8b's
     decode shapes (4, K, N);
   * the batched expert kernel at deepseek-moe-16b's decode shape
     (64, 6, 2048, 1408), with every row of every expert, and (where the
     tree takes ``rows=``) with 24 experts holding one row each, as a
-    4-slot top-6 step at most fills;
+    4-slot top-6 step at most fills; each call's outputs are hashed into
+    the digests;
   * the large regime, Eq. 12 and Eq. 7: the dense kernel at granite-8b's
     five forward shapes at M 2048 (4 x 512 tokens) and at its paged
     prefill's chunks of 128 rows, and the batched kernel at
@@ -42,13 +44,15 @@ and times, with CUDA events around a CUDA graph of ``INNER`` calls
     deepseek-moe-16b (3 layers) at full width, eager, with random
     weights from a seed: ms per step, the median and the least of
     ``STEP_BLOCKS`` blocks of 10 steps (CUDA events around each block),
-    and the device-busy ms per step that torch.profiler sees over 10 more.
+    and the device-busy ms per step that torch.profiler sees over 10 more;
+    and the device-busy ms of one granite-8b forward of 4 x 512 tokens.
 
 Each child also reports which fused calls are not bit for bit the
 unfused chain's, and ptxas' register count and spill stores of every
 instantiation of the norm, fused and dense kernels (from the build's
-``ptxas.log``). The parent prints which large-regime digests differ
-between the trees.
+``ptxas.log``). The parent prints which digests differ between the
+trees, and whether those of rows 1, 2, 10, 11, 12 and 13 (every digest
+but row 9's) are equal in all.
 
 Usage, on the card: give the trees in the order to run them, for an A/B
 parent, change, change, parent::
@@ -93,7 +97,8 @@ LM_CHUNK = tuple((128, k, n) for _, k, n in LM_FORWARD)
 MOE_LARGE = (MOE_FORWARD, (64, 240, 1408, 2048))
 LARGE_MODES = ("srm", "var")
 REG_KERNELS = ("pfp_norm_kernel", "pfp_norm_dense_act_kernel",
-               "pfp_dense_ring_kernel", "pfp_attention_kv_kernel")
+               "pfp_norm_srm_kernel", "pfp_dense_ring_kernel",
+               "pfp_attention_kernel", "pfp_attention_kv_kernel")
 # Rows 10 and 11: (B, H, Hkv, Tq, S, D, q_start, kv_len) by name.
 DECODE_STARTS, DECODE_LENS = (0, 340, 681, 1023), (1, 341, 682, 1024)
 ATTENTION = {
@@ -160,37 +165,41 @@ def _dense(ops, mode, *args):
 
 def _small_regime(ops, draw):
     """The dense kernel at the paper's shapes and at decode shapes, and
-    the batched kernel at the MoE decode shape."""
+    the batched kernel at the MoE decode shape: (times, digests)."""
     import inspect
 
     import torch
-    rows = {}
+    rows, digests = {}, {}
+
+    def timed(name, fn):
+        rows[name] = _device_ms(fn)
+        digests[name] = _digest(fn())
+
     for m, k, n in CNN_DENSE:
         xa, xb = draw(m, k), draw(m, k).abs()
         wa, wb = draw(k, n, scale=0.1), draw(k, n, scale=0.1).abs()
         for mode in MODES:
-            rows[f"dense {mode} {(m, k, n)}"] = _device_ms(
-                lambda: _dense(ops, mode, xa, xb, wa, wb))
+            timed(f"dense {mode} {(m, k, n)}",
+                  lambda: _dense(ops, mode, xa, xb, wa, wb))
     for m, k, n in LM_DECODE:
         xa, xb = draw(m, k), draw(m, k).abs()
         wa, wb = draw(k, n, scale=0.1), draw(k, n, scale=0.1).abs()
-        rows[f"dense srm {(m, k, n)}"] = _device_ms(
-            lambda: ops.pfp_dense(xa, xb, wa, wb))
+        timed(f"dense srm {(m, k, n)}", lambda: ops.pfp_dense(xa, xb, wa, wb))
     del xa, xb, wa, wb
     e, c, k, n = MOE_DECODE
     xa, xb = draw(e, c, k), draw(e, c, k).abs()
     wa, wb = draw(e, k, n, scale=0.1), draw(e, k, n, scale=0.1).abs()
-    rows[f"dense_batched {MOE_DECODE}"] = _device_ms(
-        lambda: ops.pfp_dense_batched(xa, xb, wa, wb))
+    timed(f"dense_batched {MOE_DECODE}",
+          lambda: ops.pfp_dense_batched(xa, xb, wa, wb))
     if "rows" in inspect.signature(ops.pfp_dense_batched).parameters:
         held = torch.zeros(e, dtype=torch.int32, device=xa.device)
         held[::e // 24][:24] = 1        # 24 experts, one row each
         keep = (torch.arange(c, device=xa.device)[None, :, None]
                 < held[:, None, None])
         xa, xb = torch.where(keep, xa, 0.0), torch.where(keep, xb, 0.0)
-        rows[f"dense_batched {MOE_DECODE} 24 experts"] = _device_ms(
-            lambda: ops.pfp_dense_batched(xa, xb, wa, wb, rows=held))
-    return rows
+        timed(f"dense_batched {MOE_DECODE} 24 experts",
+              lambda: ops.pfp_dense_batched(xa, xb, wa, wb, rows=held))
+    return rows, digests
 
 
 def _large_regime(ops, dev):
@@ -359,6 +368,13 @@ def _forwards(dev, cnn=True):
         model = svi_to_pfp(lm.init_params(
             cfg, generator=torch.Generator(device=dev).manual_seed(0),
             device=dev), calibration_factor=0.4)
+        if arch == "granite-8b":   # the forward of 4 x 512 tokens
+            tokens = {"tokens": np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (4, 512))}
+            name = f"forward {arch} ({layers} layers, 4 x 512)"
+            busy = _profile(name, lambda: lm.forward(model, cfg, tokens,
+                                                     ctx), reps=2, warmup=1)
+            rows[f"{name} device busy"] = busy["busy_ms"] if busy else 0.0
         pos = np.asarray([300, 400, 500, 540])
         inputs = {"tokens": np.asarray([[11], [257], [1031], [4099]]),
                   "positions": pos[:, None], "cache_len": pos + 1}
@@ -400,7 +416,7 @@ def child(tree, only=None):
     def draw(*shape, scale=1.0):
         return scale * torch.randn(shape, generator=g, device=dev)
 
-    rows, differ, digests = {}, [], {}
+    rows, differ, digests, fused_best = {}, [], {}, {}
     if only is None:
         m, d = NORM_SHAPE
         mu, var = draw(m, d), draw(m, d).abs()
@@ -419,7 +435,7 @@ def child(tree, only=None):
             for shape in (GATE, DECODE):
                 x_mu, x_var = mu[:shape[0]], var[:shape[0]]
                 args = (x_mu, x_var, gain, None, wm, ws)
-                rows[f"unfused chain {shape}"] = _device_ms(
+                chain_ms = rows[f"unfused chain {shape}"] = _device_ms(
                     lambda: unfused_chain(*args))
                 chain = unfused_chain(*args)
                 for bm, bn in TILES:
@@ -432,11 +448,17 @@ def child(tree, only=None):
                     got = ops.pfp_norm_dense_act(*args, schedule=sched)
                     if not all(torch.equal(x, y) for x, y in zip(got, chain)):
                         differ.append(name)
+                    if str(shape) not in fused_best or \
+                            rows[name] < fused_best[str(shape)][1]:
+                        fused_best[str(shape)] = [(bm, bn), rows[name],
+                                                  chain_ms]
         del mu, var, srm, wm, ws
-        rows.update(_small_regime(ops, draw))
+        small, digests = _small_regime(ops, draw)
+        rows.update(small)
         torch.cuda.empty_cache()
-        large, digests = _large_regime(ops, dev)
+        large, large_digests = _large_regime(ops, dev)
         rows.update(large)
+        digests.update(large_digests)
     att, att_digests, plans = _attention(ops, dev)
     rows.update(att)
     digests.update(att_digests)
@@ -444,6 +466,7 @@ def child(tree, only=None):
     rows.update(_forwards(dev, cnn=only is None))
     log = (Path(_build.BUILD_INFO["directory"]) / "ptxas.log").read_text()
     print(json.dumps({"tree": tree, "ms": rows, "differ_from_chain": differ,
+                      "fused_best": fused_best,
                       "digests": digests, "plans": plans,
                       "registers": _registers(log),
                       "build_s": _build.BUILD_INFO["seconds"]}))
@@ -472,8 +495,8 @@ def main(argv):
                   f"{out.stderr[-4000:]}", file=sys.stderr)
             failed += 1
             runs.append({"tree": tree, "ms": {}, "registers": {},
-                         "digests": {}, "plans": {}, "build_s": None,
-                         "failed": True})
+                         "digests": {}, "plans": {}, "fused_best": {},
+                         "build_s": None, "failed": True})
             continue
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
     print(f"card: {card.strip()}")
@@ -489,6 +512,11 @@ def main(argv):
             print(f"{r['tree']}: build {r['build_s']:.1f} s; not bit for "
                   f"bit the unfused chain: {r['differ_from_chain'] or 'none'}"
                   f"; registers {json.dumps(r['registers'])}")
+        for shape, (tile, ms, chain_ms) in r.get("fused_best", {}).items():
+            print(f"[fused] {Path(r['tree']).name}: {shape} fastest tile "
+                  f"{tuple(tile)} {ms:.4f} ms against the unfused chain's "
+                  f"{chain_ms:.4f} ms: "
+                  + ("no slower" if ms <= chain_ms else "slower"))
     done = [r["digests"] for r in runs if not r.get("failed")]
     differ = sorted(n for n in done[0] if len({d.get(n) for d in done}) > 1
                     ) if done else []
@@ -498,6 +526,11 @@ def main(argv):
     print(f"digests ({len(done[0]) if done else 0} calls): "
           + (f"differ between trees at {differ}" if differ
              else "equal in every tree"))
+    # Every digest but row 9's: the dense kernels (rows 1, 2, 12, 13) and
+    # the cache kernels (rows 10, 11).
+    kept = [n for n in differ if not n.startswith("attention (")]
+    print("digests of rows 1, 2, 10, 11, 12 and 13: "
+          + (f"DIFFER at {kept}" if kept else "equal in every tree"))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "ab_kernel_times.json").write_text(json.dumps(
