@@ -23,7 +23,13 @@ Phases, each printing its own lines; any failure exits non-zero:
               attention kernel without a cache (row 9) at the LM's shape
               and at ragged ones (Tq and Tk on no multiple of its block
               or tile, Tq below and above Tk, G 4 and 1, head_dim 16 and
-              128, causal and not), each twice with the same bits
+              128, causal and not), each twice with the same bits; the
+              activation (five kinds) and the max pool beyond the main-path
+              shapes: stress inputs (point masses, |mu| / sd up to 40, var
+              1e4, mu +-90), operands 1-3 floats off 16 bytes, the pool on
+              SRM input bit for bit to_var() and the VAR kernel, the same
+              bits under other launch plans, and each kernel's error
+              against fp64 no worse than 4x its plain version's
   4. serving: LeNet-5 and MLP at full width (random weights from a seed,
               sigma_init 1e-3, converted with calibration factor 0.4) answer
               Dirty-MNIST batches of 100 per split with impl="kernel"; the
@@ -58,10 +64,13 @@ Phases, each printing its own lines; any failure exits non-zero:
               and at a prefill shape, each with a [plan] line), beside its
               plain version, a one-call PyTorch yardstick and its bound,
               plus its time per eager call and each dense call's plan;
+              the empty kernel's time (csrc/pfp_floor.cu, the floor no
+              launch goes under) beside each activation and pool time, with
+              their bytes, issue and MUFU limits (SASS counts, ACT_SASS);
               whole-model forwards, eager and captured in a CUDA graph
   8. profile: torch.profiler over each model's forwards and one decode
-              step: device busy share and the kernels that take the device
-              time
+              step: device busy share, the device kernels a forward
+              launches and the five that take the most device time
   9. moe    : deepseek-moe-16b at full width (d_model 2048, 16 heads of
               128, 64 routed experts top-6 plus 2 shared, d_ff 1408, vocab
               102400; the one cut: 3 of 28 layers, layer 0 dense and layers
@@ -128,6 +137,12 @@ OUT_DIR = ROOT / "chiprun_out"
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 SIMT flop/s.
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+# The SMs' issue rate (4 schedulers of 32 lanes: 128 thread-instructions a
+# clock) and special-function rate (16 MUFU results a clock), at the SM
+# clock nvidia-smi reports as clocks.max.sm (phase_card sets it; 1980 MHz
+# on the H100 SXM).
+SMS, ISSUE_LANES, MUFU_LANES = 132, 128, 16
+SM_CLOCK_HZ = 1.98e9
 DENSE_TOL = dict(rtol=1e-5, atol=1e-4)       # tests/test_kernels.py
 ELEMENTWISE_TOL = dict(rtol=1e-5, atol=1e-5)
 NORM_TOL = dict(rtol=1e-4, atol=1e-5)        # norms and attention
@@ -135,9 +150,17 @@ MODEL_TOL = dict(mean=(1e-3, 1e-4), var=(1e-2, 1e-5))  # test_impl_dispatch.py
 BATCHES = (10, 100, 1024)
 MAIN_BATCH = 100
 CALIBRATION = 0.4
-# Approximate fp32 operations per element (erf and exp counted as one each).
-ACTIVATION_OPS = {"relu": 20, "silu": 110}   # silu: 8 Gauss-Hermite nodes
-POOL_OPS_PER_OUTPUT = 75
+# (issued instructions, MUFU ops) per element of the activation kernel and
+# per output of the max-pool kernel, counted from their SASS with
+# tools/sass_counts.py (nvcc 12.8, sm_90a): the activation's float4 loop
+# body over its 4 elements, the pool's vec-4 loop body over its 4 channels
+# (the least a thread spends on one: no per-thread set-up in it). Recount
+# when pfp_moments.cuh or pfp_maxpool.cu changes.
+ACT_SASS = {"relu": (63, 3), "gelu": (230, 17), "silu": (134, 17),
+            "tanh": (174, 17), "sigmoid": (126, 17)}
+POOL_SASS = (205, 9)
+SASS_KERNELS = ("activation", "maxpool2d")
+FLOOR_MS = None   # the empty kernel's device ms a launch (phase_times)
 NORM_OPS = {"rmsnorm": 8, "layernorm": 12}
 SOFTMAX_OPS_PER_SCORE = 6   # scale, mask, max, exp, sum, square of p
 # The LM serving phase: granite-8b at full width, cut to LM_LAYERS layers.
@@ -404,7 +427,9 @@ def _cache_pairs(shape):
 
 def work(kernel, shape, rows=None):
     """(bytes, fp32 operations) the function needs: each input read once,
-    each output written once; attention counts the valid scores only, and
+    each output written once (the activation and the max pool count their
+    operations as SASS instructions, in limits()); attention counts the
+    valid scores only, and
     the cache kernels the K / V rows that some query row can see. For the
     batched dense with ``rows`` (kept rows per expert), only the experts
     that hold a row: their weights, their kept rows' inputs and products,
@@ -425,7 +450,7 @@ def work(kernel, shape, rows=None):
         m, k, n = shape
         return (4 * (2 * m * k + k + 2 * k * n + 2 * m * n),
                 6 * m * n * k + NORM_OPS["rmsnorm"] * m * k
-                + ACTIVATION_OPS["silu"] * m * n)
+                + 2 * ACT_SASS["silu"][0] * m * n)   # an issue slot: 2 flops
     if kernel in NORM_OPS:
         rows, d = shape
         vectors = 2 if kernel == "layernorm" else 1
@@ -449,14 +474,45 @@ def work(kernel, shape, rows=None):
         products = 3 if kernel == "dense" else 4
         return (4 * (2 * m * k + 2 * k * n + 2 * m * n),
                 2 * products * m * n * k + m * k + k * n + m * n)
+    _, numel = _elementwise(kernel, shape)
+    if kernel == "activation":
+        return 16 * numel, 0
+    return 4 * (2 * numel + 2 * (numel // 4)), 0
+
+
+def _elementwise(kernel, shape):
+    """(kind, elements) of an activation or max-pool call."""
     kind, dims = _activation_kind(kernel, shape)
     numel = 1
     for d in dims:
         numel *= d
-    if kernel == "activation":
-        return 16 * numel, ACTIVATION_OPS[kind] * numel
-    out = numel // 4
-    return 4 * (2 * numel + 2 * out), POOL_OPS_PER_OUTPUT * out
+    return kind, numel
+
+
+def limits(kernel, shape, rows=None):
+    """{limit: ms}: the least time for the call's work by each limit of the
+    card. Every kernel: its bytes over HBM's rate. The activation and the
+    max pool: their issued instructions over the SMs' issue rate and their
+    MUFU ops over the special-function rate (SASS counts, ACT_SASS and
+    POOL_SASS). The rest: fp32 operations over the fp32 peak."""
+    nbytes, ops = work(kernel, shape, rows)
+    out = {"bytes": nbytes / PEAK_BYTES * 1e3}
+    if kernel in SASS_KERNELS:
+        kind, numel = _elementwise(kernel, shape)
+        count = numel if kernel == "activation" else numel // 4
+        instr, mufu = ACT_SASS[kind] if kernel == "activation" else POOL_SASS
+        out["issue"] = count * instr / (SMS * ISSUE_LANES * SM_CLOCK_HZ) * 1e3
+        out["mufu"] = count * mufu / (SMS * MUFU_LANES * SM_CLOCK_HZ) * 1e3
+    else:
+        out["operations"] = ops / PEAK_FP32 * 1e3
+    return out
+
+
+def _bound(lim):
+    """(bound ms, bound_by, the limit that binds) of a limits() dict:
+    issue and MUFU bounds are operations bounds."""
+    limit = max(lim, key=lim.get)
+    return lim[limit], ("bytes" if limit == "bytes" else "operations"), limit
 
 
 def _activation_kind(kernel, shape):
@@ -465,12 +521,6 @@ def _activation_kind(kernel, shape):
     if kernel == "activation" and isinstance(shape[0], str):
         return shape[0], shape[1:]
     return "relu", shape
-
-
-def bound_ms(kernel, shape, rows=None):
-    nbytes, ops = work(kernel, shape, rows)
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -576,7 +626,10 @@ def operands(kernel, shape, seed, device):
         return (mx, mx, mw, vw)
     kind, dims = _activation_kind(kernel, shape)
     mu, var = gaussian(dims, seed, device)
-    return (mu, var, kind) if kernel == "activation" else (mu, var)
+    if kernel == "activation":
+        return (mu, var, kind)
+    # The pool as the CNN path calls it: on an activation's SRM output.
+    return (mu, var + mu * mu, "srm")
 
 
 def run_kernel(kernel, args, rows=None):
@@ -611,7 +664,7 @@ def run_kernel(kernel, args, rows=None):
     if kernel == "attention_paged":
         return ops.pfp_attention_paged(*args[:7], scale=args[7],
                                        window=args[8])
-    return ops.pfp_maxpool2d(*args)
+    return ops.pfp_maxpool2d(args[0], args[1], rep=args[2])
 
 
 def run_plain(kernel, args, rows=None):
@@ -645,7 +698,9 @@ def run_plain(kernel, args, rows=None):
         return ref.pfp_attention_cache_ref(*args[:7], window=args[7])
     if kernel == "attention_paged":
         return ref.pfp_attention_paged_ref(*args[:8], window=args[8])
-    return ref.pfp_maxpool2d_ref(*args)
+    mu, second, rep = args
+    return ref.pfp_maxpool2d_ref(
+        mu, second - mu * mu if rep == "srm" else second)
 
 
 def library_call(kernel, args):
@@ -755,6 +810,16 @@ def phase_card():
         fail(f"nvidia-smi: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     print(f"[card] {card}")
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()
+    global SM_CLOCK_HZ
+    if clock and clock[0].isdigit():
+        SM_CLOCK_HZ = float(clock[0]) * 1e6
+    print(f"[card] SM clock (clocks.max.sm) {SM_CLOCK_HZ / 1e6:.0f} MHz: "
+          f"{SMS * ISSUE_LANES * SM_CLOCK_HZ / 1e12:.2f} T instructions/s, "
+          f"{SMS * MUFU_LANES * SM_CLOCK_HZ / 1e12:.3f} T MUFU ops/s")
     print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -868,17 +933,7 @@ def phase_kernels(device):
         print(f"[kernels] {kernel:18s} {str(shape):20s} max_abs_err {err:.3e}"
               + ("" if plan is None else f"  plan {plan}"))
         del args, got, want
-    # The Gauss-Hermite kinds share the activation kernel (not on the main
-    # path of these models, checked all the same).
-    mu, var = gaussian((100, 14, 14, 16), 7, device)
-    var[0] = 0.0
-    for kind in ("relu", "gelu", "silu", "tanh", "sigmoid"):
-        got = ops.pfp_activation(mu, var, kind=kind)
-        torch.cuda.synchronize()
-        want = ref.pfp_activation_ref(mu, var, kind)
-        _check_close(f"activation[{kind}]", got, want, ELEMENTWISE_TOL)
-        print(f"[kernels] activation[{kind:7s}] max_abs_err "
-              f"{_max_err(got, want):.3e}")
+    act_pool_checks(device, errs)
     cancellation_check(device)
     m_independence_check(device)
     lm_kernel_checks(device, errs)
@@ -887,6 +942,169 @@ def phase_kernels(device):
     layernorm_offset_check(device)
     moe_kernel_checks(device, errs)
     return errs
+
+
+ACT_KINDS = ("relu", "gelu", "silu", "tanh", "sigmoid")
+
+
+def stress_inputs(device, gauss_hermite, reps=1000):
+    """(mu, var) of the activation's hard cases, each repeated ``reps``
+    times: var 0 and 1e-13 (point masses), |mu| / sd 0, 5 and 40, var 1e4,
+    var just over the floor, and for the Gauss-Hermite kinds mu +-90
+    (exp(90) overflows fp32)."""
+    import torch
+    cases = [(0.0, 0.0), (-1.5, 0.0), (2.0, 1e-13), (-2.0, 1e-13),
+             (0.0, 1.0), (5.0, 1.0), (-5.0, 1.0), (40.0, 1.0), (-40.0, 1.0),
+             (3.0, 1e4), (-300.0, 1e4), (0.5, 2e-12)]
+    if gauss_hermite:
+        cases += [(90.0, 1.0), (-90.0, 1.0), (90.0, 0.0), (-90.0, 1e-13)]
+    mu = torch.tensor([m for m, _ in cases] * reps, device=device)
+    var = torch.tensor([v for _, v in cases] * reps, device=device)
+    return mu, var
+
+
+def _offset_copy(t, k):
+    """``t`` copied into a buffer ``k`` floats past its start: a view that
+    is 16-byte aligned only at k 0."""
+    import torch
+    buf = torch.empty(t.numel() + 4, device=t.device)
+    view = buf[k:k + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _pool64(mu, var):
+    """ref.pfp_maxpool2d_ref's Clark tournament in fp64: W pairs, then H."""
+    import torch
+    from repro_torch.core import pfp_math
+    m, v = mu.double(), var.double()
+    for pair in (lambda t: (t[:, :, 0::2], t[:, :, 1::2]),
+                 lambda t: (t[:, 0::2], t[:, 1::2])):
+        (ma, mb), (va, vb) = pair(m), pair(v)
+        m, srm = pfp_math.clark_max_moments(ma, va, mb, vb)
+        v = torch.clamp(srm - m * m, min=0.0)
+    return m, v
+
+
+def act_pool_checks(device, errs):
+    """Rows 3 and 4 beyond the main-path shapes: the five activation kinds
+    on random and on stress inputs, operands offset by 1-3 floats (no
+    float4), the pool on VAR and SRM input (SRM bit for bit to_var() and
+    the VAR kernel), the same bits under other launch plans, and each
+    kernel's error against fp64 beside its plain version's (the kernel no
+    worse than 4x the plain version, as the dense kernel's cancellation
+    check asks; the pool's stress windows are held to that alone).
+    Updates ``errs``."""
+    import torch
+    from repro_torch.core.gaussian import SRM, GaussianTensor
+    from repro_torch.core.dispatch import pfp_maxpool2d as pool_op
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ref import ACTIVATION_REFS
+    from repro_torch.kernels.pfp_activations import (ElementwisePlan,
+                                                     pfp_activation_cuda)
+    from repro_torch.kernels.pfp_maxpool import pfp_maxpool2d_cuda
+
+    def held(name, kernel, got, want, tol=ELEMENTWISE_TOL):
+        torch.cuda.synchronize()
+        _check_close(name, got, want, tol)
+        errs[kernel] = max(errs[kernel], _max_err(got, want))
+        return _max_err(got, want)
+
+    def fp64_errs(name, got, plain, exact):
+        err_k = _max_err([g.double() for g in got], exact)
+        err_p = _max_err([p.double() for p in plain], exact)
+        print(f"[kernels] {name} vs fp64: kernel max_abs_err {err_k:.3e}, "
+              f"fp32 plain {err_p:.3e}")
+        if err_k > 4 * max(err_p, 1e-9):
+            fail(f"{name}: kernel err {err_k:.3e} against fp64 > 4 x the "
+                 f"plain version's {err_p:.3e}")
+
+    mu, var = gaussian((100, 14, 14, 16), 7, device)
+    var[0] = 0.0
+    for kind in ACT_KINDS:
+        got = ops.pfp_activation(mu, var, kind=kind)
+        want = ref.pfp_activation_ref(mu, var, kind)
+        err = held(f"activation[{kind}]", "activation", got, want)
+        fp64_errs(f"activation[{kind:7s}] (100, 14, 14, 16)", got, want,
+                  ACTIVATION_REFS[kind](mu.double(), var.double()))
+        smu, svar = stress_inputs(device, kind != "relu")
+        sgot = ops.pfp_activation(smu, svar, kind=kind)
+        swant = ref.pfp_activation_ref(smu, svar, kind)
+        serr = held(f"activation[{kind}] stress", "activation", sgot, swant)
+        fp64_errs(f"activation[{kind:7s}] stress", sgot, swant,
+                  ACTIVATION_REFS[kind](smu.double(), svar.double()))
+        # Misaligned: every pointer 1-3 floats off 16 bytes.
+        off = 0.0
+        for k in (1, 2, 3):
+            a, b = _offset_copy(mu, k), _offset_copy(var, k)
+            off = max(off, held(f"activation[{kind}] offset {k}",
+                                "activation", ops.pfp_activation(a, b,
+                                                                 kind=kind),
+                                want))
+        # The same bits under other plans: groups of 4 over 3 blocks, one
+        # element a thread in blocks of 64, 7 blocks that stride.
+        n = mu.numel()
+        first = pfp_activation_cuda(mu, var, kind=kind)
+        for plan in (ElementwisePlan(4, 256, 3), ElementwisePlan(1, 64,
+                                                                 -(-n // 64)),
+                     ElementwisePlan(1, 256, 7)):
+            other = pfp_activation_cuda(mu, var, kind=kind, plan=plan)
+            if not all(torch.equal(a, b) for a, b in zip(first, other)):
+                fail(f"activation[{kind}]: plan {tuple(plan)} changes bits")
+        print(f"[kernels] activation[{kind:7s}] max_abs_err {err:.3e}, "
+              f"stress {serr:.3e}, offset 1-3 floats {off:.3e}; bits equal "
+              f"under 4 plans")
+    for batch in BATCHES:
+        for shape in ((batch, 28, 28, 6), (batch, 14, 14, 16)):
+            mu, var = gaussian(shape, batch + shape[3], device)
+            var[0, :2] = 0.0                     # deterministic windows
+            srm = var + mu * mu
+            want = ref.pfp_maxpool2d_ref(mu, var)
+            got = ops.pfp_maxpool2d(mu, var)
+            err = held(f"maxpool2d var {shape}", "maxpool2d", got, want)
+            x = GaussianTensor(mu, srm, SRM)
+            got_srm = ops.pfp_maxpool2d(mu, srm, rep="srm")
+            via = ops.pfp_maxpool2d(mu, x.to_var().second)
+            if not all(torch.equal(a, b) for a, b in zip(got_srm, via)):
+                fail(f"maxpool2d {shape}: SRM input is not bit for bit "
+                     f"to_var() and the VAR kernel")
+            op = pool_op(x, impl="kernel")
+            if not (torch.equal(op.mean, via[0]) and
+                    torch.equal(op.second, via[1])):
+                fail(f"maxpool2d {shape}: the kernel impl on SRM input is "
+                     f"not bit for bit to_var() and the VAR kernel")
+            off = 0.0
+            for k in (1, 2, 3):
+                a, b = _offset_copy(mu, k), _offset_copy(srm, k)
+                off = max(off, held(
+                    f"maxpool2d srm {shape} offset {k}", "maxpool2d",
+                    ops.pfp_maxpool2d(a, b, rep="srm"),
+                    ref.pfp_maxpool2d_ref(a, b - a * a)))
+            units = mu.numel() // 4
+            for plan in (ElementwisePlan(1, 64, -(-units // 64)),
+                         ElementwisePlan(2, 256, 5)):
+                other = pfp_maxpool2d_cuda(mu, srm, rep="srm", plan=plan)
+                if not all(torch.equal(a, b) for a, b in zip(got_srm,
+                                                              other)):
+                    fail(f"maxpool2d {shape}: plan {tuple(plan)} changes "
+                         f"bits")
+            if batch == MAIN_BATCH:
+                fp64_errs(f"maxpool2d {shape}", got, want, _pool64(mu, var))
+            print(f"[kernels] maxpool2d {str(shape):18s} var max_abs_err "
+                  f"{err:.3e}, offset 1-3 floats {off:.3e}; SRM input bit "
+                  f"for bit to_var() + the VAR kernel; bits equal under 3 "
+                  f"plans")
+    # Windows of the stress cases: where a Clark max's variance is a small
+    # difference of two large moments (|mu| / sd 40) every fp32 version
+    # loses digits, so the kernel is held against fp64 there.
+    smu, svar = stress_inputs(device, False, reps=600)   # 7200 = 75 x 96
+    smu, svar = smu.view(75, 4, 4, 6), svar.view(75, 4, 4, 6)
+    sgot = ops.pfp_maxpool2d(smu, svar)
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(t).all() for t in sgot) or sgot[1].min() < 0:
+        fail("maxpool2d stress: non-finite or negative variance")
+    fp64_errs("maxpool2d stress (75, 4, 4, 6)", sgot,
+              ref.pfp_maxpool2d_ref(smu, svar), _pool64(smu, svar))
 
 
 def moe_kernel_checks(device, errs):
@@ -2008,7 +2226,10 @@ def _time_row(label, kernel, shape, device, inner=10, replays=5,
         "call_ms": time_ms(lambda: run_kernel(kernel, args, rows_t),
                            call_iters, min(3, call_iters)),
     }
-    row["bound_ms"], row["bound_by"] = bound_ms(kernel, shape, rows)
+    lim = limits(kernel, shape, rows)
+    row["bound_ms"], row["bound_by"], row["bound_limit"] = _bound(lim)
+    if kernel in SASS_KERNELS:
+        row["limits"], row["floor_ms"] = lim, FLOOR_MS
     plan = dense_plan_of(kernel, shape)
     if plan is not None:
         row["plan"] = list(plan)
@@ -2020,10 +2241,13 @@ def _time_row(label, kernel, shape, device, inner=10, replays=5,
     plan_s = "" if plan is None else f"  plan {plan}"
     occ_s = ("" if rows is None else
              f"  ({sum(1 for r in rows if r)} experts hold {sum(rows)} rows)")
+    floor_s = ("" if kernel not in SASS_KERNELS else
+               f"  floor {FLOOR_MS:.4f}  (bytes {lim['bytes']:.5f}, issue "
+               f"{lim['issue']:.5f}, mufu {lim['mufu']:.5f})")
     print(f"[times] B={label:<5} {kernel:18s} {str(shape):36s} kernel "
           f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f}  library {lib_s}"
-          f"  bound {row['bound_ms']:.5f} ({row['bound_by']})  eager call "
-          f"{row['call_ms']:.4f}{plan_s}{occ_s}")
+          f"  bound {row['bound_ms']:.5f} ({row['bound_limit']})  eager call "
+          f"{row['call_ms']:.4f}{plan_s}{occ_s}{floor_s}")
     return row
 
 
@@ -2037,7 +2261,12 @@ def phase_times(device, lm_cfg, lm_model):
     import torch
     from repro_torch.core.modes import Mode
     from repro_torch.models import lm
+    from repro_torch.kernels._launch import launch_empty
     from repro_torch.nn.module import Context
+    global FLOOR_MS
+    FLOOR_MS = device_ms(lambda: launch_empty(device))
+    print(f"[times] empty kernel (csrc/pfp_floor.cu): {FLOOR_MS:.4f} ms a "
+          f"launch in a CUDA graph, the floor no launch goes under")
     rows = []
     for batch in BATCHES:
         seen = set()
@@ -2132,13 +2361,16 @@ def _profile(label, fn, reps, warmup):
         print(f"[profile] {label}: the profiler saw no device time")
         return None
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    launched = sum(e.count for e in kernels) / reps
     print(f"[profile] {label}, {reps} forwards: wall {wall_ms / reps:.4f} ms, "
           f"device busy {busy_ms / reps:.4f} ms per forward "
-          f"({100 * busy_ms / wall_ms:.1f}% busy)")
+          f"({100 * busy_ms / wall_ms:.1f}% busy), {launched:g} device "
+          f"kernels per forward; the top five:")
     for e in top:
         print(f"[profile]   {e.self_device_time_total / 1e3 / reps:9.4f}"
               f" ms x{e.count // reps:<3d} {e.key[:80]}")
     return {"wall_ms": wall_ms / reps, "busy_ms": busy_ms / reps,
+            "kernels": launched,
             "top": [(e.key, e.self_device_time_total / 1e3 / reps,
                      e.count // reps) for e in top]}
 
@@ -2582,13 +2814,14 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg):
         out = {"ms": sum(r["ms"] for r in calls),
                "plain_ms": sum(r["plain_ms"] for r in calls),
                "library_ms": None if None in lib else sum(lib)}
-        t_bytes = t_ops = 0.0
+        lim = {}
         for r in calls:
-            nbytes, ops = work(kernel, tuple(r["shape"]), r.get("rows"))
-            t_bytes += nbytes / PEAK_BYTES * 1e3
-            t_ops += ops / PEAK_FP32 * 1e3
-        out["bound_ms"] = max(t_bytes, t_ops)
-        out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            for name, ms in limits(kernel, tuple(r["shape"]),
+                                   r.get("rows")).items():
+                lim[name] = lim.get(name, 0.0) + ms
+        out["bound_ms"], out["bound_by"], out["bound_limit"] = _bound(lim)
+        if kernel in SASS_KERNELS:   # no launch goes under the floor
+            out["floor_ms"] = FLOOR_MS * len(calls)
         return out
 
     out = []

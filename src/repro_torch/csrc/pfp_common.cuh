@@ -12,6 +12,8 @@ namespace pfp {
 constexpr float kVarEps = 1e-12f;                  // core/gaussian.py VAR_EPS
 constexpr float kSqrt2 = 1.41421356237309504880f;
 constexpr float kSqrt2Pi = 2.50662827463100050242f;
+constexpr float kInvSqrt2 = 0.70710678118654752440f;
+constexpr float kInvSqrt2Pi = 0.39894228040143267794f;
 
 // Every launcher returns the launch's own error (0 on success); the Python
 // wrapper raises on anything else. A refused launch never runs, so this is

@@ -38,9 +38,10 @@ _SIGNATURES = {
                          _I, _I, _I, _P],
     "pfp_dense_batched_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _L, _L, _I, _I, _I, _I, _I, _P],
-    "pfp_activation_launch": [_I, _P, _P, _P, _P, _L, _P],
+    "pfp_activation_launch": [_I, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     "pfp_glu_launch": [_P, _P, _P, _P, _P, _P, _L, _P],
-    "pfp_maxpool2d_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "pfp_maxpool2d_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P],
     "pfp_norm_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "pfp_norm_dense_act_launch": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                                   _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
@@ -50,6 +51,7 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                                 _I, _P],
     "pfp_attention_kv_block": [_I, _I, _I, _P, _P],
+    "pfp_empty_launch": [_P],
 }
 
 

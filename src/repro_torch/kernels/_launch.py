@@ -43,3 +43,14 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch_empty(device: torch.device) -> None:
+    """Launch ``csrc/pfp_floor.cu``'s empty kernel on ``device``: what one
+    launch costs the device when the kernel does nothing. Measurement
+    only; it is on no path and has no launch count."""
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    with torch.cuda.device(device):
+        status = lib.pfp_empty_launch(stream_ptr(device))
+    _build.check(status, "pfp_empty_launch")

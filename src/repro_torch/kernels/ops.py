@@ -96,11 +96,17 @@ def pfp_activation(mu, var, *, kind: str = "relu"):
     return ref.pfp_activation_ref(mu, var, kind)
 
 
-def pfp_maxpool2d(mu, var):
-    """2x2/2 PFP max pool on NHWC. Returns (mean, var)."""
+def pfp_maxpool2d(mu, second, *, rep: str = "var"):
+    """2x2/2 PFP max pool on NHWC. ``second`` is the variance, or E[x^2]
+    with ``rep="srm"`` (converted as ``GaussianTensor.to_var()`` does).
+    Returns (mean, var)."""
     if _on_cuda(mu):
-        return pfp_maxpool2d_cuda(mu, var)
-    return ref.pfp_maxpool2d_ref(mu, var)
+        return pfp_maxpool2d_cuda(mu, second, rep=rep)
+    if rep == "srm":
+        second = second - torch.square(mu)
+    elif rep != "var":
+        raise ValueError(f"unknown rep {rep!r}")
+    return ref.pfp_maxpool2d_ref(mu, second)
 
 
 def pfp_rmsnorm(mu, second, gain, *, rep: str = "var", eps: float = 1e-6,

@@ -5,7 +5,7 @@ parent) in one run, so that both see the same card, clocks and power
 limit. Each tree is timed in a child process of its own, which imports
 that tree's package, builds its kernels into the tree's own ``build/``
 and times, with CUDA events around a CUDA graph of ``INNER`` calls
-(median of ``REPLAYS`` replays):
+(``ACT_INNER`` for rows 3 and 4; median of ``REPLAYS`` replays):
 
   * ``rmsnorm``: the norm kernel at granite-8b's (2048, 4096), VAR input;
   * ``dense``: the Eq. 12 dense kernel at the gate projection
@@ -39,7 +39,16 @@ and times, with CUDA events around a CUDA graph of ``INNER`` calls
     the operands, over ``COLD_BYTES`` in all), with the plan where the
     tree has one, and row 9 (no cache) at granite's prefill; each call's
     outputs are hashed into the digests;
+  * rows 3 and 4, the activation and the max-pool kernels: relu at the
+    six activation shapes of LeNet-5 and the MLP, the pool at LeNet-5's
+    two pool shapes, each at batch 10, 100 and 1024, and silu at
+    granite-8b's (2048, 14336); the pool on VAR input and on SRM input,
+    where the tree takes it (``rep=``), else as the CNN path ran it then
+    (``to_var()``'s two launches and the pool); each call's outputs are
+    hashed into the digests; and, where the tree has it, the empty
+    kernel (``csrc/pfp_floor.cu``): the floor no launch goes under;
   * LeNet-5 and the MLP forwards (batch 10, 100, 1024) in a CUDA graph,
+    each with the device kernels one forward launches (torch.profiler),
     and one 4-slot decode step of granite-8b (2 layers) and of
     deepseek-moe-16b (3 layers) at full width, eager, with random
     weights from a seed: ms per step, the median and the least of
@@ -51,8 +60,8 @@ Each child also reports which fused calls are not bit for bit the
 unfused chain's, and ptxas' register count and spill stores of every
 instantiation of the norm, fused and dense kernels (from the build's
 ``ptxas.log``). The parent prints which digests differ between the
-trees, and whether those of rows 1, 2, 10, 11, 12 and 13 (every digest
-but row 9's) are equal in all.
+trees, and whether those of rows 1, 2 and 9-13 (every digest but rows
+3 and 4's) are equal in all.
 
 Usage, on the card: give the trees in the order to run them, for an A/B
 parent, change, change, parent::
@@ -60,7 +69,8 @@ parent, change, change, parent::
     python3 tools/ab_kernel_times.py build/ab/parent build/ab/change \\
         build/ab/change build/ab/parent
 
-``--only attention`` times rows 9-11 and the two decode steps alone.
+``--only attention`` times rows 9-11 and the two decode steps alone;
+``--only act_pool`` rows 3 and 4, the floor and the CNN forwards.
 
 A tree is a directory holding ``src/repro_torch`` (``git archive <rev>
 src/repro_torch | tar -x -C <dir>``). The rows go to stdout and, in full,
@@ -77,6 +87,9 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 from chip_smoke import _profile, ptxas_registers  # noqa: E402
 INNER, REPLAYS = 5, 5
+# Rows 3 and 4 and the empty kernel: a few microseconds a call, so more
+# calls a graph, which spreads each replay's own launch over them.
+ACT_INNER = 40
 STEP_BLOCKS = 5   # blocks of 10 eager decode steps, each timed alone
 NORM_SHAPE = (2048, 4096)
 GATE, DECODE = (2048, 4096, 14336), (4, 4096, 14336)
@@ -113,19 +126,25 @@ ATTENTION = {
     "granite chunk": (1, 32, 8, 128, 1024, 128, (384,), (512,)),
 }
 PAGE = 16
+# Rows 3 and 4 at LeNet-5's and the MLP's shapes, (B, ...) at each batch;
+# granite-8b's silu.
+CNN_BATCHES = (10, 100, 1024)
+ACT_SHAPES = ((28, 28, 6), (14, 14, 16), (120,), (84,), (100,))
+POOL_SHAPES = ((28, 28, 6), (14, 14, 16))
+LM_SILU = (2048, 14336)
 COLD_COPIES, COLD_BYTES = 4, 100e6
 ROW9 = (4, 32, 8, 512, 128)   # (B, H, Hkv, T, D), causal
 
 
-def _device_ms(fn):
+def _device_ms(fn, inner=INNER):
     """Median ms per call of ``fn`` over REPLAYS replays of a CUDA graph of
-    INNER calls."""
+    ``inner`` calls."""
     import torch
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(INNER):
+        for _ in range(inner):
             fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -137,7 +156,7 @@ def _device_ms(fn):
         graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / INNER)
+        times.append(start.elapsed_time(end) / inner)
     return sorted(times)[len(times) // 2]
 
 
@@ -311,6 +330,61 @@ def _attention(ops, dev):
     return rows, digests, plans
 
 
+def _act_pool(ops, dev):
+    """Rows 3 and 4 and the empty kernel: (times, digests). Operands from
+    a generator seeded by the shape, so every tree sees the same ones."""
+    import inspect
+
+    import torch
+    from repro_torch.kernels import _launch
+    rows, digests = {}, {}
+    if hasattr(_launch, "launch_empty"):
+        rows["empty kernel (floor)"] = _device_ms(
+            lambda: _launch.launch_empty(dev), ACT_INNER)
+
+    def operands(shape):
+        g = torch.Generator(device=dev).manual_seed(sum(shape))
+        mu = torch.randn(shape, generator=g, device=dev)
+        return mu, torch.randn(shape, generator=g, device=dev).abs()
+
+    def timed(name, fn):
+        rows[name] = _device_ms(fn, ACT_INNER)
+        digests[name] = _digest(fn())
+
+    calls = [("relu", (b, *s)) for b in CNN_BATCHES for s in ACT_SHAPES]
+    for kind, shape in calls + [("silu", LM_SILU)]:
+        mu, var = operands(shape)
+        timed(f"activation {kind} {shape}",
+              lambda: ops.pfp_activation(mu, var, kind=kind))
+    srm_in = "rep" in inspect.signature(ops.pfp_maxpool2d).parameters
+    for shape in ((b, *s) for b in CNN_BATCHES for s in POOL_SHAPES):
+        mu, var = operands(shape)
+        timed(f"maxpool2d var {shape}", lambda: ops.pfp_maxpool2d(mu, var))
+        srm = var + mu * mu
+        if srm_in:
+            timed(f"maxpool2d srm {shape}",
+                  lambda: ops.pfp_maxpool2d(mu, srm, rep="srm"))
+        else:   # what the CNN path ran: to_var()'s two launches, the pool
+            timed(f"maxpool2d srm {shape}",
+                  lambda: ops.pfp_maxpool2d(mu, srm - torch.square(mu)))
+    return rows, digests
+
+
+def _kernels_per_call(fn, reps=5):
+    """Device kernels (and copies) one call of ``fn`` launches, as
+    torch.profiler sees them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / reps
+
+
 def _cold_ms(fn, sets):
     """Median ms per call over REPLAYS replays of a CUDA graph that calls
     ``fn`` once on each operand set in turn: each call finds its operands
@@ -337,9 +411,9 @@ def _cold_ms(fn, sets):
     return sorted(times)[len(times) // 2]
 
 
-def _forwards(dev, cnn=True):
-    """CNN forwards in a CUDA graph (with ``cnn``); LM decode steps,
-    eager."""
+def _forwards(dev, cnn=True, lm_steps=True):
+    """CNN forwards in a CUDA graph and their device kernels (with
+    ``cnn``); LM decode steps, eager (with ``lm_steps``)."""
     import dataclasses
 
     import numpy as np
@@ -362,7 +436,10 @@ def _forwards(dev, cnn=True):
             x = x[..., None] if name == "lenet5" else x.reshape(b, -1)
             rows[f"forward {name} B={b} (CUDA graph)"] = _device_ms(
                 lambda: model(x, ctx))
-    for arch, layers in (("granite-8b", 2), ("deepseek-moe-16b", 3)):
+            rows[f"forward {name} B={b} device kernels"] = \
+                _kernels_per_call(lambda: model(x, ctx))
+    for arch, layers in (("granite-8b", 2), ("deepseek-moe-16b", 3)) \
+            if lm_steps else ():
         cfg = dataclasses.replace(get_config(arch), num_layers=layers,
                                   sigma_init=1e-3)
         model = svi_to_pfp(lm.init_params(
@@ -417,6 +494,8 @@ def child(tree, only=None):
         return scale * torch.randn(shape, generator=g, device=dev)
 
     rows, differ, digests, fused_best = {}, [], {}, {}
+    if only in (None, "act_pool"):
+        rows, digests = _act_pool(ops, dev)
     if only is None:
         m, d = NORM_SHAPE
         mu, var = draw(m, d), draw(m, d).abs()
@@ -453,17 +532,21 @@ def child(tree, only=None):
                         fused_best[str(shape)] = [(bm, bn), rows[name],
                                                   chain_ms]
         del mu, var, srm, wm, ws
-        small, digests = _small_regime(ops, draw)
+        small, small_digests = _small_regime(ops, draw)
         rows.update(small)
+        digests.update(small_digests)
         torch.cuda.empty_cache()
         large, large_digests = _large_regime(ops, dev)
         rows.update(large)
         digests.update(large_digests)
-    att, att_digests, plans = _attention(ops, dev)
-    rows.update(att)
-    digests.update(att_digests)
-    torch.cuda.empty_cache()
-    rows.update(_forwards(dev, cnn=only is None))
+    plans = {}
+    if only in (None, "attention"):
+        att, att_digests, plans = _attention(ops, dev)
+        rows.update(att)
+        digests.update(att_digests)
+        torch.cuda.empty_cache()
+    rows.update(_forwards(dev, cnn=only != "attention",
+                          lm_steps=only != "act_pool"))
     log = (Path(_build.BUILD_INFO["directory"]) / "ptxas.log").read_text()
     print(json.dumps({"tree": tree, "ms": rows, "differ_from_chain": differ,
                       "fused_best": fused_best,
@@ -526,11 +609,14 @@ def main(argv):
     print(f"digests ({len(done[0]) if done else 0} calls): "
           + (f"differ between trees at {differ}" if differ
              else "equal in every tree"))
-    # Every digest but row 9's: the dense kernels (rows 1, 2, 12, 13) and
-    # the cache kernels (rows 10, 11).
-    kept = [n for n in differ if not n.startswith("attention (")]
-    print("digests of rows 1, 2, 10, 11, 12 and 13: "
+    # Every digest but rows 3 and 4's: the dense kernels (rows 1, 2, 12,
+    # 13) and the attention kernels (rows 9, 10, 11).
+    act_pool = ("activation ", "maxpool2d ")
+    kept = [n for n in differ if not n.startswith(act_pool)]
+    print("digests of rows 1, 2 and 9-13: "
           + (f"DIFFER at {kept}" if kept else "equal in every tree"))
+    moved = [n for n in differ if n.startswith(act_pool)]
+    print(f"digests of rows 3 and 4: {len(moved)} differ between trees")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "ab_kernel_times.json").write_text(json.dumps(
