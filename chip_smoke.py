@@ -119,6 +119,29 @@ Phases, each printing its own lines; any failure exits non-zero:
               tuned DB, fused at every unit and unfused; row 8 at the gate
               and decode shapes beside the unfused chain.
 
+ 11. train  : the paper's Table-1 pipeline on the card, as the reference's
+              benchmarks/common.py trained_paper_models and
+              bench_table1_quality.py run it at quick=False: the MLP
+              784-100-100-10 and LeNet-5 (sigma_init 1e-3) SVI-trained on
+              Dirty-MNIST (4000 images, batches of 100, 60 epochs, Adam
+              3e-3, KLSchedule(0.25, 150), every eps from a seeded CUDA
+              generator); DET accuracy; SVI-30 accuracy and MI-AUROC (OOD
+              vs clean, 1000 images each); svi_to_pfp at each calibration
+              factor of TABLE1_CANDIDATES, the PFP forward on the kernels
+              (impl="kernel"), Eq. 11 with 30 samples, the factor with the
+              best MI-AUROC. It fails unless the NLL halves, DET accuracy
+              is above 0.6, |SVI - PFP| accuracy is under 0.08, PFP
+              MI-AUROC is above 0.6, the calibrated kernel logits on the
+              trained weights are no further from an fp64 eager forward
+              than FP64_FACTOR times the fp32 eager impl's (formulations
+              srm and var; the share outside MODEL_TOL of the eager impl
+              is printed) and rows 1-4 launched. Then granite-8b at full
+              width (2 of 36 layers): SVI train steps of Adam(1e-3,
+              clip_norm=1.0) on TokenPipeline batches of 1 x 256 tokens;
+              every loss and gradient norm finite, every parameter changed
+              by step 1, step 1 run again from the same state and seed
+              gives the same loss; step ms and peak memory printed
+
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and a last JSON line ``{"ok": true, "device": {...}}``. Full numbers go to
 chiprun_out/chip_smoke.json.
@@ -226,6 +249,17 @@ SCHEDULE_DB = ROOT / "build" / "schedules" / "granite-8b.json"
 # the launch-count label of the fused runs with each DB.
 FORCED_DB = SCHEDULE_DB.with_name("granite-8b.forced.json")
 FUSED_RUNS = {"tuned": "fused", "forced": "fused_forced"}
+# The train phase: the paper's Table-1 pipeline as the reference's
+# benchmarks/common.py trained_paper_models and bench_table1_quality.py run
+# it at quick=False (SVI training, SVI-30, calibrated PFP with Eq. 11), then
+# SVI train steps of granite-8b at full width (LM_LAYERS layers) as its
+# launch/programs.py train program sets them (Adam 1e-3 clipped at 1.0,
+# num_data batch x seq x 1000, KL annealed over 1000 steps; fp32, no remat).
+TRAIN_N, EVAL_N, TRAIN_EPOCHS, TRAIN_BATCH = 4000, 1000, 60, 100
+TABLE1_SAMPLES = 30
+TABLE1_CANDIDATES = (0.1, 0.2, 0.3, 0.4, 0.5, 0.7, 1.0, 1.5, 2.0)
+FP64_FACTOR = 4   # kernel impl's error from fp64 against the eager impl's
+LM_TRAIN_SEQ, LM_TRAIN_STEPS = 256, 3
 # K on both sides of the dense kernel's split boundaries (kernels/pfp_dense.py
 # split_k at N 100: 1 to K 64, 2 to 96, 3 from 97, 7 at 784, 8 from 785).
 SPLIT_CHECK_K = (1, 17, 64, 65, 96, 97, 127, 129, 783, 784, 785)
@@ -2773,6 +2807,311 @@ def phase_fused(device, seed, errs):
     return launches, info, rows
 
 
+# ---------------------------------------------------------------------------
+# Training: the paper's Table-1 pipeline end to end, granite-8b's SVI steps
+# ---------------------------------------------------------------------------
+def _event_ms(pairs):
+    """Elapsed ms of each (start, end) CUDA event pair (after a sync)."""
+    return [a.elapsed_time(b) for a, b in pairs]
+
+
+def _svi_train(name, model, view, x_train, y_train, device):
+    """SVI-train ``model`` as the reference's trained_paper_models does:
+    Adam 3e-3, KLSchedule(0.25, 150), batches of TRAIN_BATCH for
+    TRAIN_EPOCHS epochs (the port's ``batches``, on the card), every eps
+    from one seeded CUDA generator. Returns a dict of what it printed."""
+    import numpy as np
+    import torch
+    from repro_torch.bayes.variational import KLSchedule
+    from repro_torch.data.dirty_mnist import batches
+    from repro_torch.training.optimizer import Adam
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_svi_train_step)
+    opt = Adam(learning_rate=3e-3)
+    step = make_svi_train_step(
+        lambda m, batch, ctx: (m(view(batch["x"]), ctx), 0.0), opt,
+        num_data=TRAIN_N, kl_schedule=KLSchedule(0.25, 150))
+    state = init_train_state(model, opt)
+    order = torch.from_numpy(np.stack([
+        i for i, _ in batches(np.arange(len(x_train)), None, TRAIN_BATCH,
+                              epochs=TRAIN_EPOCHS)])).to(device)
+    gen = torch.Generator(device=device).manual_seed(7)
+    events, nll = [], []
+    t0 = time.perf_counter()
+    for rows in order:
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        state, metrics = step(state, {"x": x_train[rows],
+                                      "targets": y_train[rows]}, gen)
+        pair[1].record()
+        events.append(pair)
+        nll.append(metrics["nll"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = _event_ms(events)
+    nll = torch.stack(nll).cpu()
+    last = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(list(last.values()))) or \
+            not torch.isfinite(nll).all():
+        fail(f"{name}: non-finite training metrics {last}")
+    info = {"steps": state.step, "step_ms_median": float(np.median(ms)),
+            "step_ms_p90": float(np.percentile(ms, 90)), "wall_s": wall,
+            "first_nll": float(nll[0]), "last_nll": float(nll[-1]),
+            "last": last}
+    print(f"[train] {name}: {state.step} SVI steps in {wall:.2f} s; step "
+          f"{info['step_ms_median']:.4f} ms median, "
+          f"{info['step_ms_p90']:.4f} p90 (eager, CUDA events); NLL "
+          f"{info['first_nll']:.4f} -> {info['last_nll']:.4f}, final KL "
+          f"{last['kl']:.4f} (per datum), loss {last['loss']:.4f}, "
+          f"grad norm {last['grad_norm']:.4f}")
+    if not info["last_nll"] < 0.5 * info["first_nll"]:
+        fail(f"{name}: the NLL did not halve ({info['first_nll']:.4f} -> "
+             f"{info['last_nll']:.4f})")
+    return info
+
+
+def _table1(name, model, view, evals, device):
+    """Table 1 on the trained ``model``: DET accuracy, SVI-30 accuracy and
+    MI-AUROC (OOD vs clean), PFP through the kernels with the calibration
+    factor searched by MI-AUROC (Eq. 11, TABLE1_SAMPLES samples), and the
+    calibrated kernel logits held against the eager impl under both
+    formulations and an fp64 forward. Runs under no_grad."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.bayes import metrics as bm
+    from repro_torch.bayes.convert import fit_calibration_factor, svi_to_pfp
+    from repro_torch.core.modes import Mode
+    from repro_torch.nn.module import Context
+    xc, yc = (torch.from_numpy(a).to(device) for a in evals["clean"])
+    xo = torch.from_numpy(evals["ood"][0]).to(device)
+    xc, xo, yc = view(xc), view(xo), yc.cpu().numpy()
+
+    det = model(xc, Context(mode=Mode.DETERMINISTIC, device=device))
+    det_acc = bm.accuracy(det.argmax(-1), yc)
+    svi = Context(mode=Mode.SVI, device=device,
+                  generator=torch.Generator(device=device).manual_seed(100))
+    svi_c = bm.predictive_metrics_from_samples(torch.stack(
+        [model(xc, svi) for _ in range(TABLE1_SAMPLES)]))
+    svi_o = bm.predictive_metrics_from_samples(torch.stack(
+        [model(xo, svi) for _ in range(TABLE1_SAMPLES)]))
+    svi_acc = bm.accuracy(svi_c["pred"], yc)
+    svi_auroc = bm.auroc(svi_o["mi"], svi_c["mi"])
+
+    pfp = {}
+
+    def eval_cal(cal):
+        converted = svi_to_pfp(model, calibration_factor=cal)
+        ctx = Context(mode=Mode.PFP, impl="kernel", device=device)
+        oc, oo = converted(xc, ctx), converted(xo, ctx)
+        mc = bm.pfp_predictive_metrics(
+            torch.Generator(device=device).manual_seed(5), oc.mean, oc.var,
+            TABLE1_SAMPLES)
+        mo = bm.pfp_predictive_metrics(
+            torch.Generator(device=device).manual_seed(6), oo.mean, oo.var,
+            TABLE1_SAMPLES)
+        pfp[cal] = (converted, bm.accuracy(mc["pred"], yc),
+                    bm.auroc(mo["mi"], mc["mi"]))
+        return pfp[cal][2]
+
+    cal, pfp_auroc = fit_calibration_factor(eval_cal,
+                                            candidates=TABLE1_CANDIDATES)
+    converted, pfp_acc, _ = pfp[cal]
+    # The kernel impl against the eager impl, both in fp32, and both
+    # against the eager impl in fp64 on the same converted weights. On the
+    # trained LeNet-5 both fp32 impls sit about 1e-3 from the fp64 logits
+    # (Clark's max of nearly equal, nearly certain inputs cancels), ten
+    # times MODEL_TOL's atol, so two right impls may differ by more than
+    # MODEL_TOL there: the gate is that the kernel impl is no further from
+    # fp64 than FP64_FACTOR times the eager impl, and MODEL_TOL is printed.
+    exact = copy.deepcopy(converted).double()
+    errs = {}
+    for formulation in ("srm", "var"):
+        outs = {impl: converted(xc, Context(
+            mode=Mode.PFP, impl=impl, formulation=formulation, device=device))
+            for impl in ("kernel", "eager")}
+        ref = exact(xc.double(), Context(
+            mode=Mode.PFP, impl="eager", formulation=formulation,
+            device=device))
+        for part in ("mean", "var"):
+            got, want, ref64 = (getattr(o, part)
+                                for o in (outs["kernel"], outs["eager"], ref))
+            if tuple(got.shape) != (EVAL_N, 10) or \
+                    not torch.isfinite(got).all():
+                fail(f"{name}/{formulation} {part}: bad trained logits")
+            rtol, atol = MODEL_TOL[part]
+            e = {"kernel_vs_eager": float((got - want).abs().max()),
+                 "kernel_vs_fp64": float((got.double() - ref64).abs().max()),
+                 "eager_vs_fp64": float((want.double() - ref64).abs().max()),
+                 "outside_model_tol": int((~torch.isclose(
+                     got, want, rtol=rtol, atol=atol)).sum())}
+            errs[f"{formulation}_{part}"] = e
+            if e["kernel_vs_fp64"] > FP64_FACTOR * e["eager_vs_fp64"]:
+                fail(f"{name}/{formulation} {part}, trained weights: the "
+                     f"kernel impl is {e['kernel_vs_fp64']:.3e} from fp64, "
+                     f"the eager impl {e['eager_vs_fp64']:.3e}")
+        if float(outs["kernel"].var.min()) <= 0:
+            fail(f"{name}/{formulation}: non-positive logit variance")
+    info = {"det_acc": det_acc, "svi_acc": svi_acc, "svi_auroc": svi_auroc,
+            "pfp_acc": pfp_acc, "pfp_auroc": pfp_auroc, "cal": cal,
+            "auroc_by_cal": {str(c): v[2] for c, v in pfp.items()},
+            "kernel_vs_eager": errs}
+    print(f"[train] {name} Table 1: DET acc {det_acc:.4f}; SVI-"
+          f"{TABLE1_SAMPLES} acc {svi_acc:.4f} MI-AUROC {svi_auroc:.4f}; PFP "
+          f"(kernel impl, cal {cal}) acc {pfp_acc:.4f} MI-AUROC "
+          f"{pfp_auroc:.4f}; |SVI - PFP| acc {abs(svi_acc - pfp_acc):.4f}")
+    print(f"[train] {name}: MI-AUROC by factor " + ", ".join(
+        f"{c} {v[2]:.4f}" for c, v in pfp.items()))
+    for k, e in errs.items():
+        print(f"[train] {name} {k} logits, max abs err: kernel vs fp64 "
+              f"{e['kernel_vs_fp64']:.3e}, eager vs fp64 "
+              f"{e['eager_vs_fp64']:.3e}, kernel vs eager "
+              f"{e['kernel_vs_eager']:.3e} ({e['outside_model_tol']} of "
+              f"{EVAL_N * 10} outside MODEL_TOL)")
+    if not det_acc > 0.6:
+        fail(f"{name}: DET accuracy {det_acc:.4f} not above 0.6")
+    if not abs(svi_acc - pfp_acc) < 0.08:
+        fail(f"{name}: |SVI - PFP| accuracy {abs(svi_acc - pfp_acc):.4f}")
+    if not pfp_auroc > 0.6:
+        fail(f"{name}: PFP MI-AUROC {pfp_auroc:.4f} not above 0.6")
+    return info
+
+
+def _lm_train(device):
+    """LM_TRAIN_STEPS SVI train steps of granite-8b (lm_config: full width,
+    LM_LAYERS layers) on TokenPipeline batches of 1 x LM_TRAIN_SEQ tokens.
+    Step 1 runs twice from the same state and generator seed (the
+    parameters restored, the moments zeroed): the two losses must be
+    equal, every parameter must have changed after it, and every loss and
+    gradient norm must be finite."""
+    import numpy as np
+    import torch
+    from repro_torch.bayes.variational import KLSchedule
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import lm
+    from repro_torch.training.optimizer import Adam
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_svi_train_step)
+    cfg = lm_config()
+    model = lm.init_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(0),
+        device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = Adam(learning_rate=1e-3, clip_norm=1.0)
+
+    def forward(m, batch, ctx):
+        logits, aux, _ = lm.forward(m, cfg, batch, ctx)
+        return logits, aux
+
+    step = make_svi_train_step(
+        forward, opt, num_data=LM_TRAIN_SEQ * 1000,
+        kl_schedule=KLSchedule(0.25, 1000))
+    pipe = TokenPipeline(cfg.vocab_size, LM_TRAIN_SEQ, 1)
+    data = [{k: torch.from_numpy(v).long().to(device)
+             for k, v in pipe.batch(i).items()}
+            for i in range(LM_TRAIN_STEPS)]
+
+    def timed(state, i):
+        gen = torch.Generator(device=device).manual_seed(1000 + i)
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        state, metrics = step(state, data[i], gen)
+        pair[1].record()
+        torch.cuda.synchronize()
+        metrics = {k: float(v) for k, v in metrics.items()}
+        if not all(np.isfinite(list(metrics.values()))):
+            fail(f"{cfg.name} step {i + 1}: non-finite metrics {metrics}")
+        ms = _event_ms([pair])[0]
+        print(f"[train] {cfg.name} ({cfg.num_layers} layers) step {i + 1}: "
+              f"{ms:.2f} ms; loss {metrics['loss']:.4f} nll "
+              f"{metrics['nll']:.4f} kl {metrics['kl']:.4f} grad norm "
+              f"{metrics['grad_norm']:.4f}")
+        return state, metrics, ms
+
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, opt)
+    before = [p.detach().clone() for p in model.parameters()]
+    state, first, first_ms = timed(state, 0)
+    unchanged = [n for (n, p), b in zip(model.named_parameters(), before)
+                 if torch.equal(p, b)]
+    if unchanged:
+        fail(f"{cfg.name}: parameters unchanged by step 1: {unchanged}")
+    with torch.no_grad():
+        for p, b in zip(model.parameters(), before):
+            p.copy_(b)
+    del before, state
+    state = init_train_state(model, opt)
+    state, again, again_ms = timed(state, 0)
+    if again["loss"] != first["loss"]:
+        fail(f"{cfg.name}: step 1 from the same state and seed gave loss "
+             f"{again['loss']!r}, first {first['loss']!r}")
+    steps = [again_ms]
+    for i in range(1, LM_TRAIN_STEPS):
+        state, _, ms = timed(state, i)
+        steps.append(ms)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train] {cfg.name}: {n_params / 1e9:.3f} G parameters (mu, rho "
+          f"and norm gains), all changed by step 1; step 1 again from the "
+          f"same state and seed: loss equal ({again['loss']!r}); step ms "
+          f"{', '.join(f'{t:.2f}' for t in steps)} (the first run of step 1, "
+          f"first calls included: {first_ms:.2f}); peak "
+          f"max_memory_allocated {peak / 1e9:.2f} GB")
+    return {"params": n_params, "step_ms": steps, "first_call_ms": first_ms,
+            "repeat_loss": again["loss"], "first": first, "peak_bytes": peak}
+
+
+def phase_train(device):
+    """SVI-train the MLP and LeNet-5 on Dirty-MNIST, evaluate Table 1 with
+    the PFP forward on the kernels (rows 1-4 on trained weights), then
+    granite-8b's SVI train steps. Returns (launches of the Table-1 PFP
+    forwards, info)."""
+    import torch
+    from repro_torch.data.dirty_mnist import dirty_mnist
+    from repro_torch.kernels._launch import LAUNCHES, reset_launch_counts
+    from repro_torch.models.simple import MLP, LeNet5
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("TF32 is on; SVI training must run IEEE fp32 (cuDNN's conv "
+             "backward included)")
+    (x_train, y_train), evals = dirty_mnist(n_train=TRAIN_N, n_eval=EVAL_N)
+    x_train = torch.from_numpy(x_train).to(device)
+    y_train = torch.from_numpy(y_train).to(device)
+    specs = {   # trained_paper_models(quick=False): name, init seed, input
+        "mlp": (MLP(d_hidden=100, sigma_init=1e-3, device=device,
+                    generator=torch.Generator().manual_seed(0)),
+                lambda x: x.reshape(len(x), -1)),
+        "lenet5": (LeNet5(sigma_init=1e-3, device=device,
+                          generator=torch.Generator().manual_seed(1)),
+                   lambda x: x[..., None]),
+    }
+    info = {}
+    reset_launch_counts()
+    for name, (model, view) in specs.items():
+        info[name] = _svi_train(name, model, view, x_train, y_train, device)
+    if any(LAUNCHES.values()):
+        fail(f"SVI training launched PFP kernels: {LAUNCHES}")
+    reset_launch_counts()
+    with torch.no_grad():
+        for name, (model, view) in specs.items():
+            info[name]["table1"] = _table1(name, model, view, evals, device)
+    launches = {k: LAUNCHES[k] for k in CNN_KERNELS}
+    print(f"[train] Table-1 PFP forwards on trained weights: launches "
+          f"{launches}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched on trained weights: {missing}")
+    del specs, x_train, y_train
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    info["lm"] = _lm_train(device)
+    if any(LAUNCHES.values()):
+        fail(f"LM SVI training launched PFP kernels: {LAUNCHES}")
+    torch.cuda.empty_cache()
+    return launches, info
+
+
 def moe_path_calls(cfg, shapes):
     """The batched expert kernel's calls in one MoE forward or decode step:
     up, gate and down per MoE layer; ``shapes`` is (up, down)."""
@@ -2941,6 +3280,8 @@ def main():
     launches.update({k: v for k, v in fused_launches.items()
                      if k != "unfused"})
     rows += fused_rows
+    torch.cuda.empty_cache()
+    launches["train"], train_info = phase_train(device)
     forwards.append(moe_forward)
     if moe_profile is not None:
         profile.append({"model": moe_cfg.name, "batch": LM_BATCH,
@@ -2951,6 +3292,7 @@ def main():
          "forwards": forwards, "profile": profile, "lm": lm_info,
          "decode": decode_info, "moe": moe_info,
          "moe_decode": moe_decode_info, "fused": fused_info,
+         "train": train_info,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

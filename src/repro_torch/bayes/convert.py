@@ -21,11 +21,12 @@ def svi_to_pfp(model: nn.Module, *, calibration_factor: float = 1.0,
     """A converted copy of ``model``; ``model`` itself is left as it is.
 
     ``calibration_factor`` globally rescales the variances (paper Table 1
-    uses 0.3 / 0.4 for MLP / LeNet-5).
+    uses 0.3 / 0.4 for MLP / LeNet-5). The copy is a deployment artifact:
+    none of its tensors requires a gradient, whatever the source's did.
     """
     if rep not in ("srm", "var"):
         raise ValueError(f"unknown rep {rep!r}")
-    out = copy.deepcopy(model)
+    out = copy.deepcopy(model).requires_grad_(False)
     leaves = [(name, m) for name, m in out.named_modules()
               if isinstance(m, BayesParam) and "rho" in m.keys()]
     for name, leaf in leaves:

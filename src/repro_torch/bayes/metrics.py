@@ -31,6 +31,19 @@ def predictive_metrics_from_samples(logits_samples: torch.Tensor) -> dict:
             "mean_probs": mean_probs}
 
 
+def predictive_metrics_from_sample_rows(logits_samples: torch.Tensor) -> dict:
+    """Row-batched Eq. 1-3 reduction: (B, N, K) -> dict of (B,) tensors.
+
+    Row ``b`` is bit for bit
+    ``predictive_metrics_from_samples(logits_samples[b, :, None])[...][0]``:
+    the per-row reduction applied to each row, not a re-derivation, so a
+    caller that batches N-sample SVI passes over slots gets the sequential
+    path's exact numbers."""
+    rows = [predictive_metrics_from_samples(s[:, None]) for s in
+            logits_samples]
+    return {k: torch.stack([r[k][0] for r in rows]) for k in rows[0]}
+
+
 def sample_pfp_logits(generator: torch.Generator, mean, var,
                       num_samples: int):
     """Paper Eq. 11: l ~ N(mu_PFP, sigma^2_PFP) as a post-processing step.

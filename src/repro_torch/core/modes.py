@@ -1,7 +1,7 @@
 """Execution modes (counterpart of ``repro/core/modes.py``).
 
   DETERMINISTIC : forward on weight means only
-  SVI           : K reparameterized weight samples (not ported yet)
+  SVI           : K reparameterized weight samples
   PFP           : one analytic moment-propagating pass
 """
 from __future__ import annotations

@@ -1,10 +1,12 @@
 """The paper's evaluation models: MLP (784-100-100-10) and LeNet-5.
 
-Counterpart of ``repro/models/simple.py``. Both run DETERMINISTIC and PFP
-over one set of Bayesian leaves; images are NHWC and conv weights HWIO at
-the public functions, as in the reference. Random initialisation draws
-from a ``torch.Generator`` (a fresh CPU one seeded with 0 when none is
-given) on its own device, and the weights are then moved to ``device``.
+Counterpart of ``repro/models/simple.py``. Both run DETERMINISTIC, SVI
+(the deterministic ops on sampled weights, differentiable for training)
+and PFP over one set of Bayesian leaves; images are NHWC and conv weights
+HWIO at the public functions, as in the reference. Random initialisation
+draws from a ``torch.Generator`` (a fresh CPU one seeded with 0 when none
+is given) on its own device, and the weights are then moved to
+``device``.
 """
 from __future__ import annotations
 
@@ -21,9 +23,9 @@ from repro_torch.nn.layers import activation_apply, bias_init, dense_init
 from repro_torch.nn.module import BayesParam, Context, init_bayes, resolve_weight
 
 
-def _input(x, ctx: Context) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32,
-                           device=resolve_device(ctx.device))
+def _input(x, ctx: Context, dtype: torch.dtype) -> torch.Tensor:
+    """The deterministic input as a tensor of the weights' dtype."""
+    return torch.as_tensor(x, dtype=dtype, device=resolve_device(ctx.device))
 
 
 class MLP(nn.Module):
@@ -45,7 +47,8 @@ class MLP(nn.Module):
 
     def forward(self, x, ctx: Context):
         """x: (B, d_in) deterministic input -> logits (tensor or Gaussian)."""
-        h = _input(x, ctx)  # deterministic: the first PFP layer uses Eq. 13
+        # deterministic: the first PFP layer uses Eq. 13
+        h = _input(x, ctx, self.dense0.w.mu.dtype)
         for i in range(self.num_hidden):
             h = getattr(self, f"dense{i}")(h, ctx)
             h = activation_apply(h, "relu", ctx)
@@ -110,7 +113,8 @@ class LeNet5(nn.Module):
 
     def forward(self, x, ctx: Context):
         """x: (B, 28, 28, in_channels) deterministic images."""
-        h = self.conv0(_input(x, ctx), ctx)      # (B, 28, 28, 6)
+        x = _input(x, ctx, self.conv0.w.mu.dtype)
+        h = self.conv0(x, ctx)                   # (B, 28, 28, 6)
         h = activation_apply(h, "relu", ctx)
         h = _maxpool(h, ctx)                     # (B, 14, 14, 6)
         h = self.conv1(h, ctx)                   # (B, 14, 14, 16)

@@ -1,8 +1,9 @@
 """Mode-polymorphic layers: dense, embedding, norms, activations, the GLU
 gate, rotary and sinusoidal positions, residual adds.
 
-Counterpart of ``repro/nn/layers.py``. DETERMINISTIC runs plain torch ops
-on the weight means; PFP routes every moment-propagating op through the
+Counterpart of ``repro/nn/layers.py``. DETERMINISTIC and SVI run plain
+torch ops on the weight means or samples (autograd carries SVI training
+through them); PFP routes every moment-propagating op through the
 registry (``core/dispatch.py``), so ``ctx.impl`` selects the eager ops or
 the kernels per forward.
 """
@@ -18,7 +19,8 @@ from repro_torch.core import dispatch
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.gaussian import VAR, GaussianTensor, is_gaussian
 from repro_torch.core.pfp_layers import DETERMINISTIC_ACTIVATIONS
-from repro_torch.nn.module import BayesParam, Context, init_bayes, resolve_weight
+from repro_torch.nn.module import (BayesParam, Context, frozen, init_bayes,
+                                   resolve_weight)
 
 
 class Dense(nn.Module):
@@ -113,8 +115,8 @@ class RMSNorm(nn.Module):
     def __init__(self, d: int, *, dtype=torch.float32,
                  device: DeviceLike = None):
         super().__init__()
-        self.register_buffer("g", torch.ones((d,), dtype=dtype,
-                                             device=resolve_device(device)))
+        self.g = frozen(torch.ones((d,), dtype=dtype,
+                                   device=resolve_device(device)))
 
     def forward(self, x, ctx: Context, eps: float = 1e-6):
         return rmsnorm_apply(self, x, ctx, eps)
@@ -127,8 +129,8 @@ class LayerNorm(nn.Module):
                  device: DeviceLike = None):
         super().__init__()
         device = resolve_device(device)
-        self.register_buffer("g", torch.ones((d,), dtype=dtype, device=device))
-        self.register_buffer("b", torch.zeros((d,), dtype=dtype, device=device))
+        self.g = frozen(torch.ones((d,), dtype=dtype, device=device))
+        self.b = frozen(torch.zeros((d,), dtype=dtype, device=device))
 
     def forward(self, x, ctx: Context, eps: float = 1e-6):
         return layernorm_apply(self, x, ctx, eps)

@@ -1,24 +1,29 @@
 """Bayesian weight leaves, the execution context and weight resolution.
 
 Counterpart of ``repro/nn/module.py``. A Bayesian weight is a
-:class:`BayesParam` module whose buffers are one of the reference's three
-leaf flavours:
+:class:`BayesParam` module whose parameters are one of the reference's
+three leaf flavours:
 
   variational        : ``mu``, ``rho``  (sigma = exp(rho))
   converted PFP (SRM): ``mu``, ``srm``  (precomputed E[w^2], paper §5)
   converted PFP (VAR): ``mu``, ``var``
 
-so a model's buffer names are the reference's parameter paths
+so a model's parameter names are the reference's leaf paths
 (``dense0.w.mu``, ``conv1.b.rho``, ...). Deterministic leaves (norm gains
-``g``, LayerNorm biases ``b``) are plain buffers of the layer module.
+``g``, LayerNorm biases ``b``) are parameters of the layer module.
 ``resolve_weight`` turns a leaf into what the active mode needs: a tensor
-(DETERMINISTIC) or a :class:`GaussianTensor` (PFP).
+(DETERMINISTIC), a reparameterised sample ``mu + sigma * eps`` (SVI) or a
+:class:`GaussianTensor` (PFP).
+
+Every leaf is an ``nn.Parameter`` created with ``requires_grad=False``, so
+a model built for serving never builds an autograd graph;
+``training.train_loop.init_train_state`` turns gradients on.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping, Optional
+from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -32,8 +37,15 @@ LEAF_KEYS = (frozenset({"mu", "rho"}), frozenset({"mu", "srm"}),
              frozenset({"mu", "var"}))
 
 
+def frozen(t: torch.Tensor) -> nn.Parameter:
+    """``t`` as a leaf parameter that needs no gradient until training
+    turns it on (detached from any graph ``t`` belongs to)."""
+    return nn.Parameter(t.detach(), requires_grad=False)
+
+
 class BayesParam(nn.Module):
-    """One Bayesian weight: buffers ``mu`` plus ``rho``, ``srm`` or ``var``."""
+    """One Bayesian weight: parameters ``mu`` plus ``rho``, ``srm`` or
+    ``var``."""
 
     def __init__(self, **tensors: torch.Tensor):
         super().__init__()
@@ -44,10 +56,10 @@ class BayesParam(nn.Module):
         if len(shapes) != 1:
             raise ValueError(f"leaf tensors differ in shape: {shapes}")
         for name, t in tensors.items():
-            self.register_buffer(name, t)
+            self.register_parameter(name, frozen(t))
 
     def keys(self) -> frozenset:
-        return frozenset(self._buffers)
+        return frozenset(self._parameters)
 
     @property
     def shape(self):
@@ -61,7 +73,13 @@ def is_bayes_leaf(tree) -> bool:
 
 @dataclasses.dataclass
 class Context:
-    """Per-forward execution context."""
+    """Per-forward execution context.
+
+    Under SVI every Bayesian leaf draws its ε from ``generator`` (on the
+    weights' device), or, where ``eps`` is given, from ``eps``: a callable
+    that receives each leaf's ``mu`` in the order the forward resolves the
+    leaves and returns that leaf's ε (tests hand in the reference's own
+    noise this way)."""
 
     mode: Mode
     formulation: str = "srm"          # 'srm' (Eq. 12) | 'var' (Eq. 7)
@@ -69,9 +87,24 @@ class Context:
     # 'eager' | 'kernel' | None (core/dispatch.py's DEFAULT_IMPL, 'kernel').
     impl: Optional[str] = None
     device: DeviceLike = None         # None: the CUDA card
+    generator: Optional[torch.Generator] = None
+    eps: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     def __post_init__(self):
         self.mode = Mode.parse(self.mode)
+
+    def sample_eps(self, mu: torch.Tensor) -> torch.Tensor:
+        """Standard normal noise of ``mu``'s shape, dtype and device."""
+        if self.eps is not None:
+            eps = self.eps(mu)
+            if tuple(eps.shape) != tuple(mu.shape):
+                raise ValueError(f"eps of shape {tuple(eps.shape)} for a "
+                                 f"leaf of shape {tuple(mu.shape)}")
+            return eps.to(device=mu.device, dtype=mu.dtype)
+        if self.generator is None:
+            raise ValueError("SVI mode needs ctx.generator (or ctx.eps)")
+        return torch.randn(mu.shape, generator=self.generator,
+                           dtype=mu.dtype, device=mu.device)
 
 
 def bayes_variance(param: BayesParam) -> torch.Tensor:
@@ -90,14 +123,17 @@ def bayes_srm(param: BayesParam) -> torch.Tensor:
 
 
 def resolve_weight(param, ctx: Context):
-    """Tensor for DETERMINISTIC, GaussianTensor for PFP."""
+    """Tensor for DETERMINISTIC, a sample ``mu + sigma * eps`` for SVI
+    (sigma = exp(rho), or the converted leaf's sqrt(max(var, 0))),
+    GaussianTensor for PFP."""
     if not isinstance(param, BayesParam):
         return param
     if ctx.mode == Mode.DETERMINISTIC:
         return param.mu
     if ctx.mode == Mode.SVI:
-        raise NotImplementedError(
-            "SVI sampling is not ported yet: it heads queue A of ROADMAP.md")
+        sigma = (torch.exp(param.rho) if "rho" in param.keys() else
+                 torch.sqrt(torch.clamp(bayes_variance(param), min=0.0)))
+        return param.mu + sigma * ctx.sample_eps(param.mu)
     if "srm" in param.keys():
         return GaussianTensor(param.mu, param.srm, SRM)
     return GaussianTensor(param.mu, bayes_variance(param), VAR)
@@ -134,26 +170,27 @@ def load_numpy_params(module: nn.Module, tree: Mapping) -> nn.Module:
       the module's :class:`BayesParam` of the same path (on the same
       device), so the key set follows the tree.
     * A plain array (a norm gain ``g``, a LayerNorm bias ``b``) replaces the
-      buffer of that name.
+      parameter of that name.
     * Under an ``nn.ModuleList`` child the tree is stacked, as the
       reference stacks scanned layer groups (``params['stack']``): every
       array carries a leading axis of the list's length, and entry ``i``
       fills the list's module ``i``.
 
+    Every loaded leaf starts without gradients, as a newly built one does.
     Returns ``module``."""
     children = dict(module.named_children())
-    buffers = dict(module.named_buffers(recurse=False))
-    if set(tree) != set(children) | set(buffers):
+    plain = dict(module.named_parameters(recurse=False))
+    if set(tree) != set(children) | set(plain):
         raise KeyError(f"tree has {sorted(tree)}, module has "
-                       f"{sorted(set(children) | set(buffers))}")
+                       f"{sorted(set(children) | set(plain))}")
     for name, sub in tree.items():
-        if name in buffers:
-            old = buffers[name]
+        if name in plain:
+            old = plain[name]
             new = torch.tensor(np.asarray(sub), device=old.device)
             if new.shape != old.shape:
                 raise ValueError(f"{name}: shape {tuple(new.shape)} vs "
                                  f"{tuple(old.shape)}")
-            setattr(module, name, new)
+            setattr(module, name, frozen(new))
             continue
         child = children[name]
         if isinstance(child, nn.ModuleList):

@@ -108,12 +108,12 @@ def test_svi_to_pfp_matches_reference(setups, rep):
     flat = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(want)[0]:
         flat[".".join(p.key for p in path)] = np.asarray(leaf)
-    got = {k: v.numpy() for k, v in converted.named_buffers()}
+    got = {k: v.numpy() for k, v in converted.named_parameters()}
     assert set(got) == set(flat)
     for k in flat:
         np.testing.assert_allclose(got[k], flat[k], rtol=1e-6, atol=0)
     # The source model keeps its variational leaves.
-    assert {k.rsplit(".", 1)[1] for k, _ in model.named_buffers()} == {
+    assert {k.rsplit(".", 1)[1] for k, _ in model.named_parameters()} == {
         "mu", "rho"}
 
 

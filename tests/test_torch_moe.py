@@ -486,7 +486,7 @@ def test_lm_forward_matches_reference(trees, jax_forward, arch, impl,
 
 def test_lm_tree_has_the_reference_paths(trees):
     model = _port(trees["deepseek-moe-16b"][2], "deepseek-moe-16b")
-    names = {n for n, _ in model.named_buffers()}
+    names = {n for n, _ in model.named_parameters()}
     assert "head0.mlp.w_up.w.mu" in names
     assert "stack.0.b0.moe.experts.w_gate.srm" in names
     assert "stack.0.b0.moe.router.w.mu" in names

@@ -61,10 +61,21 @@ def test_kernel_impl_on_cpu_tensors_launches_nothing():
 
 
 def test_svi_mode_is_not_ported_yet():
+    """SVI draws every leaf's eps from ctx.generator: one seed gives one
+    sample, another seed another; without a generator it raises."""
     model = MLP(d_hidden=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(np.zeros((1, 784), np.float32),
-              Context(mode=Mode.SVI, device="cpu"))
+    x = np.random.default_rng(0).random((2, 784), dtype=np.float32)
+
+    def sample(seed):
+        return model(x, Context(mode=Mode.SVI, device="cpu",
+                                generator=torch.Generator().manual_seed(seed)))
+
+    assert torch.equal(sample(1), sample(1))
+    assert not torch.allclose(sample(1), sample(2))
+    det = model(x, Context(mode=Mode.DETERMINISTIC, device="cpu"))
+    assert not torch.equal(sample(1), det)
+    with pytest.raises(ValueError, match="generator"):
+        model(x, Context(mode=Mode.SVI, device="cpu"))
 
 
 def test_unknown_impl_and_formulation_raise():
