@@ -6,7 +6,10 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
   1. card   : nvidia-smi name and power limit, torch and CUDA versions
-  2. build  : nvcc builds src/repro_torch/csrc/*.cu for sm_90a
+  2. build  : nvcc builds src/repro_torch/csrc/*.cu for sm_90a; each
+              attention kernel's registers (ptxas) and each cache-kernel
+              block's occupancy from the library, which must equal
+              attention_plan's model of it (kv_block_bytes, KV_REGISTERS)
   3. kernels: each CUDA kernel against its plain PyTorch version on the card,
               at the main paths' shapes (the CNNs' at batch 10, 100 and
               1024) and ragged ones, the dense kernel also at K on both
@@ -19,11 +22,15 @@ Phases, each printing its own lines; any failure exits non-zero:
               contract: the rows of one slot from one 512-row call come
               out bit for bit in chunks of 128 and at Tq 1 in a batch of
               4, through shuffled pages of 16 rows and under every
-              cluster size (kernels/pfp_attention.py attention_plan); the
-              attention kernel without a cache (row 9) at the LM's shape
-              and at ragged ones (Tq and Tk on no multiple of its block
-              or tile, Tq below and above Tk, G 4 and 1, head_dim 16 and
-              128, causal and not), each twice with the same bits; the
+              cluster size (kernels/pfp_attention.py attention_plan), at
+              granite-8b's widths and at musicgen-medium's (24 / 24 heads
+              of 64); the cache kernels also at musicgen's decode step and
+              prefill chunk; the attention kernel without a cache (row 9)
+              at granite's and musicgen's forward shapes and at ragged ones
+              (Tq and Tk on no multiple of its block or tile, Tq below and
+              above Tk, G 4 and 1, head_dim 16, 64 and 128, causal and
+              not), each twice with the same bits; musicgen's LayerNorm,
+              gelu and dense shapes (forward and decode step); the
               activation (five kinds) and the max pool beyond the main-path
               shapes: stress inputs (point masses, |mu| / sd up to 40, var
               1e4, mu +-90), operands 1-3 floats off 16 bytes, the pool on
@@ -90,7 +97,26 @@ Phases, each printing its own lines; any failure exits non-zero:
               median decode call's kept rows, the MoE forward eager and
               in a CUDA graph, and a profile of one forward and one decode
               step. Peak device memory is printed.
- 10. fused  : the fused norm -> dense -> activation kernel (row 8) against
+ 10. audio  : musicgen-medium at full width and all 48 layers (d_model
+              1536, 24 heads of 64 over 24 KV heads, d_ff 6144 ungated
+              gelu, LayerNorm, sinusoidal positions, vocab 2048, frame
+              embeddings in: no token table), random weights drawn on the
+              card from a seed. A 4 x 512-frame forward with impl="kernel"
+              must launch only the path's kernels (dense 289, layernorm 97,
+              activation 48, attention 48) and give the eager impl's
+              logits at MODEL_TOL, else meet the fp64 rule at every stage
+              (the kernel impl no further from an fp64 eager forward than
+              FP64_FACTOR times the eager impl; the errors are printed
+              either way). AUDIO_PROMPTS prompts prefilled in chunks of
+              PREFILL_CHUNK through decode_step and AUDIO_STEPS lockstep
+              steps fed seeded frames, on DecodeStatePool and on
+              PagedDecodeStatePool (pages of 16): every pass's logits bit
+              for bit across the pools and at MODEL_TOL of the eager impl;
+              a whole-prompt prefill against eager. Forward (eager, in a
+              CUDA graph, profiled), prefill and step times, peak memory,
+              and the kernels' times at the path's shapes (B=audio,
+              audio-decode, decode-audio, chunk-audio)
+ 11. fused  : the fused norm -> dense -> activation kernel (row 8) against
               its plain version at ragged shapes (both norms, both input
               reps, the five activations, every tile) and, at granite's
               gate projection (2048, 4096, 14336) and its decode shape
@@ -119,7 +145,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               tuned DB, fused at every unit and unfused; row 8 at the gate
               and decode shapes beside the unfused chain.
 
- 11. train  : the paper's Table-1 pipeline on the card, as the reference's
+ 12. train  : the paper's Table-1 pipeline on the card, as the reference's
               benchmarks/common.py trained_paper_models and
               bench_table1_quality.py run it at quick=False: the MLP
               784-100-100-10 and LeNet-5 (sigma_init 1e-3) SVI-trained on
@@ -212,6 +238,11 @@ CACHE_PREFILL = (4, 32, 8, 512, 1024, 128, (0, 256, 0, 256),
 # deepseek-moe-16b's decode: 16 query heads over 16 KV heads (G 1).
 CACHE_DECODE_MOE = (4, 16, 16, 1, 1024, 128, (0, 340, 681, 1023),
                     (1, 341, 682, 1024), None)
+# musicgen-medium's: 24 query heads of 64 over 24 KV heads (G 1), a 4-slot
+# decode step and a prefill chunk of one slot.
+CACHE_DECODE_AUDIO = (4, 24, 24, 1, 1024, 64, (0, 340, 681, 1023),
+                      (1, 341, 682, 1024), None)
+CACHE_CHUNK_AUDIO = (1, 24, 24, 128, 1024, 64, (384,), (512,), None)
 CACHE_CHECKS = {
     "decode": CACHE_DECODE,
     "prefill chunk": CACHE_PREFILL,
@@ -221,6 +252,9 @@ CACHE_CHECKS = {
                  None),
     "head_dim 16": (2, 4, 2, 7, 100, 16, (0, 50), (7, 57), None),
     "decode-moe": CACHE_DECODE_MOE,
+    "audio decode": CACHE_DECODE_AUDIO,
+    "audio chunk": CACHE_CHUNK_AUDIO,
+    "head_dim 64 window": (2, 8, 2, 37, 300, 64, (10, 250), (47, 287), 50),
 }
 CHECK_PAGE_SIZES = (1, 16, 24)
 # The MoE phase: deepseek-moe-16b at full width, cut to MOE_LAYERS layers
@@ -239,6 +273,16 @@ MOE_UP, MOE_DOWN = (64, 240, 2048, 1408), (64, 240, 1408, 2048)
 MOE_DECODE_UP, MOE_DECODE_DOWN = (64, 6, 2048, 1408), (64, 6, 1408, 2048)
 MOE_SHAPES = (MOE_UP, MOE_DOWN, MOE_DECODE_UP, MOE_DECODE_DOWN)
 NEAR_TIE = 1e-4   # a routing mismatch at a larger top-k margin is a fault
+# The audio phase: musicgen-medium at full width and depth (48 layers),
+# frame embeddings in (no token table). DECODE_SLOTS prompts of
+# AUDIO_PROMPTS frames, each prefilled in chunks of PREFILL_CHUNK through
+# decode_step on both pools, then AUDIO_STEPS lockstep steps.
+AUDIO_ARCH = "musicgen-medium"
+AUDIO_KERNELS = ("dense", "activation", "layernorm", "attention")
+AUDIO_DECODE_KERNELS = ("dense", "activation", "layernorm",
+                        "attention_cache", "attention_paged")
+AUDIO_PROMPTS = (512, 437, 300, 129)
+AUDIO_STEPS = 32
 # The fused phase: granite's gate projection (norm -> dense -> silu) at a
 # 4 x 512 forward and a 4-slot decode step, with a schedule DB the
 # autotuner writes on the card.
@@ -404,6 +448,35 @@ def lm_chunk_calls(cfg):
     PREFILL_CHUNK tokens (one prompt): (M, K, N)."""
     return [(PREFILL_CHUNK, *shape[1:]) for kernel, shape in lm_path_calls(cfg)
             if kernel == "dense"]
+
+
+def audio_config():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(AUDIO_ARCH), sigma_init=1e-3)
+
+
+def audio_path_calls(cfg, decode=False):
+    """Every kernel call of one musicgen-medium PFP forward (impl="kernel",
+    srm) on LM_BATCH x LM_SEQ frames, or with ``decode`` of one decode step
+    of DECODE_SLOTS slots but its cache attention (CACHE_DECODE_AUDIO, a
+    call a layer). Shapes as in lm_path_calls; the activation leads with its
+    kind."""
+    m = DECODE_SLOTS if decode else LM_BATCH * LM_SEQ
+    d, f = cfg.d_model, cfg.d_ff
+    kv = cfg.num_kv_heads * cfg.head_dim
+    attention = [] if decode else [
+        ("attention", (LM_BATCH, cfg.num_heads, cfg.num_kv_heads, LM_SEQ,
+                       LM_SEQ, cfg.head_dim, True))]
+    block = [("layernorm", (m, d)),
+             ("dense", (m, d, cfg.attn_dim)), ("dense", (m, d, kv)),
+             ("dense", (m, d, kv)), *attention,
+             ("dense", (m, cfg.attn_dim, d)),
+             ("layernorm", (m, d)),
+             ("dense", (m, d, f)), ("activation", ("gelu", m, f)),
+             ("dense", (m, f, d))]
+    return block * cfg.num_layers + [("layernorm", (m, d)),
+                                     ("dense", (m, d, cfg.vocab_size))]
 
 
 def attention_plan_line(label, kernel, shape):
@@ -880,6 +953,8 @@ def phase_build():
           f"(chiprun_out/ptxas.log)")
     for line in dense_build_lines(log):
         print(f"[build] {line}")
+    for line in attention_build_lines(log):
+        print(f"[build] {line}")
     return info
 
 
@@ -919,6 +994,46 @@ def dense_build_lines(log):
     if found:
         out.append(f"pfp_dense.cu: {len(dense)} instantiations, nvcc "
                    f"{found.group(1)} s")
+    return out
+
+
+def attention_build_lines(log):
+    """ptxas' registers of each attention kernel instantiation, and each
+    cache-kernel block's occupancy as the library computes it (registers
+    included) beside attention_plan's model of it (kv_block_bytes,
+    KV_REGISTERS, blocks_per_sm); fails where they differ, since the plan
+    would then count on a wave the card does not run."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pfp_attention import (BLOCK_ROWS, HEAD_DIMS,
+                                                   KV_REGISTERS,
+                                                   blocks_per_sm,
+                                                   kv_block_bytes)
+    out = []
+    for kernel in ("pfp_attention_kernel", "pfp_attention_kv_kernel"):
+        found = []
+        for args, (r, sp) in sorted(ptxas_registers(log, kernel).items()):
+            tmpl = ", ".join(re.findall(r"L[ib](\d+)E", args + "E"))
+            found.append(f"<{tmpl}> {r} registers, {sp} bytes spilled")
+        out.append(f"{kernel}: " + ", ".join(found))
+    lib = _build.load()
+    for d in HEAD_DIMS:
+        for bq in BLOCK_ROWS:
+            for paged in (0, 1):
+                nbytes, per_sm = ctypes.c_int(), ctypes.c_int()
+                _build.check(lib.pfp_attention_kv_block(
+                    paged, d, bq, ctypes.byref(nbytes),
+                    ctypes.byref(per_sm)), "pfp_attention_kv_block")
+                model = (kv_block_bytes(d, bq), blocks_per_sm(d, bq))
+                if (nbytes.value, per_sm.value) != model:
+                    fail(f"cache kernel D {d}, {bq} rows, paged {paged}: "
+                         f"the library gives {nbytes.value} B and "
+                         f"{per_sm.value} blocks an SM, the plan's model "
+                         f"{model}")
+            out.append(f"cache kernel D {d}, {bq} rows: {model[0]} B of "
+                       f"shared memory, {KV_REGISTERS[(d, bq)]} registers "
+                       f"(KV_REGISTERS): {model[1]} blocks an SM, as the "
+                       f"library's occupancy gives (both forms)")
     return out
 
 
@@ -971,8 +1086,10 @@ def phase_kernels(device):
     cancellation_check(device)
     m_independence_check(device)
     lm_kernel_checks(device, errs)
+    audio_kernel_checks(device, errs)
     cache_kernel_checks(device, errs)
-    bit_contract_check(device)
+    bit_contract_check(device, CACHE_DECODE)
+    bit_contract_check(device, CACHE_DECODE_AUDIO)
     layernorm_offset_check(device)
     moe_kernel_checks(device, errs)
     return errs
@@ -1271,6 +1388,71 @@ def lm_kernel_checks(device, errs):
           "every shape above")
 
 
+def audio_kernel_checks(device, errs):
+    """The kernels of musicgen-medium's path against their plain versions
+    at its shapes: LayerNorm (both reps), the gelu activation and the dense
+    kernel at the forward's and a 4-slot decode step's shapes, and row 9 at
+    head_dim 64: the forward's (4, 24 heads of 64, 512 frames, causal,
+    G 1) and ragged shapes (G 1 and 4, Tq < Tk, not causal, rows without a
+    key), each twice with the same bits; updates ``errs``. The cache
+    kernels at head_dim 64 are CACHE_CHECKS' audio entries."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    cfg = audio_config()
+    seed = 600
+    for kernel, shape in dict.fromkeys(
+            audio_path_calls(cfg) + audio_path_calls(cfg, decode=True)):
+        seed += 1
+        reps = ("var", "srm") if kernel == "layernorm" else (None,)
+        for rep in reps:
+            args = operands(kernel, shape, seed, device)
+            if rep == "srm":
+                args = (args[0], args[1] + args[0] * args[0], *args[2:])
+            kw = {} if rep is None else {"rep": rep}
+            if kernel == "layernorm":
+                got = ops.pfp_layernorm(*args, **kw)
+                want = ref.pfp_layernorm_ref(*args, **kw)
+            else:
+                got = run_kernel(kernel, args)
+                want = run_plain(kernel, args)
+            torch.cuda.synchronize()
+            tol = (DENSE_TOL if kernel == "dense" else NORM_TOL
+                   if kernel in ("layernorm", "attention")
+                   else ELEMENTWISE_TOL)
+            label = f"{shape}" + ("" if rep is None else f" rep={rep}")
+            _check_close(f"{kernel}{label}", got, want, tol)
+            err = _max_err(got, want)
+            errs[kernel] = max(errs[kernel], err)
+            print(f"[kernels] {kernel:18s} {label:44s} max_abs_err {err:.3e}"
+                  " (musicgen-medium)")
+            if kernel == "attention":
+                again = run_kernel(kernel, args)
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    fail(f"attention{shape}: two calls gave different bits")
+            del args, got, want
+    for shape in ((2, 4, 4, 37, 37, 64, True),      # G 1, ragged
+                  (2, 4, 4, 45, 203, 64, False),    # Tq < Tk, not causal
+                  (2, 8, 2, 130, 161, 64, True),    # G 4, Tq < Tk
+                  (2, 4, 4, 37, 16, 64, True)):     # rows without a key
+        seed += 1
+        args = operands("attention", shape, seed, device)
+        got = run_kernel("attention", args)
+        torch.cuda.synchronize()
+        want = run_plain("attention", args)
+        _check_close(f"attention{shape}", got, want, NORM_TOL)
+        err = _max_err(got, want)
+        errs["attention"] = max(errs["attention"], err)
+        tq, tk = shape[3], shape[4]
+        if tq > tk and float(got[0][:, :, :tq - tk].abs().max()
+                             + got[1][:, :, :tq - tk].abs().max()):
+            fail(f"attention{shape}: rows without a valid key are not 0")
+        again = run_kernel("attention", args)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"attention{shape}: two calls gave different bits")
+        print(f"[kernels] attention          {str(shape):44s} max_abs_err "
+              f"{err:.3e}, twice the same bits")
+
+
 def cache_kernel_checks(device, errs):
     """The KV-cache kernel against its plain version at each shape of
     CACHE_CHECKS, and the paged kernel at page sizes 1, 16 and 24 (shuffled
@@ -1310,10 +1492,11 @@ def cache_kernel_checks(device, errs):
                   f"max_abs_err {perr:.3e}, bitwise the cache kernel's")
 
 
-def bit_contract_check(device):
+def bit_contract_check(device, shape):
     """The cache kernels' rows depend on their own query and keys only
     (csrc/pfp_attention.cu: segments of fixed keys, one left fold). One
-    slot at granite-8b's widths (32 / 8 heads of 128, 1024 keys): its rows
+    slot at the widths of the decode ``shape`` (granite-8b's 32 / 8 heads of
+    128, musicgen-medium's 24 / 24 of 64; 1024 keys): its rows
     at positions 300-811 from one Tq 512 call against the same rows in
     chunks of 128 rows and at Tq 1 (positions 300, 427, 428, 811) as slot
     0 of a 4-slot batch, under every cluster size of the decode block
@@ -1322,7 +1505,7 @@ def bit_contract_check(device):
     from repro_torch.kernels.pfp_attention import (MAX_CLUSTER,
                                                    pfp_attention_cache_cuda,
                                                    pfp_attention_paged_cuda)
-    _, h, hkv, _, s, d = CACHE_DECODE[:6]
+    _, h, hkv, _, s, d = shape[:6]
     n0, n = 300, 512
     g = torch.Generator().manual_seed(800)
     q_all = torch.randn((h, n0 + n, d), generator=g).to(device)
@@ -1359,9 +1542,10 @@ def bit_contract_check(device):
                  f"{tq}, B {b}, pages {ps}, plan {plan}) differ from the "
                  f"Tq {n} call's")
     torch.cuda.synchronize()
-    print(f"[kernels] bit contract: {len(runs) + 1} calls, every row of "
-          f"the slot bit for bit (Tq 512 / 128 / 1, B 1 / 4, clusters "
-          f"1-{MAX_CLUSTER}, pages of {PAGE_SIZE})")
+    print(f"[kernels] bit contract ({h} / {hkv} heads of {d}): "
+          f"{len(runs) + 1} calls, every row of the slot bit for bit (Tq "
+          f"512 / 128 / 1, B 1 / 4, clusters 1-{MAX_CLUSTER}, pages of "
+          f"{PAGE_SIZE})")
 
 
 def layernorm_offset_check(device):
@@ -2438,6 +2622,390 @@ def phase_profile(device, lm_cfg, lm_model, reps=10):
 
 
 # ---------------------------------------------------------------------------
+# The audio decoder: musicgen-medium at full width and depth
+# ---------------------------------------------------------------------------
+def _audio_frames(shape, seed, device):
+    """Seeded N(0, 1) frame embeddings on ``device``."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(device)
+
+
+def _audio_model(device):
+    """musicgen-medium at full width and all 48 layers: random variational
+    weights drawn on the card from a seed (none can be downloaded),
+    converted to PFP."""
+    import torch
+    from repro_torch.bayes.convert import svi_to_pfp
+    from repro_torch.models import lm
+    cfg = audio_config()
+    variational = lm.init_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(0),
+        device=device)
+    model = svi_to_pfp(variational, calibration_factor=CALIBRATION)
+    del variational
+    return cfg, model
+
+
+def _model_errs(label, got, want):
+    """Max abs error of kernel-impl logits (mean, var) against the eager
+    impl's, and whether each of mean and var lies within MODEL_TOL. Fails
+    on a bad shape or a non-finite value."""
+    import torch
+    errs, within = {}, {}
+    for part, g, w in zip(("mean", "var"), got, want):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            fail(f"{label} {part}: shape {tuple(g.shape)} vs "
+                 f"{tuple(w.shape)} or non-finite logits")
+        rtol, atol = MODEL_TOL[part]
+        errs[part] = float((g - w).abs().max())
+        within[part] = bool(torch.allclose(g, w, rtol=rtol, atol=atol))
+    return errs, within
+
+
+def _audio_stages(model, cfg, frames, ctx):
+    """The forward's states, as lm.forward computes them: the frames plus
+    the sinusoid, each block's output, the logits."""
+    from repro_torch.models import lm
+    x, positions, standard = lm._embed_inputs(
+        model, cfg, {"frame_embeddings": frames}, ctx)
+    stages = [x]
+    for name, _, group in lm._layers(cfg):
+        block = (getattr(model, name) if group is None
+                 else model.stack[group][name])
+        x, _, _ = lm._block_apply(block, x, ctx, cfg, positions=positions,
+                                  standard_positions=standard)
+        stages.append(x)
+    stages.append(model.lm_head(model.ln_f(x, ctx), ctx))
+    return stages
+
+
+def _fp64_stage_check(cfg, model, frames, device, logits_within):
+    """The train phase's fp64 rule, stage by stage: the kernel impl's
+    states no further from an fp64 eager forward (a float64 copy of the
+    same converted weights, the same frames) than FP64_FACTOR times the
+    fp32 eager impl's, at the embedding, after every block and at the logits.
+    It is the gate only where the logits are outside MODEL_TOL of the eager
+    impl; the errors are printed either way. Returns them by stage."""
+    import copy
+
+    import torch
+    from repro_torch.core.modes import Mode
+    from repro_torch.nn.module import Context
+    runs = {}
+    for impl in ("kernel", "eager"):
+        ctx = Context(mode=Mode.PFP, impl=impl, device=device)
+        runs[impl] = [(x.mean, x.var) for x in
+                      _audio_stages(model, cfg, frames, ctx)]
+    exact = copy.deepcopy(model).double()
+    ctx = Context(mode=Mode.PFP, impl="eager", device=device)
+    ref64 = _audio_stages(exact, cfg, frames.double(), ctx)
+    del exact
+    out, worst = [], (0.0, None)
+    for i, x64 in enumerate(ref64):
+        e = {}
+        for impl, states in runs.items():
+            e[impl] = [float((a.double() - b).abs().max())
+                       for a, b in zip(states[i], (x64.mean, x64.var))]
+        out.append(e)
+        for j, part in enumerate(("mean", "var")):
+            ratio = e["kernel"][j] / max(e["eager"][j], 1e-30)
+            if ratio > worst[0]:
+                worst = (ratio, (i, part))
+            if (not logits_within and e["kernel"][j]
+                    > FP64_FACTOR * max(e["eager"][j], 1e-12)):
+                fail(f"audio forward stage {i} {part}: kernel impl "
+                     f"{e['kernel'][j]:.3e} from fp64, the eager impl "
+                     f"{e['eager'][j]:.3e} (> {FP64_FACTOR}x)")
+    torch.cuda.synchronize()
+    last = len(out) - 1
+    for i in sorted({0, 1, last // 4, last // 2, 3 * last // 4, last - 1,
+                     last}):
+        name = ("embedding" if i == 0 else "logits" if i == last
+                else f"after block {i}")
+        k, e = out[i]["kernel"], out[i]["eager"]
+        print(f"[audio] vs fp64 at {name}: kernel mean {k[0]:.3e} var "
+              f"{k[1]:.3e}; eager mean {e[0]:.3e} var {e[1]:.3e}")
+    gate = ("only printed: MODEL_TOL held" if logits_within
+            else "held at every stage")
+    print(f"[audio] fp64 rule (kernel no further than {FP64_FACTOR}x eager "
+          f"at every stage): largest ratio {worst[0]:.2f} at stage "
+          f"{worst[1]}; the gate {gate}")
+    return out
+
+
+def _audio_serve(cfg, model, prompts, steps, device, paged, impl="kernel"):
+    """DECODE_SLOTS prompts (frame embeddings (n, d_model)) through a pool:
+    each prefilled alone in chunks of PREFILL_CHUNK through decode_step
+    (contiguous: on the slot's view, written back; paged: through its page
+    table), then one lockstep decode_step a frame of ``steps`` ((B, 1,
+    d_model) each) for every slot. Every pass's logits, CUDA-event ms per
+    prompt and per step."""
+    import numpy as np
+    import torch
+    from repro_torch.core.modes import Mode
+    from repro_torch.models import lm
+    from repro_torch.nn.module import Context
+    from repro_torch.serving.engine import (DecodeStatePool,
+                                            PagedDecodeStatePool)
+    ctx = Context(mode=Mode.PFP, impl=impl, device=device)
+    if paged:
+        pool = PagedDecodeStatePool(cfg, DECODE_SLOTS, DECODE_MAX_LEN,
+                                    PAGE_SIZE, device=device)
+    else:
+        pool = DecodeStatePool(cfg, DECODE_SLOTS, DECODE_MAX_LEN,
+                               device=device)
+    prefill_t, step_t, outs = _Timer(), _Timer(), []
+    for uid, prompt in enumerate(prompts):
+        slot, n = pool.alloc(uid), prompt.shape[0]
+        with prefill_t:
+            sub = None if paged else pool.take_slot(slot)
+            for c0 in range(0, n, PREFILL_CHUNK):
+                end = min(n, c0 + PREFILL_CHUNK)
+                chunk = torch.zeros((1, PREFILL_CHUNK, cfg.d_model),
+                                    device=device)
+                chunk[0, :end - c0] = prompt[c0:end]
+                inputs = {"frame_embeddings": chunk,
+                          "positions": (c0 + np.arange(PREFILL_CHUNK))[None],
+                          "cache_len": np.asarray([end])}
+                if paged:
+                    if not pool.ensure_capacity(slot, end):
+                        fail("audio: the page pool ran out of pages")
+                    inputs["page_table"] = pool.device_table(
+                        np.asarray([slot]))
+                    logits, pool.states = lm.decode_step(
+                        model, cfg, inputs, pool.states, ctx)
+                else:
+                    logits, sub = lm.decode_step(model, cfg, inputs, sub,
+                                                 ctx)
+                outs.append((logits.mean, logits.var))
+            if not paged:
+                pool.write_slot(slot, sub)
+        pool.positions[slot] = n
+    for frames in steps:
+        pos = np.asarray(pool.positions, np.int64)
+        inputs = {"frame_embeddings": frames, "positions": pos[:, None],
+                  "cache_len": pos + 1}
+        if paged:
+            for slot in range(DECODE_SLOTS):
+                if not pool.ensure_capacity(slot, int(pos[slot]) + 1):
+                    fail("audio: the page pool ran out of pages")
+            inputs["page_table"] = pool.device_table()
+        with step_t:
+            logits, pool.states = lm.decode_step(model, cfg, inputs,
+                                                 pool.states, ctx)
+        outs.append((logits.mean, logits.var))
+        for slot in range(DECODE_SLOTS):
+            pool.positions[slot] += 1
+        pool.check_invariants()
+    for slot in range(DECODE_SLOTS):
+        pool.evict(slot)
+    pool.check_invariants()
+    if pool.live or (paged and pool.live_pages):
+        fail("audio: slots or pages live after the evictions")
+    return {"logits": outs, "prefill_ms": prefill_t.ms(),
+            "step_ms": step_t.ms()}
+
+
+def phase_audio(device):
+    """musicgen-medium at full width and all 48 layers: a 4 x 512-frame
+    forward through the kernels held against the eager impl (MODEL_TOL, or
+    the fp64 rule stage by stage), its launches; DECODE_SLOTS prompts of
+    AUDIO_PROMPTS frames prefilled in chunks of PREFILL_CHUNK and
+    AUDIO_STEPS lockstep steps fed seeded frames on both pools (paged
+    equal to contiguous bit for bit, kernel impl against eager at
+    MODEL_TOL); a whole-prompt prefill; times, profiles, peak memory, and
+    the kernels' times at the path's shapes. Returns (launches by path,
+    info, timing rows, forward row, profiles, cfg)."""
+    import numpy as np
+    import torch
+    from repro_torch.bayes import metrics
+    from repro_torch.core.modes import Mode
+    from repro_torch.kernels._launch import LAUNCHES, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.nn.module import Context
+    from repro_torch.serving.decode import uncertainty_decode
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model = _audio_model(device)
+    torch.cuda.synchronize()
+    print(f"[audio] {cfg.name}: d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff} "
+          f"(gelu, ungated), LayerNorm, sinusoidal positions, vocab "
+          f"{cfg.vocab_size}, all {cfg.num_layers} layers, frame embeddings "
+          f"in; {cfg.param_count() / 1e6:.1f} M weights drawn on the card "
+          f"(random: none can be downloaded) and converted in "
+          f"{time.perf_counter() - t0:.2f} s")
+    ctx_k = Context(mode=Mode.PFP, impl="kernel", device=device)
+    ctx_e = Context(mode=Mode.PFP, impl="eager", device=device)
+    frames = _audio_frames((LM_BATCH, LM_SEQ, cfg.d_model), 900, device)
+    inputs = {"frame_embeddings": frames}
+
+    # The forward: launches, kernel against eager, the uncertainty.
+    reset_launch_counts()
+    logits, _, _ = lm.forward(model, cfg, inputs, ctx_k)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    want = {}
+    for kernel, _ in audio_path_calls(cfg):
+        want[kernel] = want.get(kernel, 0) + 1
+    if launches != want:
+        fail(f"audio forward launches {launches}, expected {want}")
+    print(f"[audio] forward of {LM_BATCH} x {LM_SEQ} frames: launches "
+          f"{launches} (each op of the path on its kernel)")
+    eager, _, _ = lm.forward(model, cfg, inputs, ctx_e)
+    fwd_errs, within = _model_errs("audio forward",
+                                   (logits.mean, logits.var),
+                                   (eager.mean, eager.var))
+    if float(logits.var.min()) <= 0:
+        fail("audio: non-positive logit variance")
+    gen = torch.Generator(device=device).manual_seed(1)
+    unc = metrics.pfp_predictive_metrics(gen, logits.mean[:, -1],
+                                         logits.var[:, -1], 100)
+    print(f"[audio] kernel vs eager logits: max abs err mean "
+          f"{fwd_errs['mean']:.3e}, var {fwd_errs['var']:.3e}; within "
+          f"MODEL_TOL: {within}; max |mean| "
+          f"{float(eager.mean.abs().max()):.3e}, max var "
+          f"{float(eager.var.max()):.3e}; next codes "
+          f"{torch.argmax(logits.mean[:, -1], -1).tolist()}, MI "
+          + ", ".join(f"{float(v):.4e}" for v in unc["mi"]))
+    del logits, eager
+    fwd = {"batch": LM_BATCH, "seq": LM_SEQ, "model": cfg.name}
+    for impl, ctx, iters in (("kernel", ctx_k, 3), ("eager", ctx_e, 2)):
+        fwd[f"{impl}_ms"] = time_ms(
+            lambda c=ctx: lm.forward(model, cfg, inputs, c), iters=iters,
+            warmup=1)
+    fwd["kernel_graph_ms"] = device_ms(
+        lambda: lm.forward(model, cfg, inputs, ctx_k), inner=1, replays=3)
+    print(f"[times] forward {cfg.name} ({cfg.num_layers} layers) "
+          f"B={LM_BATCH} T={LM_SEQ} kernel {fwd['kernel_ms']:.2f} ms  eager "
+          f"{fwd['eager_ms']:.2f} ms  kernel in a CUDA graph "
+          f"{fwd['kernel_graph_ms']:.2f} ms")
+    profiles = {"forward": _profile(
+        f"{cfg.name} B={LM_BATCH} T={LM_SEQ}",
+        lambda: lm.forward(model, cfg, inputs, ctx_k), 2, 1)}
+
+    # Prefill in chunks and decode on both pools, then the eager impl.
+    prompts = [_audio_frames((n, cfg.d_model), 910 + i, device)
+               for i, n in enumerate(AUDIO_PROMPTS)]
+    steps = [_audio_frames((DECODE_SLOTS, 1, cfg.d_model), 950 + i, device)
+             for i in range(AUDIO_STEPS)]
+    runs, serve_launches = {}, {}
+    for paged in (False, True):
+        name = "paged" if paged else "contiguous"
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        runs[name] = _audio_serve(cfg, model, prompts, steps, device, paged)
+        torch.cuda.synchronize()
+        serve_launches[name] = {k: LAUNCHES[k] for k in AUDIO_DECODE_KERNELS}
+        other = {k: v for k, v in LAUNCHES.items()
+                 if v and k not in AUDIO_DECODE_KERNELS}
+        missing = [k for k in AUDIO_DECODE_KERNELS
+                   if serve_launches[name][k] == 0 and k != (
+                       "attention_cache" if paged else "attention_paged")]
+        if missing or other:
+            fail(f"audio {name}: kernels never launched {missing}, "
+                 f"off the path {other}")
+        print(f"[audio] {name}: prompts {list(AUDIO_PROMPTS)} frames in "
+              f"chunks of {PREFILL_CHUNK}, {AUDIO_STEPS} lockstep steps of "
+              f"{DECODE_SLOTS} slots in {time.perf_counter() - t1:.2f} s; "
+              f"prefill {np.mean(runs[name]['prefill_ms']):.2f} ms a prompt "
+              f"(CUDA events), step {np.mean(runs[name]['step_ms']):.3f} ms "
+              f"mean; launches {serve_launches[name]}")
+    cont, paged = runs["contiguous"]["logits"], runs["paged"]["logits"]
+    for i, (a, b) in enumerate(zip(cont, paged)):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f"audio: pass {i}: paged logits differ from contiguous")
+    print(f"[audio] paged and contiguous: every pass's logits bit for bit "
+          f"({len(cont)} passes: {len(cont) - AUDIO_STEPS} chunks, "
+          f"{AUDIO_STEPS} steps)")
+    eager_run = _audio_serve(cfg, model, prompts, steps, device, False,
+                             impl="eager")
+    dec_errs = {"mean": 0.0, "var": 0.0}
+    for i, (a, b) in enumerate(zip(cont, eager_run["logits"])):
+        e, ok = _model_errs(f"audio pass {i}", a, b)
+        if not all(ok.values()):
+            fail(f"audio pass {i}: kernel vs eager logits outside "
+                 f"MODEL_TOL: max abs err {e}")
+        dec_errs = {k: max(dec_errs[k], e[k]) for k in e}
+    out = uncertainty_decode(*cont[-1], gen)
+    print(f"[audio] kernel vs eager, every chunk and step: max abs err mean "
+          f"{dec_errs['mean']:.3e}, var {dec_errs['var']:.3e} (MODEL_TOL); "
+          f"last step: codes {out.token.tolist()}, MI "
+          + ", ".join(f"{float(v):.4e}" for v in out.mutual_info))
+    serve_ms = {k: {"prefill_ms": v["prefill_ms"], "step_ms": v["step_ms"]}
+                for k, v in runs.items()}
+    del runs, eager_run, cont, paged
+
+    # The whole-prompt prefill, a decode step's launches and profile.
+    prefill_t = _Timer()
+    prompt = {"frame_embeddings": prompts[0][None]}
+    for _ in range(3):
+        with prefill_t:
+            last, _ = lm.prefill(model, cfg, prompt, ctx_k, DECODE_MAX_LEN)
+    reset_launch_counts()
+    last, _ = lm.prefill(model, cfg, prompt, ctx_k, DECODE_MAX_LEN)
+    per_call = {"prefill": {k: v for k, v in LAUNCHES.items() if v}}
+    want_last, _ = lm.prefill(model, cfg, prompt, ctx_e, DECODE_MAX_LEN)
+    pre_errs, ok = _model_errs("audio prefill", (last.mean, last.var),
+                               (want_last.mean, want_last.var))
+    if not all(ok.values()):
+        fail(f"audio prefill: kernel vs eager outside MODEL_TOL: {pre_errs}")
+    pos = np.asarray([300, 400, 500, 540])
+    step_inputs = {"frame_embeddings": steps[0], "positions": pos[:, None],
+                   "cache_len": pos + 1}
+    states = lm.init_decode_state(cfg, DECODE_SLOTS, DECODE_MAX_LEN,
+                                  device=device)
+    reset_launch_counts()
+    lm.decode_step(model, cfg, step_inputs, states, ctx_k)
+    per_call["decode_step"] = {k: v for k, v in LAUNCHES.items() if v}
+    print(f"[audio] whole-prompt prefill of {AUDIO_PROMPTS[0]} frames: "
+          f"{np.median(prefill_t.ms()):.2f} ms (median of 3, CUDA events), "
+          f"kernel vs eager max abs err {pre_errs}; launches per prefill "
+          f"{per_call['prefill']}; per contiguous decode step "
+          f"{per_call['decode_step']}")
+    profiles["decode_step"] = _profile(
+        f"{cfg.name} decode step B={DECODE_SLOTS}",
+        lambda: lm.decode_step(model, cfg, step_inputs, states, ctx_k), 5, 2)
+    del states
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[audio] peak max_memory_allocated {peak:.2f} GB (the model, "
+          f"both pools in turn, the forwards)")
+
+    # fp64 stage by stage (the gate where the logits missed MODEL_TOL).
+    stages = _fp64_stage_check(cfg, model, frames, device,
+                               all(within.values()))
+    del model
+    torch.cuda.empty_cache()
+
+    # The kernels at the path's shapes.
+    rows = []
+    for kernel, shape in dict.fromkeys(audio_path_calls(cfg)):
+        big = kernel == "dense"
+        rows.append(_time_row("audio", kernel, shape, device,
+                              inner=2 if big else 10, replays=2 if big else 5,
+                              call_iters=3 if big else 30))
+    for kernel, shape in dict.fromkeys(audio_path_calls(cfg, decode=True)):
+        rows.append(_time_row("audio-decode", kernel, shape, device))
+    for kernel in CACHE_KERNELS:
+        paged_ps = (PAGE_SIZE,) if kernel == "attention_paged" else ()
+        for label, shape in (("decode-audio", CACHE_DECODE_AUDIO),
+                             ("chunk-audio", CACHE_CHUNK_AUDIO)):
+            rows.append(_time_row(label, kernel, shape + paged_ps, device))
+    info = {"forward_errors": fwd_errs, "forward_within_model_tol": within,
+            "decode_errors": dec_errs, "prefill_errors": pre_errs,
+            "fp64_stages": stages, "serve_ms": serve_ms,
+            "prefill_ms": prefill_t.ms(), "serve_launches": serve_launches,
+            "per_call_launches": per_call, "profiles": profiles,
+            "peak_gb": peak, "forward": fwd}
+    total = {k: serve_launches["contiguous"][k] + serve_launches["paged"][k]
+             for k in AUDIO_DECODE_KERNELS}
+    return ({"audio": launches, "audio_decode": total}, info, rows, fwd,
+            profiles, cfg)
+
+
+# ---------------------------------------------------------------------------
 # The fused norm -> dense -> activation unit (row 8) and its schedule DB
 # ---------------------------------------------------------------------------
 def _ulps(a, b):
@@ -3119,15 +3687,19 @@ def moe_path_calls(cfg, shapes):
     return [shapes[0], shapes[0], shapes[1]] * moe_layers
 
 
-def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg):
+def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg):
     """Per kernel: for the CNN path's kernels, its calls at batch 100,
     times and bounds summed over one LeNet-5 and one MLP forward (Eq. 12
     forwards; Eq. 7 for dense_var), with one LM forward's dense calls
     beside (for dense_var in Eq. 7); for the LM's norm, GLU and attention,
-    its calls in one LM forward (layernorm, on no path: one call at the
-    LM's norm shape); for the cache kernels, their calls in one decode
+    its calls in one LM forward (layernorm: one musicgen-medium forward's
+    calls); beside, for the dense, activation, layernorm and attention
+    kernels, one musicgen-medium forward's calls and (but attention) one
+    of its decode steps'; for the cache kernels, their calls in one decode
     step at CACHE_DECODE, with one deepseek-moe-16b decode step's calls
-    (CACHE_DECODE_MOE) and one call at CACHE_PREFILL beside; for the
+    (CACHE_DECODE_MOE), one musicgen-medium decode step's
+    (CACHE_DECODE_AUDIO), one call at CACHE_PREFILL and one at
+    CACHE_CHUNK_AUDIO beside; for the
     batched expert kernels, their calls in one MoE forward of 4 x 512
     tokens (dense_batched_first_layer, on no path: one call at the expert
     up shape), with one MoE decode step's calls beside; for the fused
@@ -3146,6 +3718,12 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg):
     dec = {tuple(r["shape"]): r for r in rows if r["batch"] == "lm-decode"}
     chunk = {tuple(r["shape"]): r for r in rows if r["batch"] == "lm-chunk"}
     fused = {tuple(r["shape"]): r for r in rows if r["batch"] == "fused"}
+    aud = {(r["kernel"], tuple(r["shape"])): r for r in rows
+           if r["batch"] in ("audio", "audio-decode")}
+
+    def per_call(r):
+        return {k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by")}
 
     def summed(kernel, calls):
         """Times, library time and bound summed over ``calls``."""
@@ -3196,10 +3774,12 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg):
             calls = [cache[(kernel, "decode")]] * lm_cfg.num_layers
             extra["decode_step_deepseek"] = summed(
                 kernel, [cache[(kernel, "decode-moe")]] * moe_cfg.num_layers)
-            pre = cache[(kernel, "prefill")]
-            extra["prefill_per_call"] = {
-                k: pre[k] for k in ("shape", "ms", "plain_ms", "library_ms",
-                                    "bound_ms", "bound_by")}
+            extra["decode_step_audio"] = summed(
+                kernel,
+                [cache[(kernel, "decode-audio")]] * audio_cfg.num_layers)
+            extra["prefill_per_call"] = per_call(cache[(kernel, "prefill")])
+            extra["prefill_chunk_audio_per_call"] = per_call(
+                cache[(kernel, "chunk-audio")])
         elif kernel in CNN_KERNELS:
             formulation = "var" if kernel == "dense_var" else "srm"
             calls = [cnn[(k, s)] for k, s in
@@ -3219,10 +3799,19 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg):
                     lmr[(kernel, s)] for k, s in lm_path_calls(lm_cfg)
                     if k == "dense"])
         elif kernel == "layernorm":
-            calls = [lmr[(kernel, (LM_BATCH * LM_SEQ, lm_cfg.d_model))]]
+            calls = [aud[(k, s)] for k, s in audio_path_calls(audio_cfg)
+                     if k == kernel]
         else:
             calls = [lmr[(k, s)] for k, s in lm_path_calls(lm_cfg)
                      if k == kernel]
+        if kernel in AUDIO_KERNELS:
+            # Beside: musicgen's forward (layernorm's own line) and step.
+            for label, decode in (("audio_forward", False),
+                                  ("audio_decode_step", True)):
+                audio = [aud[(k, s)] for k, s in
+                         audio_path_calls(audio_cfg, decode) if k == kernel]
+                if audio and (decode or kernel != "layernorm"):
+                    extra[label] = summed(kernel, audio)
         by_path = {path: counts.get(kernel, 0)
                    for path, counts in launches.items()}
         out.append({
@@ -3275,6 +3864,11 @@ def main():
     del moe_model
     torch.cuda.empty_cache()
     rows += moe_rows
+    audio_launches, audio_info, audio_rows, audio_forward, audio_profiles, \
+        audio_cfg = phase_audio(device)
+    launches.update(audio_launches)
+    rows += audio_rows
+    torch.cuda.empty_cache()
     fused_launches, fused_info, fused_rows = phase_fused(device, args.seed,
                                                          errs)
     launches.update({k: v for k, v in fused_launches.items()
@@ -3282,16 +3876,21 @@ def main():
     rows += fused_rows
     torch.cuda.empty_cache()
     launches["train"], train_info = phase_train(device)
-    forwards.append(moe_forward)
+    forwards += [moe_forward, audio_forward]
     if moe_profile is not None:
         profile.append({"model": moe_cfg.name, "batch": LM_BATCH,
                         **moe_profile})
-    kernels = kernel_summary(rows, launches, errs, lm_cfg, moe_cfg)
+    for name, row in audio_profiles.items():
+        if row is not None:
+            profile.append({"model": f"{audio_cfg.name} {name}", **row})
+    kernels = kernel_summary(rows, launches, errs, lm_cfg, moe_cfg,
+                             audio_cfg)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build": build, "kernels": kernels, "times": rows,
          "forwards": forwards, "profile": profile, "lm": lm_info,
          "decode": decode_info, "moe": moe_info,
-         "moe_decode": moe_decode_info, "fused": fused_info,
+         "moe_decode": moe_decode_info, "audio": audio_info,
+         "fused": fused_info,
          "train": train_info,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -9,6 +9,7 @@ _MODULES = {
     "granite-8b": "granite_8b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "musicgen-medium": "musicgen_medium",
 }
 
 

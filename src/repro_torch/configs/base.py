@@ -1,7 +1,8 @@
 """Model configuration (counterpart of ``repro/configs/base.py``).
 
-What the port's decoder families need: the dense transformer (granite) and
-the mixture-of-experts family (deepseek-moe, llama4-scout), whose
+What the port's decoder families need: the dense transformer (granite), the
+mixture-of-experts family (deepseek-moe, llama4-scout) and the audio decoder
+(musicgen, whose frame embeddings come in as input: ``embed_inputs``), whose
 ``models/lm.py`` blocks are ported. Hybrid, SSM and VLM fields come with the
 slices that port those blocks.
 """
@@ -14,7 +15,7 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe (the families ported yet)
+    family: str                      # dense | moe | audio (ported yet)
     num_layers: int
     d_model: int
     num_heads: int = 0
@@ -39,6 +40,9 @@ class ModelConfig:
     moe_dispatch: str = "scatter"
 
     window: int = 0                  # local attention window (0 = global)
+    # Modality frontend: False => the inputs are precomputed embeddings
+    # (``frame_embeddings``, musicgen) and the model has no token table.
+    embed_inputs: bool = True
     sigma_init: float = 1e-4
 
     @property
@@ -47,11 +51,11 @@ class ModelConfig:
 
     def _weights(self, experts: int) -> int:
         """Weights (means only) with ``experts`` routed experts counted per
-        MoE block: embedding, blocks (attention, MLP or router, routed and
-        shared experts), lm head."""
+        MoE block: embedding (where the model embeds tokens), blocks
+        (attention, MLP or router, routed and shared experts), lm head."""
         d, kv = self.d_model, self.num_kv_heads * self.head_dim
         mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
-        n = 2 * self.vocab_size * d
+        n = (2 if self.embed_inputs else 1) * self.vocab_size * d
         for i in range(self.num_layers):
             n += 2 * d * self.attn_dim + 2 * d * kv
             if self.layer_kind(i) == "moe":

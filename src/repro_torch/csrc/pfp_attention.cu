@@ -966,8 +966,8 @@ int kv_block_rows(int block_rows, int* bytes, int* per_sm) {
 }  // namespace
 
 // q (B, H, Tq, D); k, v_mu, v_var (B, Hkv, Tk, D); outputs (B, H, Tq, D).
-// head_dim D in {16, 128} (the reduced test config, granite-8b; other
-// widths are instantiated with the models that need them); H % Hkv == 0;
+// head_dim D in {16, 64, 128} (the reduced test config, musicgen-medium,
+// granite-8b; kernels/pfp_attention.py HEAD_DIMS); H % Hkv == 0;
 // B * Hkv <= 2^31 - 1; (H / Hkv) * Tq / 64 row tiles <= 65535. All
 // pointers 16-byte aligned.
 PFP_EXPORT int pfp_attention_launch(const void* q, const void* k,
@@ -989,6 +989,9 @@ PFP_EXPORT int pfp_attention_launch(const void* q, const void* k,
     case 16:
       return launch<16>(pq, pk, pvm, pvv, om, ov, B, H, Hkv, Tq, Tk, scale,
                         causal, s);
+    case 64:
+      return launch<64>(pq, pk, pvm, pvv, om, ov, B, H, Hkv, Tq, Tk, scale,
+                        causal, s);
     case 128:
       return launch<128>(pq, pk, pvm, pvv, om, ov, B, H, Hkv, Tq, Tk, scale,
                          causal, s);
@@ -1001,7 +1004,7 @@ PFP_EXPORT int pfp_attention_launch(const void* q, const void* k,
 // (B, Hkv, S, D) and page_table unused; paged = 1: k, v_mu, v_var
 // (NP, Hkv, S, D) pools of pages of S rows, page_table (B, P) int32.
 // q_start, kv_len (B,) int32; window <= 0 means none. Outputs (B, H, Tq, D).
-// All pointers 16-byte aligned. head_dim D in {16, 128}; H % Hkv == 0;
+// All pointers 16-byte aligned. head_dim D in {16, 64, 128}; H % Hkv == 0;
 // B * Hkv <= 65535. A table entry outside [0, NP) reads the trash page 0.
 // The plan (kernels/pfp_attention.py attention_plan): block_rows, one of
 // PFP_ATTENTION_BLOCKS; cluster, 1 .. 8 blocks sharing a row tile's keys.
@@ -1033,6 +1036,10 @@ PFP_EXPORT int pfp_attention_kv_launch(
       return launch_kv_block<16, false>(a, block_rows, s);
     case 16 * 2 + 1:
       return launch_kv_block<16, true>(a, block_rows, s);
+    case 64 * 2:
+      return launch_kv_block<64, false>(a, block_rows, s);
+    case 64 * 2 + 1:
+      return launch_kv_block<64, true>(a, block_rows, s);
     case 128 * 2:
       return launch_kv_block<128, false>(a, block_rows, s);
     case 128 * 2 + 1:
@@ -1052,6 +1059,10 @@ PFP_EXPORT int pfp_attention_kv_block(int paged, int D, int block_rows,
       return kv_block_rows<16, false>(block_rows, smem_bytes, blocks_per_sm);
     case 16 * 2 + 1:
       return kv_block_rows<16, true>(block_rows, smem_bytes, blocks_per_sm);
+    case 64 * 2:
+      return kv_block_rows<64, false>(block_rows, smem_bytes, blocks_per_sm);
+    case 64 * 2 + 1:
+      return kv_block_rows<64, true>(block_rows, smem_bytes, blocks_per_sm);
     case 128 * 2:
       return kv_block_rows<128, false>(block_rows, smem_bytes, blocks_per_sm);
     case 128 * 2 + 1:

@@ -36,9 +36,9 @@ from repro_torch.kernels.ref import (pfp_attention_cache_ref,  # noqa: F401
                                      pfp_attention_paged_ref,
                                      pfp_attention_ref)
 
-# The reduced test config and granite-8b; 64 (musicgen) and 256 (gemma)
-# come with the paths that serve those models.
-HEAD_DIMS = (16, 128)
+# The reduced test config, musicgen-medium and granite-8b; 256 (gemma)
+# needs a smaller cache-kernel block (ROADMAP.md).
+HEAD_DIMS = (16, 64, 128)
 
 FLASH_ROWS = 128       # rows a block without a cache: Flash<D>::kRows
 SEGMENT = 128          # keys a segment: csrc/pfp_attention.cu kSegment
@@ -48,8 +48,18 @@ MAX_CLUSTER = 8        # the portable cluster size: its kMaxCluster
 # kThreads, kWarps, kBK and kStages.
 THREADS, WARPS, TILE_KEYS, STAGES = 256, 8, 32, 2
 # The H100: SMs, and an SM's threads and shared memory, of which the
-# runtime keeps 1 KB a block.
+# runtime keeps 1 KB a block, and its registers, handed out to a thread in
+# steps of 8.
 SMS, SM_THREADS, SM_SMEM, SMEM_RESERVED = 132, 2048, 228 * 1024, 1024
+SM_REGISTERS, REGISTER_STEP = 64 * 1024, 8
+# Registers a thread of each cache-kernel instantiation takes, by (head_dim,
+# block rows): the larger of its contiguous and paged forms, as ptxas
+# reports them for sm_90a (nvcc 12.8; chip_smoke.py prints them). They bind
+# the 64-row block at head_dim 16 and 64 to one block an SM, and the decode
+# block at 16 to four; the gpu tests hold blocks_per_sm to the library's
+# occupancy, so a compiler that moves them shows there.
+KV_REGISTERS = {(16, 8): 64, (16, 64): 182, (64, 8): 64, (64, 64): 183,
+                (128, 8): 74, (128, 64): 247}
 
 
 class AttentionPlan(NamedTuple):
@@ -80,11 +90,13 @@ def kv_block_bytes(d: int, block_rows: int) -> int:
 
 
 def blocks_per_sm(d: int, block_rows: int) -> int:
-    """Blocks an SM holds by shared memory and threads: 2 decode blocks
-    (102 KB) or 1 of 64 rows (201 KB) at head_dim 128. Registers are not
-    counted; at head_dim 128 they do not bind."""
+    """Blocks an SM holds by shared memory, threads and registers
+    (``KV_REGISTERS``): 2 decode blocks (102 KB) or 1 of 64 rows (201 KB)
+    at head_dim 128, shared memory binding; at head_dim 64, 4 decode blocks
+    (52 KB, 64 registers) and 1 of 64 rows (105 KB, but 183 registers)."""
+    regs = -(-KV_REGISTERS[(d, block_rows)] // REGISTER_STEP) * REGISTER_STEP
     return min(SM_SMEM // (kv_block_bytes(d, block_rows) + SMEM_RESERVED),
-               SM_THREADS // THREADS)
+               SM_THREADS // THREADS, SM_REGISTERS // (regs * THREADS))
 
 
 def attention_plan(b: int, h: int, hkv: int, tq: int, capacity: int,
@@ -98,8 +110,10 @@ def attention_plan(b: int, h: int, hkv: int, tq: int, capacity: int,
     most 8 and the cache's segment count) whose blocks still run in one
     wave at :func:`blocks_per_sm`, else 1: a second wave cost more than the
     keys it split (PERF.md, the segment sweep). So 8 at a 4-slot decode of
-    granite-8b (256 blocks), 4 of deepseek-moe-16b (256), 2 at a 128-row
-    prefill chunk of one slot (128), 1 where the row tiles fill the card."""
+    granite-8b (256 blocks), 4 of deepseek-moe-16b (256) and of
+    musicgen-medium (384, four blocks an SM at head_dim 64), 2 at a 128-row
+    prefill chunk of one slot (128; musicgen's 96), 1 where the row tiles
+    fill the card."""
     rows = (h // hkv) * tq
     bq = BLOCK_ROWS[0] if rows <= BLOCK_ROWS[0] else BLOCK_ROWS[1]
     blocks = -(-rows // bq) * b * hkv

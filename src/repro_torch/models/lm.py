@@ -1,10 +1,13 @@
-"""Decoder LM: the dense transformer (granite, llama-style) and the
-mixture-of-experts family (deepseek-moe, llama4-scout).
+"""Decoder LM: the dense transformer (granite, llama-style), the
+mixture-of-experts family (deepseek-moe, llama4-scout) and the audio decoder
+(musicgen: frame embeddings in, LayerNorm, sinusoidal positions, MHA).
 
 Counterpart of ``repro/models/lm.py`` for ``attn`` and ``moe`` blocks:
-token embedding, leading dense-FFN layers (``head{i}``, DeepSeekMoE's first
-layer), the stacked layer groups of ``cfg.pattern``, an unstacked tail
-(``tail{i}``) where the layers do not tile, the final norm and the LM head.
+token embedding (or the ``frame_embeddings`` input where
+``cfg.embed_inputs`` is false), leading dense-FFN layers (``head{i}``,
+DeepSeekMoE's first layer), the stacked layer groups of ``cfg.pattern``,
+an unstacked tail (``tail{i}``) where the layers do not tile, the final
+norm and the LM head.
 Every block is pre-norm: norm -> attention -> residual, norm -> MLP (or
 MoE) -> residual. One set of Bayesian leaves serves DETERMINISTIC and PFP.
 
@@ -36,6 +39,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, init_generator, resolve_device
 from repro_torch.core.gaussian import GaussianTensor, is_gaussian
+from repro_torch.core.modes import Mode
 from repro_torch.nn.attention import (Attention, KVCache, PagedKVCache,
                                       attention_apply, init_kv_cache,
                                       init_paged_kv_cache)
@@ -45,7 +49,7 @@ from repro_torch.nn.mlp import MLPBlock
 from repro_torch.nn.module import Context
 from repro_torch.nn.moe import MoE, moe_apply, zero_aux
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "audio")
 
 
 class Block(nn.Module):
@@ -92,9 +96,9 @@ def _layers(cfg: ModelConfig):
 
 
 class LM(nn.Module):
-    """``embed``, ``head{i}``, ``stack`` (one group of ``cfg.pattern``
-    blocks each), ``tail{i}``, ``ln_f``, ``lm_head``: the reference's
-    parameter paths."""
+    """``embed`` (only where ``cfg.embed_inputs``), ``head{i}``, ``stack``
+    (one group of ``cfg.pattern`` blocks each), ``tail{i}``, ``ln_f``,
+    ``lm_head``: the reference's parameter paths."""
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator] = None,
@@ -106,9 +110,10 @@ class LM(nn.Module):
         device = resolve_device(device)
         g = init_generator(generator)
         self.cfg = cfg
-        self.embed = embedding_init(cfg.vocab_size, cfg.d_model,
-                                    sigma_init=cfg.sigma_init, generator=g,
-                                    device=device)
+        if cfg.embed_inputs:
+            self.embed = embedding_init(cfg.vocab_size, cfg.d_model,
+                                        sigma_init=cfg.sigma_init,
+                                        generator=g, device=device)
         _, groups, _ = _group_counts(cfg)
         if groups:
             self.stack = nn.ModuleList(nn.ModuleDict() for _ in range(groups))
@@ -174,10 +179,23 @@ def _as_device(value, device, dtype=torch.long):
 
 def _embed_inputs(model: LM, cfg: ModelConfig, inputs: Mapping,
                   ctx: Context):
+    """Token embedding, or the stub frontend's frame embeddings (a point
+    mass under PFP), plus the sinusoid of ``arange(T)``: as in the
+    reference, a decode step or a prefill chunk adds the embeddings of
+    positions 0..T-1, not of its absolute positions."""
     device = resolve_device(ctx.device)
-    tokens = _as_device(inputs["tokens"], device)
-    b, t = tokens.shape
-    x = model.embed(tokens, ctx)
+    if cfg.embed_inputs:
+        tokens = _as_device(inputs["tokens"], device)
+        b, t = tokens.shape
+        x = model.embed(tokens, ctx)
+    else:
+        x = inputs["frame_embeddings"]
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.asarray(x))
+        x = x.to(device)
+        b, t = x.shape[:2]
+        if ctx.mode == Mode.PFP:
+            x = GaussianTensor.deterministic(x)
     if cfg.positional == "sinusoidal":
         pos_emb = sinusoidal_embedding(torch.arange(t, device=device),
                                        cfg.d_model).to(x.dtype)
@@ -196,10 +214,11 @@ def _embed_inputs(model: LM, cfg: ModelConfig, inputs: Mapping,
 def forward(model: LM, cfg: ModelConfig, inputs: Mapping, ctx: Context, *,
             states=None, collect_states: bool = False,
             moe_aux_loss: bool = True):
-    """Full-sequence pass. ``inputs``: ``tokens`` (B, T) and optionally
-    ``positions`` (B, T); with decode ``states``, also ``cache_len`` (B,),
-    and for paged states ``page_table`` (B, P) and ``write_start`` (B,).
-    Returns ``(logits, aux, new_states)``: ``aux`` is the MoE aux dict
+    """Full-sequence pass. ``inputs``: ``tokens`` (B, T), or
+    ``frame_embeddings`` (B, T, d_model) where ``cfg.embed_inputs`` is
+    false, and optionally ``positions`` (B, T); with decode ``states``,
+    also ``cache_len`` (B,), and for paged states ``page_table`` (B, P)
+    and ``write_start`` (B,). Returns ``(logits, aux, new_states)``: ``aux`` is the MoE aux dict
     summed over the blocks (``loss``, ``moe_dropped``,
     ``moe_assignments``); ``new_states`` is None unless ``collect_states``
     and ``states`` are given. ``moe_aux_loss=False`` is the inference path:
@@ -391,9 +410,10 @@ def select_decode_slots(new_states, old_states, keep_new):
 
 def decode_step(model: LM, cfg: ModelConfig, inputs: Mapping, states,
                 ctx: Context):
-    """A decode step. ``inputs``: ``tokens`` (B, T), ``positions`` (B, T)
-    absolute; optional ``cache_len`` (B,) valid cache entries including
-    this step's tokens (entries at or past it are masked, and the paged
+    """A decode step. ``inputs``: ``tokens`` (B, T) (or
+    ``frame_embeddings`` (B, T, d_model)), ``positions`` (B, T) absolute;
+    optional ``cache_len`` (B,) valid cache entries including this step's
+    tokens (entries at or past it are masked, and the paged
     insert sends their writes to the trash page); ``page_table`` (B, P)
     for states from :func:`init_paged_decode_state`; ``write_start`` (B,),
     the first position each row may write. Returns (logits, new_states)."""
@@ -415,8 +435,9 @@ def prefill(model: LM, cfg: ModelConfig, inputs: Mapping, ctx: Context,
             max_len: int):
     """Full-sequence pass into a fresh contiguous KV cache of ``max_len``
     rows. Returns (last-position logits (B, 1, V), states)."""
-    states = init_decode_state(cfg, len(inputs["tokens"]), max_len,
-                               device=ctx.device)
+    batch = len(inputs["tokens"] if cfg.embed_inputs
+                else inputs["frame_embeddings"])
+    states = init_decode_state(cfg, batch, max_len, device=ctx.device)
     logits, _, new_states = forward(model, cfg, inputs, ctx, states=states,
                                     collect_states=True, moe_aux_loss=False)
     if is_gaussian(logits):

@@ -10,8 +10,9 @@ does not take raises in the wrapper.
 The tests marked ``gpu`` hold the bit contract on the card: a query row's
 two outputs are a function of its query, its valid keys, its position,
 ``kv_len``, the window and the scale only. The rows of one slot (G 4 query
-heads a KV head, as granite-8b, and G 1, as deepseek-moe-16b, at head_dim
-128; a cache of 640 keys: 5 segments) come out ``torch.equal`` to those of
+heads a KV head, as granite-8b, and G 1, as deepseek-moe-16b and
+musicgen-medium, at every head_dim of ``HEAD_DIMS``; a cache of 640 keys: 5
+segments) come out ``torch.equal`` to those of
 one Tq 512 call when run in chunks of 128, at Tq 3 and Tq 1; inside
 batches of 4 and 32 slots (one of them without keys, which gives 0);
 through pages of 1, 16 and 24 rows in shuffled order; and under every
@@ -32,15 +33,19 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.pfp_attention import HEAD_DIMS
 from repro_torch.kernels.ref import (pfp_attention_cache_ref,
                                      pfp_attention_paged_ref)
 
 SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
           / "csrc" / "pfp_attention.cu")
-# One slot: H query heads over HKV KV heads (HEADS), a cache of S keys; its
-# rows at positions N0 .. N0 + N - 1.
+# One slot: H query heads over HKV KV heads (HEADS) at head_dim D, a cache
+# of S keys; its rows at positions N0 .. N0 + N - 1. SLOTS: (H, HKV, D) by
+# id, head_dim 128 unsuffixed.
 HEADS = {"G4": (8, 2), "G1": (4, 4)}
-D, S = 128, 640
+SLOTS = {(name if d == 128 else f"{name}-d{d}"): (*HEADS[name], d)
+         for name in HEADS for d in HEAD_DIMS}
+S = 640
 N0, N = 88, 512
 WINDOWS = (None, 100)
 ATT_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_torch_decode.py
@@ -127,6 +132,36 @@ def test_block_model_follows_the_source():
     assert WARPS == THREADS // 32
     assert [kv_block_bytes(128, bq) for bq in (8, 64)] == [104448, 205824]
     assert [blocks_per_sm(128, bq) for bq in (8, 64)] == [2, 1]
+    assert [kv_block_bytes(64, bq) for bq in (8, 64)] == [53248, 107520]
+    assert [blocks_per_sm(64, bq) for bq in (8, 64)] == [4, 1]
+
+
+def test_register_model_covers_every_instantiation():
+    """KV_REGISTERS has one count for each (head_dim, block rows) the
+    source instantiates, and at the 64-row block of head_dim 64 registers
+    bind where shared memory would allow two blocks."""
+    from repro_torch.kernels.pfp_attention import (BLOCK_ROWS, HEAD_DIMS,
+                                                   KV_REGISTERS, SM_SMEM,
+                                                   SMEM_RESERVED,
+                                                   blocks_per_sm,
+                                                   kv_block_bytes)
+    assert set(KV_REGISTERS) == {(d, bq) for d in HEAD_DIMS
+                                 for bq in BLOCK_ROWS}
+    assert SM_SMEM // (kv_block_bytes(64, 64) + SMEM_RESERVED) == 2
+    assert blocks_per_sm(64, 64) == 1
+
+
+def test_plan_at_musicgen_decode_and_chunk():
+    """musicgen-medium (24 heads of 64, MHA): a 4-slot decode step takes
+    the decode block in clusters of 4 (384 blocks, four an SM); a 128-row
+    chunk of one slot 64-row blocks in clusters of 2 (96 blocks, one an
+    SM)."""
+    from repro_torch.kernels.pfp_attention import attention_plan, plan_blocks
+    decode = attention_plan(4, 24, 24, 1, 1024, 64)
+    assert decode == (8, 4) and plan_blocks(decode, 4, 24, 24, 1) == 384
+    chunk = attention_plan(1, 24, 24, 128, 1024, 64)
+    assert chunk == (64, 2) and plan_blocks(chunk, 1, 24, 24, 128) == 96
+    assert attention_plan(4, 24, 24, 512, 1024, 64) == (64, 1)
 
 
 @pytest.mark.parametrize("plan", [(16, 1), (8, 0), (64, 9)],
@@ -159,8 +194,8 @@ def cuda():
 @pytest.mark.gpu
 def test_block_model_matches_the_library(cuda):
     """The library's shared memory for every instantiated block equals
-    kv_block_bytes; the blocks an SM holds equal blocks_per_sm at head_dim
-    128 and are at most that at 16, where registers may bind."""
+    kv_block_bytes, and the blocks an SM holds (its occupancy, registers
+    included) equal blocks_per_sm."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.pfp_attention import (BLOCK_ROWS, HEAD_DIMS,
                                                    blocks_per_sm,
@@ -174,27 +209,24 @@ def test_block_model_matches_the_library(cuda):
                     paged, d, bq, ctypes.byref(nbytes),
                     ctypes.byref(per_sm)), "pfp_attention_kv_block")
                 assert nbytes.value == kv_block_bytes(d, bq), (paged, d, bq)
-                if d == 128:
-                    assert per_sm.value == blocks_per_sm(d, bq), (paged, bq)
-                else:
-                    assert 1 <= per_sm.value <= blocks_per_sm(d, bq)
+                assert per_sm.value == blocks_per_sm(d, bq), (paged, d, bq)
 
 
-def _gaussian_cache(rng, b, hkv):
-    k, vm = (rng.normal(size=(b, hkv, S, D)).astype(np.float32)
+def _gaussian_cache(rng, b, hkv, d):
+    k, vm = (rng.normal(size=(b, hkv, S, d)).astype(np.float32)
              for _ in range(2))
-    vv = np.log1p(np.exp(rng.normal(size=(b, hkv, S, D)))).astype(np.float32)
+    vv = np.log1p(np.exp(rng.normal(size=(b, hkv, S, d)))).astype(np.float32)
     return k, vm, vv
 
 
-@pytest.fixture(scope="module", params=sorted(HEADS))
+@pytest.fixture(scope="module", params=sorted(SLOTS))
 def slot(request):
     """One slot's queries by position (H, N0 + N, D) and its cache, for
-    each head layout of HEADS."""
-    h, hkv = HEADS[request.param]
+    each head layout and head_dim of SLOTS."""
+    h, hkv, d = SLOTS[request.param]
     rng = np.random.default_rng(0)
-    q = rng.normal(size=(h, N0 + N, D)).astype(np.float32)
-    k, vm, vv = _gaussian_cache(rng, 1, hkv)
+    q = rng.normal(size=(h, N0 + N, d)).astype(np.float32)
+    k, vm, vv = _gaussian_cache(rng, 1, hkv, d)
     return q, k[0], vm[0], vv[0]
 
 
@@ -203,12 +235,12 @@ def _pages(caches, kv_len, ps, seed):
     each slot's kv_len, and the page table (unused slots: the trash page
     0, whose rows are random)."""
     rng = np.random.default_rng(seed)
-    b, hkv = caches[0].shape[:2]
+    b, hkv, _, d = caches[0].shape
     p = -(-S // ps)
     used = [-(-int(n) // ps) for n in kv_len]
     ids = rng.permutation(np.arange(1, 1 + sum(used) + 2))
     table = np.zeros((b, p), np.int32)
-    pools = [rng.normal(size=(len(ids) + 1, hkv, ps, D)).astype(np.float32)
+    pools = [rng.normal(size=(len(ids) + 1, hkv, ps, d)).astype(np.float32)
              for _ in caches]
     nxt = 0
     for bi in range(b):
@@ -230,10 +262,11 @@ def _run(slot, device, q_start, tq, *, b=1, at=0, window=None, ps=None,
     the slot's (mean, var) rows (H, tq, D). With ``ref``, every slot's
     outputs are also held to the plain version at ATT_TOL."""
     q_all, k, vm, vv = slot
+    d = q_all.shape[-1]
     rng = np.random.default_rng(seed)
-    q = rng.normal(size=(b, q_all.shape[0], tq, D)).astype(np.float32)
+    q = rng.normal(size=(b, q_all.shape[0], tq, d)).astype(np.float32)
     q[at] = q_all[:, q_start:q_start + tq]
-    caches = _gaussian_cache(rng, b, k.shape[0])
+    caches = _gaussian_cache(rng, b, k.shape[0], d)
     for cache, mine in zip(caches, (k, vm, vv)):
         cache[at] = mine
     starts = rng.integers(0, S - tq, size=b).astype(np.int32)
@@ -249,7 +282,7 @@ def _run(slot, device, q_start, tq, *, b=1, at=0, window=None, ps=None,
         args = [q, *pools, table]
     args = [torch.from_numpy(a).to(device)
             for a in args + [starts, lens]]
-    kw = dict(scale=D ** -0.5, window=window)
+    kw = dict(scale=d ** -0.5, window=window)
     if plan is None:
         fn = ops.pfp_attention_cache if ps is None else ops.pfp_attention_paged
     else:

@@ -126,6 +126,7 @@ CACHE_CASES = {
     "window": (2, 4, 2, 6, 40, 16, [10, 30], [16, 36], 5),
     "kv_len0": (3, 4, 2, 1, 40, 16, [0, 5, 0], [0, 6, 0], None),
     "d128": (2, 8, 2, 3, 33, 128, [4, 29], [7, 32], None),
+    "mha_d64": (3, 4, 4, 2, 40, 64, [0, 17, 38], [2, 19, 40], None),
 }
 
 
@@ -159,7 +160,7 @@ def test_cache_attention_matches_pallas_kernel(jax_ref, case):
 
 @pytest.mark.parametrize("ps", [1, 16, 24])
 @pytest.mark.parametrize("case", ["decode_gqa4", "chunk", "window",
-                                  "kv_len0"])
+                                  "kv_len0", "mha_d64"])
 def test_paged_attention_matches_pallas_kernel(jax_ref, case, ps):
     (q, k, vm, vv, q_start, kv_len), scale, window = _cache_args(case, 1)
     pools, table = _pages(k, vm, vv, kv_len, ps, seed=ps)

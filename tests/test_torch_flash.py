@@ -4,7 +4,7 @@ On the CPU: the block's row count in the wrapper is the source's, and the
 op runs the plain version. The tests marked ``gpu`` hold
 ``csrc/pfp_attention.cu`` ``pfp_attention_kernel`` against its plain
 version (``kernels/ref.py`` ``pfp_attention_ref``) at ``ATT_TOL``: head_dim
-16 and 128, one and four query heads a KV head, Tq below Tk, causal and
+16, 64 and 128, one and four query heads a KV head, Tq below Tk, causal and
 not, Tq and Tk on no multiple of the block's 64 rows or the tile's 32
 keys, and rows without a valid key (Tq above Tk, causal), which give 0; and
 two calls give the same bits. No JAX: ``python -m pytest -m gpu
@@ -67,7 +67,7 @@ def test_op_on_the_cpu_is_the_plain_version():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", (16, 128))
+@pytest.mark.parametrize("d", (16, 64, 128))
 @pytest.mark.parametrize("heads", sorted(HEADS))
 @pytest.mark.parametrize("causal", (True, False))
 def test_kernel_matches_plain_version(cuda, d, heads, causal):
@@ -83,7 +83,7 @@ def test_kernel_matches_plain_version(cuda, d, heads, causal):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", (16, 128))
+@pytest.mark.parametrize("d", (16, 64, 128))
 def test_rows_without_a_key_give_zero(cuda, d):
     """Causal with Tq above Tk: the first Tq - Tk rows see no key."""
     h, hkv = HEADS["G4"]
@@ -104,3 +104,17 @@ def test_two_calls_give_the_same_bits(cuda, causal):
     again = ops.pfp_attention(*args, scale=128 ** -0.5, causal=causal)
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_musicgen_forward_shape(cuda):
+    """musicgen-medium's forward: 24 heads of 64 over 24 KV heads (G 1),
+    4 x 512 positions, causal; two calls give the same bits."""
+    args = _operands(4, 24, 24, 512, 512, 64, seed=11, device=cuda)
+    got = ops.pfp_attention(*args, scale=64 ** -0.5, causal=True)
+    again = ops.pfp_attention(*args, scale=64 ** -0.5, causal=True)
+    torch.cuda.synchronize()
+    want = pfp_attention_ref(*(a.cpu() for a in args), 64 ** -0.5, True)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), **ATT_TOL)
