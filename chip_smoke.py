@@ -9,7 +9,9 @@ Phases, each printing its own lines; any failure exits non-zero:
   2. build  : nvcc builds src/repro_torch/csrc/*.cu for sm_90a; each
               attention kernel's registers (ptxas) and each cache-kernel
               block's occupancy from the library, which must equal
-              attention_plan's model of it (kv_block_bytes, KV_REGISTERS)
+              attention_plan's model of it (kv_block_bytes, KV_REGISTERS);
+              each norm kernel and fused norm-pass instantiation's
+              registers and spill stores
   3. kernels: each CUDA kernel against its plain PyTorch version on the card,
               at the main paths' shapes (the CNNs' at batch 10, 100 and
               1024) and ragged ones, the dense kernel also at K on both
@@ -36,7 +38,15 @@ Phases, each printing its own lines; any failure exits non-zero:
               1e4, mu +-90), operands 1-3 floats off 16 bytes, the pool on
               SRM input bit for bit to_var() and the VAR kernel, the same
               bits under other launch plans, and each kernel's error
-              against fp64 no worse than 4x its plain version's
+              against fp64 no worse than 4x its plain version's; the norms
+              (rows 6 and 7) at the decode shapes (4, 1536), (4, 2048) and
+              (4, 4096) and at ragged widths (333, 4097), VAR and SRM input,
+              with and without an activation (LayerNorm with gelu), each
+              also on operands 4 bytes off 16-byte alignment with the
+              aligned call's bits; a norm row's bits equal at M 1, 4, 33
+              and 2048 and unaligned (norm_m_independence_check); the
+              LayerNorm row offset by 100 no further from fp64 than 4x the
+              fp32 plain version (the centred spread)
   4. serving: LeNet-5 and MLP at full width (random weights from a seed,
               sigma_init 1e-3, converted with calibration factor 0.4) answer
               Dirty-MNIST batches of 100 per split with impl="kernel"; the
@@ -73,7 +83,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               plus its time per eager call and each dense call's plan;
               the empty kernel's time (csrc/pfp_floor.cu, the floor no
               launch goes under) beside each activation and pool time, with
-              their bytes, issue and MUFU limits (SASS counts, ACT_SASS);
+              their bytes, issue and MUFU limits (SASS counts, ACT_SASS),
+              and beside each norm time with its bytes limit (rows 6 and 7
+              also at granite's, deepseek's and musicgen's 4-slot decode
+              shapes);
               whole-model forwards, eager and captured in a CUDA graph
   8. profile: torch.profiler over each model's forwards and one decode
               step: device busy share, the device kernels a forward
@@ -257,6 +270,11 @@ CACHE_CHECKS = {
     "head_dim 64 window": (2, 8, 2, 37, 300, 64, (10, 250), (47, 287), 50),
 }
 CHECK_PAGE_SIZES = (1, 16, 24)
+# The norms' checks: the 4-slot decode shapes of musicgen-medium,
+# deepseek-moe-16b and granite-8b, and ragged widths.
+NORM_DECODE = ((DECODE_SLOTS, 1536), (DECODE_SLOTS, 2048),
+               (DECODE_SLOTS, 4096))
+NORM_RAGGED = ((7, 333), (3, 4097))
 # The MoE phase: deepseek-moe-16b at full width, cut to MOE_LAYERS layers
 # (layer 0 dense, the rest MoE), requests as in the LM phase.
 MOE_ARCH = "deepseek-moe-16b"
@@ -441,6 +459,12 @@ def lm_decode_calls(cfg):
     block = [(m, d, cfg.attn_dim), (m, d, kv), (m, d, kv),
              (m, cfg.attn_dim, d), (m, d, f), (m, d, f), (m, f, d)]
     return block * cfg.num_layers + [(m, d, cfg.vocab_size)]
+
+
+def norm_decode_calls(cfg):
+    """The RMSNorm's calls in one LM decode step of DECODE_SLOTS slots
+    (fusion off): two a layer and the final norm, (rows, width)."""
+    return [(DECODE_SLOTS, cfg.d_model)] * (2 * cfg.num_layers + 1)
 
 
 def lm_chunk_calls(cfg):
@@ -955,6 +979,8 @@ def phase_build():
         print(f"[build] {line}")
     for line in attention_build_lines(log):
         print(f"[build] {line}")
+    for line in norm_build_lines(log):
+        print(f"[build] {line}")
     return info
 
 
@@ -975,6 +1001,29 @@ def ptxas_registers(log, kernel):
         if m and entry is not None:
             out[entry] = (int(m.group(1)), spill)
             entry = None
+    return out
+
+
+def template_args(args):
+    """The integer template arguments of a mangled instantiation."""
+    return [int(v.replace("n", "-"))
+            for v in re.findall(r"L[ib](n?\d+)E", args + "E")]
+
+
+def norm_build_lines(log):
+    """ptxas' registers and spill stores of every instantiation of the
+    norm kernel <norm, rep, act, groups> and of the fused unit's norm pass
+    <norm, rep, groups>, a line for each groups."""
+    out = []
+    for kernel in ("pfp_norm_kernel", "pfp_norm_srm_kernel"):
+        by_groups = {}
+        for args, (regs, spill) in ptxas_registers(log, kernel).items():
+            *lead, groups = template_args(args)
+            by_groups.setdefault(groups, []).append(
+                f"<{', '.join(map(str, lead))}> {regs}/{spill}")
+        for groups, cells in sorted(by_groups.items()):
+            out.append(f"{kernel} G {groups} (<norm, rep[, act]> registers/"
+                       f"spill bytes): " + ", ".join(sorted(cells)))
     return out
 
 
@@ -1090,6 +1139,8 @@ def phase_kernels(device):
     cache_kernel_checks(device, errs)
     bit_contract_check(device, CACHE_DECODE)
     bit_contract_check(device, CACHE_DECODE_AUDIO)
+    norm_kernel_checks(device, errs)
+    norm_m_independence_check(device)
     layernorm_offset_check(device)
     moe_kernel_checks(device, errs)
     return errs
@@ -1550,10 +1601,11 @@ def bit_contract_check(device, shape):
 
 def layernorm_offset_check(device):
     """LayerNorm rows offset by 100, against fp64: the kernel sums the
-    centred spread; the TPU kernel's moment form sum(var + mu^2)/d -
+    centred spread, no further from fp64 than FP64_FACTOR times the fp32
+    plain version; the TPU kernel's moment form sum(var + mu^2)/d -
     mu_tok^2 cancels there (its fp32 error is printed beside)."""
     import torch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     mu, var = gaussian((4, 4096), 77, device)
     mu = mu + 100.0
     gain = torch.ones(4096, device=device)
@@ -1565,13 +1617,89 @@ def layernorm_offset_check(device):
     torch.cuda.synchronize()
     _check_close("layernorm offset 100", [g.double() for g in got], want,
                  NORM_TOL)
+    err = _max_err([g.double() for g in got], want)
+    plain_err = _max_err([g.double() for g in ref.pfp_layernorm_ref(
+        mu, var, gain)], want)
+    if err > FP64_FACTOR * plain_err:
+        fail(f"layernorm offset 100: the kernel {err:.3e} from fp64, more "
+             f"than {FP64_FACTOR}x the fp32 plain version's {plain_err:.3e}")
     tok32 = mu.mean(-1, keepdim=True)
     moment = torch.mean(var + mu * mu, -1, keepdim=True) - tok32 * tok32
     moment_err = float(((mu - tok32) * torch.rsqrt(moment + 1e-6)
                         - want[0]).abs().max())
     print(f"[kernels] layernorm offset 100 vs fp64: kernel max_abs_err "
-          f"{_max_err([g.double() for g in got], want):.3e}; the moment "
-          f"form in fp32 {moment_err:.3e}")
+          f"{err:.3e}, the fp32 centred plain version {plain_err:.3e} "
+          f"(at most {FP64_FACTOR}x); the moment form in fp32 "
+          f"{moment_err:.3e}")
+
+
+def norm_kernel_checks(device, errs):
+    """Rows 6 and 7 at the 4-slot decode shapes (musicgen-medium's 1536,
+    deepseek-moe-16b's 2048, granite-8b's 4096) and at ragged widths (333:
+    no float4 groups; 4097: one past two groups a thread), VAR and SRM
+    input, without and with an activation (RMSNorm silu, LayerNorm gelu),
+    against their plain versions at NORM_TOL; each also on operands 4
+    bytes off 16-byte alignment (scalar loads), which must give the
+    aligned call's bits. Updates ``errs``."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.pfp_norms import norm_plan
+    seed = 700
+    for norm, kernel, plain, act in (
+            ("rmsnorm", ops.pfp_rmsnorm, ref.pfp_rmsnorm_ref, "silu"),
+            ("layernorm", ops.pfp_layernorm, ref.pfp_layernorm_ref, "gelu")):
+        for shape in NORM_DECODE + NORM_RAGGED:
+            worst = 0.0
+            for rep in ("var", "srm"):
+                for a in (None, act):
+                    seed += 1
+                    mu, var, *vecs = operands(norm, shape, seed, device)
+                    second = var if rep == "var" else var + mu * mu
+                    kw = dict(rep=rep, act=a)
+                    got = kernel(mu, second, *vecs, **kw)
+                    odd = kernel(*(_offset_copy(t, 1)
+                                   for t in (mu, second, *vecs)), **kw)
+                    want = plain(mu, second, *vecs, **kw)
+                    torch.cuda.synchronize()
+                    label = f"{norm}{shape} rep={rep} act={a}"
+                    _check_close(label, got, want, NORM_TOL)
+                    if not all(torch.equal(x, y) for x, y in zip(got, odd)):
+                        fail(f"{label}: unaligned operands changed the bits")
+                    worst = max(worst, _max_err(got, want))
+            errs[norm] = max(errs[norm], worst)
+            print(f"[kernels] {norm:18s} {str(shape):12s} plan "
+                  f"{tuple(norm_plan(shape[1]))}: var/srm, act None/{act}: "
+                  f"max_abs_err {worst:.3e}; unaligned operands the same "
+                  f"bits")
+
+
+def norm_m_independence_check(device):
+    """A norm row's bits depend on d only (csrc/pfp_norm.cuh): rows 0-3
+    of the same operands bit for bit at M = 4, 33 and 2048, row 0 at M 1,
+    and rows 0-3 at M 33 with operands off 16-byte alignment, for both
+    norms and reps at 1536, 2048, 4096 and 333."""
+    import torch
+    from repro_torch.kernels import ops
+    for norm, kernel in (("rmsnorm", ops.pfp_rmsnorm),
+                         ("layernorm", ops.pfp_layernorm)):
+        for d in (1536, 2048, 4096, 333):
+            mu, var, *vecs = operands(norm, (2048, d), 41 + d, device)
+            for rep in ("var", "srm"):
+                second = var if rep == "var" else var + mu * mu
+                first = kernel(mu[:4], second[:4], *vecs, rep=rep)
+                runs = [(m, kernel(mu[:m], second[:m], *vecs, rep=rep))
+                        for m in (1, 33, 2048)]
+                runs.append(("33 unaligned", kernel(
+                    _offset_copy(mu[:33], 1), _offset_copy(second[:33], 1),
+                    *vecs, rep=rep)))
+                for m, out in runs:
+                    rows = 1 if m == 1 else 4
+                    if not all(torch.equal(t[:rows], f[:rows])
+                               for t, f in zip(out, first)):
+                        fail(f"{norm} (M, {d}) rep={rep}: rows 0-{rows - 1} "
+                             f"at M {m} differ from M 4")
+            print(f"[kernels] {norm:18s} (M, {d}): rows 0-3 bit for bit at "
+                  f"M 1 / 4 / 33 / 2048 and unaligned at M 33, both reps")
 
 
 def m_independence_check(device):
@@ -2395,6 +2523,8 @@ def phase_moe_times(device, cfg, model, decode_rows):
         for shape in (MOE_DECODE_UP, MOE_DECODE_DOWN):
             rows.append(_time_row("moe-occ", kernel, shape, device,
                                   rows=decode_rows))
+    rows.append(_time_row("moe-decode", "rmsnorm", norm_decode_calls(cfg)[0],
+                          device))
     tokens = _lm_requests(cfg, device)[0]
     row = {"batch": LM_BATCH, "seq": LM_SEQ, "model": cfg.name}
     for impl, iters in (("kernel", 3), ("eager", 2)):
@@ -2446,7 +2576,7 @@ def _time_row(label, kernel, shape, device, inner=10, replays=5,
     }
     lim = limits(kernel, shape, rows)
     row["bound_ms"], row["bound_by"], row["bound_limit"] = _bound(lim)
-    if kernel in SASS_KERNELS:
+    if kernel in SASS_KERNELS or kernel in NORM_OPS:
         row["limits"], row["floor_ms"] = lim, FLOOR_MS
     plan = dense_plan_of(kernel, shape)
     if plan is not None:
@@ -2462,6 +2592,8 @@ def _time_row(label, kernel, shape, device, inner=10, replays=5,
     floor_s = ("" if kernel not in SASS_KERNELS else
                f"  floor {FLOOR_MS:.4f}  (bytes {lim['bytes']:.5f}, issue "
                f"{lim['issue']:.5f}, mufu {lim['mufu']:.5f})")
+    if kernel in NORM_OPS:
+        floor_s = f"  floor {FLOOR_MS:.4f}  (bytes {lim['bytes']:.5f})"
     print(f"[times] B={label:<5} {kernel:18s} {str(shape):36s} kernel "
           f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f}  library {lib_s}"
           f"  bound {row['bound_ms']:.5f} ({row['bound_limit']})  eager call "
@@ -2511,6 +2643,9 @@ def phase_times(device, lm_cfg, lm_model):
                               replays=2, call_iters=3))
     for shape in dict.fromkeys(lm_decode_calls(lm_cfg)):
         rows.append(_time_row("lm-decode", "dense", shape, device))
+    # Row 6 at granite's 4-slot decode step (deepseek's: phase_moe_times).
+    rows.append(_time_row("lm-decode", "rmsnorm",
+                          norm_decode_calls(lm_cfg)[0], device))
     for shape in dict.fromkeys(lm_chunk_calls(lm_cfg)):
         rows.append(_time_row("lm-chunk", "dense", shape, device))
     for kernel in CACHE_KERNELS:
@@ -3693,7 +3828,8 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg):
     forwards; Eq. 7 for dense_var), with one LM forward's dense calls
     beside (for dense_var in Eq. 7); for the LM's norm, GLU and attention,
     its calls in one LM forward (layernorm: one musicgen-medium forward's
-    calls); beside, for the dense, activation, layernorm and attention
+    calls; rmsnorm with one granite and one deepseek decode step's calls
+    beside); beside, for the dense, activation, layernorm and attention
     kernels, one musicgen-medium forward's calls and (but attention) one
     of its decode steps'; for the cache kernels, their calls in one decode
     step at CACHE_DECODE, with one deepseek-moe-16b decode step's calls
@@ -3715,7 +3851,11 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg):
             if r["batch"] == "moe"}
     occ = {(r["kernel"], tuple(r["shape"])): r for r in rows
            if r["batch"] == "moe-occ"}
-    dec = {tuple(r["shape"]): r for r in rows if r["batch"] == "lm-decode"}
+    dec = {tuple(r["shape"]): r for r in rows
+           if r["batch"] == "lm-decode" and r["kernel"] == "dense"}
+    normdec = {(r["batch"], tuple(r["shape"])): r for r in rows
+               if r["kernel"] == "rmsnorm"
+               and r["batch"] in ("lm-decode", "moe-decode")}
     chunk = {tuple(r["shape"]): r for r in rows if r["batch"] == "lm-chunk"}
     fused = {tuple(r["shape"]): r for r in rows if r["batch"] == "fused"}
     aud = {(r["kernel"], tuple(r["shape"])): r for r in rows
@@ -3737,7 +3877,8 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg):
                                    r.get("rows")).items():
                 lim[name] = lim.get(name, 0.0) + ms
         out["bound_ms"], out["bound_by"], out["bound_limit"] = _bound(lim)
-        if kernel in SASS_KERNELS:   # no launch goes under the floor
+        if kernel in SASS_KERNELS or kernel in NORM_OPS:
+            # no launch goes under the floor
             out["floor_ms"] = FLOOR_MS * len(calls)
         return out
 
@@ -3804,6 +3945,13 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg):
         else:
             calls = [lmr[(k, s)] for k, s in lm_path_calls(lm_cfg)
                      if k == kernel]
+        if kernel == "rmsnorm":
+            # Beside: one granite and one deepseek 4-slot decode step.
+            for label, batch, cfg in (("decode_step", "lm-decode", lm_cfg),
+                                      ("decode_step_deepseek", "moe-decode",
+                                       moe_cfg)):
+                extra[label] = summed(kernel, [
+                    normdec[(batch, s)] for s in norm_decode_calls(cfg)])
         if kernel in AUDIO_KERNELS:
             # Beside: musicgen's forward (layernorm's own line) and step.
             for label, decode in (("audio_forward", False),

@@ -11,9 +11,9 @@
 // tile, wherever the chain's dense does not split K (kernels/pfp_dense.py
 // split_k is 1: every N > 128, every N < 64, every K <= 64), in two
 // launches where the chain takes five:
-//  * The norm pass (pfp_norm_srm_kernel): the norm kernel's own row
-//    statistics (pfp_norm.cuh block_row_stats, one block a row) and
-//    normalise, then h_srm = h_var + h_mu^2 rounded as torch's two-op
+//  * The norm pass (pfp_norm_srm_kernel): the norm kernel's own row pass
+//    (pfp_norm.cuh norm_row: one block a row on the norm kernel's plan,
+//    the row in registers), then h_srm = h_var + h_mu^2 rounded as torch's two-op
 //    to_srm rounds it (the intrinsics keep nvcc from contracting the
 //    product and sum into one fma); (h_mu, h_srm) to a workspace, read
 //    once and written once.
@@ -73,30 +73,45 @@ using pfp::kRms;
   X(128, 4, 1, 4)          \
   X(64, 1, 1, 4)
 
+// The norm pass's outputs of one group: (h_mu, h_srm), h_srm rounded as
+// torch's to_srm rounds h_var + h_mu^2 (two ops: the intrinsics keep nvcc
+// from contracting them into one fma).
+struct SrmStore {
+  float* h_mu;
+  float* h_srm;
+  int d;
+  bool vec;
+
+  __device__ __forceinline__ void operator()(int j, const float4& mean,
+                                             const float4& var) const {
+    float4 srm;
+#pragma unroll
+    for (int l = 0; l < 4; ++l)
+      pfp::lane(srm, l) = __fadd_rn(pfp::lane(var, l),
+                                    __fmul_rn(pfp::lane(mean, l),
+                                              pfp::lane(mean, l)));
+    pfp::store_group(h_mu, h_srm, j, d, vec, mean, srm);
+  }
+};
+
 // The norm pass: row m of (mu, sec) normalised, (h_mu, h_srm) to row m of
-// h_mu and h_srm, by one block of kNormThreads a row, as the norm kernel
-// forms (h_mu, h_var) and torch's to_srm the SRM.
-template <int NORM, int REP>
-__global__ void __launch_bounds__(pfp::kNormThreads)
+// h_mu and h_srm, by one block a row on the norm kernel's plan, as the
+// norm kernel forms (h_mu, h_var) (pfp_norm.cuh norm_row) and torch's
+// to_srm the SRM.
+template <int NORM, int REP, int G>
+__global__ void __launch_bounds__(pfp::norm_max_threads(G))
 pfp_norm_srm_kernel(const float* __restrict__ mu,
                     const float* __restrict__ sec,
                     const float* __restrict__ gain,
                     const float* __restrict__ bias,
                     float* __restrict__ h_mu, float* __restrict__ h_srm,
-                    int K, float eps) {
-  __shared__ float s_part[pfp::kNormWarps];
+                    int K, float eps, int vec) {
+  __shared__ float part[2 * pfp::kNormMaxWarps];
   const long long base = static_cast<long long>(blockIdx.x) * K;
-  const float* m = mu + base;
-  const float* s = sec + base;
-  float tok, norm;
-  pfp::block_row_stats<NORM, REP>(m, s, K, eps, s_part, &tok, &norm);
-  for (int j = threadIdx.x; j < K; j += pfp::kNormThreads) {
-    float mean, var;
-    pfp::normalise<NORM, REP>(m[j], s[j], gain[j], bias[j], tok, norm,
-                              &mean, &var);
-    h_mu[base + j] = mean;
-    h_srm[base + j] = __fadd_rn(var, __fmul_rn(mean, mean));
-  }
+  pfp::norm_row<NORM, REP, G>(mu + base, sec + base, gain, bias, K, eps,
+                              vec != 0, part,
+                              SrmStore{h_mu + base, h_srm + base, K,
+                                       vec != 0});
 }
 
 // The activation on the block's (mean, var) sums: (mean, srm) out.
@@ -178,6 +193,7 @@ pfp_norm_dense_act_kernel(int act, const float* __restrict__ h_mu,
 
 struct Problem {
   int act;
+  int norm_threads, norm_groups;  // the norm kernel's plan at K
   const float *mu, *sec, *gain, *bias;
   float* h;  // (2, M, K): h_mu, then h_srm
   const float *mu_w, *srm_w;
@@ -203,9 +219,18 @@ int launch(const Problem& p, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   float* h_mu = p.h;
   float* h_srm = p.h + static_cast<long long>(p.M) * p.K;
-  pfp_norm_srm_kernel<NORM, REP><<<p.M, pfp::kNormThreads, 0, stream>>>(
-      p.mu, p.sec, p.gain, p.bias, h_mu, h_srm, p.K, p.eps);
-  err = cudaGetLastError();
+  const int vec_norm = p.K % 4 == 0 && aligned16(p.mu) && aligned16(p.sec) &&
+                       aligned16(p.gain) && aligned16(p.bias) &&
+                       aligned16(p.h);
+  err = cudaErrorInvalidValue;  // a plan PFP_NORM_GROUPS does not list
+#define PFP_NORM_CASE(G, T)                                                \
+  if (p.norm_groups == G) {                                                \
+    pfp_norm_srm_kernel<NORM, REP, G><<<p.M, p.norm_threads, 0, stream>>>( \
+        p.mu, p.sec, p.gain, p.bias, h_mu, h_srm, p.K, p.eps, vec_norm);   \
+    err = cudaGetLastError();                                              \
+  }
+  PFP_NORM_GROUPS(PFP_NORM_CASE)
+#undef PFP_NORM_CASE
   if (err != cudaSuccess) return static_cast<int>(err);
   const int chunk = (p.K + R::BK - 1) / R::BK * R::BK;  // split 1
   const int vec_x = p.K % 4 == 0 && aligned16(p.h);
@@ -244,19 +269,24 @@ int launch_rep(int rep, int bn, int tn, int tm, int stages, const Problem& p,
 
 // norm: 0 rms, 1 layer (bias read only then); rep: 0 the input's second
 // moment is a variance, 1 a second raw moment; act: an activation kind of
-// pfp_moments.cuh; (bn, tn, tm, stages): one of PFP_FUSED_TILES. mu, sec
+// pfp_moments.cuh; (bn, tn, tm, stages): one of PFP_FUSED_TILES;
+// (norm_threads, norm_groups): the norm kernel's plan at k
+// (kernels/pfp_norms.py norm_plan), one of PFP_NORM_GROUPS. mu, sec
 // (m, k); gain, bias (k,); h (2, m, k), a workspace the norm pass writes;
 // mu_w, srm_w (k, n); the outputs (m, n) mean and srm. All fp32,
 // row-major, contiguous, on the device of `stream`. Requires m, n, k >= 1.
 // Launches the norm pass, then the ring.
 PFP_EXPORT int pfp_norm_dense_act_launch(
     int norm, int rep, int act, int bn, int tn, int tm, int stages,
-    const void* mu, const void* sec, const void* gain, const void* bias,
-    void* h, const void* mu_w, const void* srm_w, void* mu_out,
-    void* srm_out, int m, int n, int k, float eps, void* stream) {
-  if (m < 1 || n < 1 || k < 1 || act < pfp::kRelu || act > pfp::kSigmoid)
+    int norm_threads, int norm_groups, const void* mu, const void* sec,
+    const void* gain, const void* bias, void* h, const void* mu_w,
+    const void* srm_w, void* mu_out, void* srm_out, int m, int n, int k, float eps, void* stream) {
+  if (m < 1 || n < 1 || k < 1 || act < pfp::kRelu || act > pfp::kSigmoid ||
+      !pfp::norm_plan_ok(norm_threads, norm_groups, k))
     return static_cast<int>(cudaErrorInvalidValue);
   const Problem p{act,
+                  norm_threads,
+                  norm_groups,
                   static_cast<const float*>(mu),
                   static_cast<const float*>(sec),
                   static_cast<const float*>(gain),

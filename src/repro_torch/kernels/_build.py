@@ -42,9 +42,11 @@ _SIGNATURES = {
     "pfp_glu_launch": [_P, _P, _P, _P, _P, _P, _L, _P],
     "pfp_maxpool2d_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _P],
-    "pfp_norm_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
-    "pfp_norm_dense_act_launch": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                                  _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "pfp_norm_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                        _F, _P],
+    "pfp_norm_dense_act_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                                  _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                  _P],
     "pfp_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _F, _I, _P],
     "pfp_attention_kv_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

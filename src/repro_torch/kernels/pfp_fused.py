@@ -21,7 +21,7 @@ from repro_torch.kernels._launch import LAUNCHES, cuda_operands, stream_ptr
 from repro_torch.kernels.pfp_activations import KINDS
 from repro_torch.kernels.pfp_dense import (NARROW_N, dense_plan, split_k,
                                            thread_rows)
-from repro_torch.kernels.pfp_norms import NORMS, REPS
+from repro_torch.kernels.pfp_norms import NORMS, REPS, norm_plan
 from repro_torch.kernels.ref import pfp_norm_dense_act_ref  # noqa: F401
 
 # The dense plans (bn, tn, tm, stages) csrc/pfp_fused.cu is instantiated
@@ -98,11 +98,12 @@ def pfp_norm_dense_act_cuda(mu, second, gain, bias, mu_w, srm_w, *,
     if k == 0:
         raise ValueError("norm_dense_act needs K >= 1: a norm over no "
                          "features is undefined")
+    norm_pass = norm_plan(k)   # the norm kernel's plan: its bits
     h = torch.empty((2, m, k), dtype=torch.float32, device=mu.device)
     lib = _build.load()
     with torch.cuda.device(mu.device):
         status = lib.pfp_norm_dense_act_launch(
-            NORMS[norm], REPS[rep], KINDS[act], *_PLAN_OF[tile],
+            NORMS[norm], REPS[rep], KINDS[act], *_PLAN_OF[tile], *norm_pass,
             mu.data_ptr(), second.data_ptr(), gain.data_ptr(),
             bias.data_ptr(), h.data_ptr(), mu_w.data_ptr(),
             srm_w.data_ptr(), mean.data_ptr(), srm.data_ptr(), m, n, k, eps,

@@ -7,7 +7,17 @@ that tree's package, builds its kernels into the tree's own ``build/``
 and times, with CUDA events around a CUDA graph of ``INNER`` calls
 (``ACT_INNER`` for rows 3 and 4; median of ``REPLAYS`` replays):
 
-  * ``rmsnorm``: the norm kernel at granite-8b's (2048, 4096), VAR input;
+  * rows 6 and 7, the norm kernels (``ACT_INNER`` calls a graph): RMSNorm
+    at granite-8b's forward (2048, 4096) and 4-slot decode (4, 4096) and
+    at deepseek-moe-16b's decode (4, 2048), LayerNorm at musicgen-medium's
+    forward (2048, 1536) and decode (4, 1536), each on VAR and on SRM
+    input; and row 8's norm pass, the device time torch.profiler gives
+    ``pfp_norm_srm_kernel`` in the fused unit at the gate and decode
+    shapes, beside the fused unit and its unfused chain at the tile the
+    chain's dense runs, and the dense kernel at the gate on the norm
+    kernel's and on the plain version's output (whether the dense's time
+    follows its operands' bits); each call's outputs are hashed into the
+    digests;
   * ``dense``: the Eq. 12 dense kernel at the gate projection
     (2048, 4096, 14336);
   * where the tree has the fused unit: ``norm_dense_act`` at the gate
@@ -45,7 +55,8 @@ and times, with CUDA events around a CUDA graph of ``INNER`` calls
     granite-8b's (2048, 14336); the pool on VAR input and on SRM input,
     where the tree takes it (``rep=``), else as the CNN path ran it then
     (``to_var()``'s two launches and the pool); each call's outputs are
-    hashed into the digests; and, where the tree has it, the empty
+    hashed into the digests; row 5, the GLU product at granite-8b's
+    (2048, 14336), hashed too; and, where the tree has it, the empty
     kernel (``csrc/pfp_floor.cu``): the floor no launch goes under;
   * LeNet-5 and the MLP forwards (batch 10, 100, 1024) in a CUDA graph,
     each with the device kernels one forward launches (torch.profiler),
@@ -60,8 +71,8 @@ Each child also reports which fused calls are not bit for bit the
 unfused chain's, and ptxas' register count and spill stores of every
 instantiation of the norm, fused and dense kernels (from the build's
 ``ptxas.log``). The parent prints which digests differ between the
-trees, and whether those of rows 1, 2 and 9-13 (every digest but rows
-3 and 4's) are equal in all.
+trees, and whether those of rows 1, 2, 5 and 9-13 (every digest but
+those of rows 3 and 4 and of the norms, rows 6-8) are equal in all.
 
 Usage, on the card: give the trees in the order to run them, for an A/B
 parent, change, change, parent::
@@ -70,7 +81,8 @@ parent, change, change, parent::
         build/ab/change build/ab/parent
 
 ``--only attention`` times rows 9-11 and the two decode steps alone;
-``--only act_pool`` rows 3 and 4, the floor and the CNN forwards.
+``--only act_pool`` rows 3 and 4, the floor and the CNN forwards;
+``--only norms`` rows 6-8 and the floor (about a minute a tree).
 
 A tree is a directory holding ``src/repro_torch`` (``git archive <rev>
 src/repro_torch | tar -x -C <dir>``). The rows go to stdout and, in full,
@@ -132,6 +144,9 @@ CNN_BATCHES = (10, 100, 1024)
 ACT_SHAPES = ((28, 28, 6), (14, 14, 16), (120,), (84,), (100,))
 POOL_SHAPES = ((28, 28, 6), (14, 14, 16))
 LM_SILU = (2048, 14336)
+# Rows 6 and 7: (rows, width) of each norm's forward and decode calls.
+NORM_SHAPES = {"rmsnorm": ((2048, 4096), (4, 4096), (4, 2048)),
+               "layernorm": ((2048, 1536), (4, 1536))}
 COLD_COPIES, COLD_BYTES = 4, 100e6
 ROW9 = (4, 32, 8, 512, 128)   # (B, H, Hkv, T, D), causal
 
@@ -356,6 +371,10 @@ def _act_pool(ops, dev):
         mu, var = operands(shape)
         timed(f"activation {kind} {shape}",
               lambda: ops.pfp_activation(mu, var, kind=kind))
+    mu, var = operands(LM_SILU)
+    srm = var + mu * mu
+    timed(f"glu_product {LM_SILU}",
+          lambda: ops.pfp_glu_product(mu, srm, var, srm))
     srm_in = "rep" in inspect.signature(ops.pfp_maxpool2d).parameters
     for shape in ((b, *s) for b in CNN_BATCHES for s in POOL_SHAPES):
         mu, var = operands(shape)
@@ -367,6 +386,94 @@ def _act_pool(ops, dev):
         else:   # what the CNN path ran: to_var()'s two launches, the pool
             timed(f"maxpool2d srm {shape}",
                   lambda: ops.pfp_maxpool2d(mu, srm - torch.square(mu)))
+    return rows, digests
+
+
+def _empty_ms(dev):
+    """The empty kernel's ms a launch, where the tree has it."""
+    from repro_torch.kernels import _launch
+    if hasattr(_launch, "launch_empty"):
+        return {"empty kernel (floor)": _device_ms(
+            lambda: _launch.launch_empty(dev), ACT_INNER)}
+    return {}
+
+
+def _kernel_device_ms(fn, name, reps=10):
+    """Device ms a call of ``fn`` that torch.profiler gives the kernels
+    whose name holds ``name``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
+             for e in prof.key_averages() if name in e.key)
+    return us / 1e3 / reps
+
+
+def _norms(ops, dev):
+    """Rows 6-8: (times, digests). The norms at NORM_SHAPES on VAR and
+    SRM input; row 8 at the gate and decode shapes, at the tile the
+    chain's dense runs, beside its chain, with its norm pass's device time
+    (torch.profiler), and the dense kernel at the gate on the norm
+    kernel's and on the plain version's output. Operands from a generator
+    seeded by the shape."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.tuning.measure import unfused_chain
+    rows, digests = {}, {}
+    for norm, shapes in NORM_SHAPES.items():
+        for m, d in shapes:
+            g = torch.Generator(device=dev).manual_seed(m * 10007 + d)
+            mu = torch.randn((m, d), generator=g, device=dev)
+            var = torch.rand((m, d), generator=g, device=dev) + 0.1
+            gain = 1.0 + 0.1 * torch.randn(d, generator=g, device=dev)
+            bias = 0.1 * torch.randn(d, generator=g, device=dev)
+            for rep in ("var", "srm"):
+                second = var if rep == "var" else var + mu * mu
+                if norm == "rmsnorm":
+                    fn = (lambda: ops.pfp_rmsnorm(mu, second, gain, rep=rep))
+                else:
+                    fn = (lambda: ops.pfp_layernorm(mu, second, gain, bias,
+                                                    rep=rep))
+                name = f"{norm} {rep} {(m, d)}"
+                rows[name] = _device_ms(fn, ACT_INNER)
+                digests[name] = _digest(fn())
+    if not hasattr(ops, "pfp_norm_dense_act"):
+        return rows, digests
+    g = torch.Generator(device=dev).manual_seed(8)
+    m, k, n = GATE
+    mu = torch.randn((m, k), generator=g, device=dev)
+    var = torch.rand((m, k), generator=g, device=dev) + 0.1
+    gain = 1.0 + 0.1 * torch.randn(k, generator=g, device=dev)
+    wm = 0.1 * torch.randn((k, n), generator=g, device=dev)
+    ws = (0.1 * torch.randn((k, n), generator=g, device=dev)).abs() + wm * wm
+    # The dense kernel at the gate on the norm kernel's output and on the
+    # plain version's (the same function, other rounding): whether its
+    # time follows the operands' bits.
+    for label, norm in (("the norm kernel's", ops.pfp_rmsnorm),
+                        ("the plain version's", ref.pfp_rmsnorm_ref)):
+        h_mu, h_var = norm(mu, var, gain)
+        h_srm = h_var + torch.square(h_mu)
+        rows[f"dense {GATE} on {label} output"] = _device_ms(
+            lambda: ops.pfp_dense(h_mu, h_srm, wm, ws))
+        del h_mu, h_var, h_srm
+    for shape in (GATE, DECODE):
+        args = (mu[:shape[0]], var[:shape[0]], gain, None, wm, ws)
+        name = f"norm_dense_act {shape}"
+        rows[name] = _device_ms(lambda: ops.pfp_norm_dense_act(*args))
+        rows[f"unfused chain {shape}"] = _device_ms(
+            lambda: unfused_chain(*args))
+        rows[f"{name} norm pass (profiler)"] = _kernel_device_ms(
+            lambda: ops.pfp_norm_dense_act(*args), "pfp_norm_srm_kernel")
+        got = ops.pfp_norm_dense_act(*args)
+        digests[name] = _digest(got)
+        if not all(torch.equal(x, y)
+                   for x, y in zip(got, unfused_chain(*args))):
+            digests[f"{name} NOT the chain"] = "differs"
     return rows, digests
 
 
@@ -496,12 +603,16 @@ def child(tree, only=None):
     rows, differ, digests, fused_best = {}, [], {}, {}
     if only in (None, "act_pool"):
         rows, digests = _act_pool(ops, dev)
+    if only == "norms":
+        rows = _empty_ms(dev)
+    if only in (None, "norms"):
+        norm_rows, norm_digests = _norms(ops, dev)
+        rows.update(norm_rows)
+        digests.update(norm_digests)
     if only is None:
         m, d = NORM_SHAPE
         mu, var = draw(m, d), draw(m, d).abs()
         gain = 1.0 + 0.1 * draw(d)
-        rows["rmsnorm (2048, 4096)"] = _device_ms(
-            lambda: ops.pfp_rmsnorm(mu, var, gain, rep="var"))
         wm = draw(GATE[1], GATE[2], scale=0.1)
         ws = draw(GATE[1], GATE[2], scale=0.1).abs() + wm * wm
         srm = var + mu * mu
@@ -545,8 +656,9 @@ def child(tree, only=None):
         rows.update(att)
         digests.update(att_digests)
         torch.cuda.empty_cache()
-    rows.update(_forwards(dev, cnn=only != "attention",
-                          lm_steps=only != "act_pool"))
+    if only != "norms":
+        rows.update(_forwards(dev, cnn=only != "attention",
+                              lm_steps=only != "act_pool"))
     log = (Path(_build.BUILD_INFO["directory"]) / "ptxas.log").read_text()
     print(json.dumps({"tree": tree, "ms": rows, "differ_from_chain": differ,
                       "fused_best": fused_best,
@@ -609,14 +721,22 @@ def main(argv):
     print(f"digests ({len(done[0]) if done else 0} calls): "
           + (f"differ between trees at {differ}" if differ
              else "equal in every tree"))
-    # Every digest but rows 3 and 4's: the dense kernels (rows 1, 2, 12,
-    # 13) and the attention kernels (rows 9, 10, 11).
+    # Every digest but those of rows 3 and 4 and of the norms (6-8): the
+    # dense kernels (rows 1, 2, 12, 13), the GLU (row 5) and the attention
+    # kernels (rows 9, 10, 11).
     act_pool = ("activation ", "maxpool2d ")
-    kept = [n for n in differ if not n.startswith(act_pool)]
-    print("digests of rows 1, 2 and 9-13: "
+    norms = ("rmsnorm ", "layernorm ", "norm_dense_act ")
+    kept = [n for n in differ if not n.startswith(act_pool + norms)]
+    print("digests of rows 1, 2, 5 and 9-13: "
           + (f"DIFFER at {kept}" if kept else "equal in every tree"))
     moved = [n for n in differ if n.startswith(act_pool)]
     print(f"digests of rows 3 and 4: {len(moved)} differ between trees")
+    moved = [n for n in differ if n.startswith(norms)]
+    print(f"digests of rows 6-8: {len(moved)} differ between trees")
+    for r in runs:
+        bad = [n for n in r["digests"] if n.endswith("NOT the chain")]
+        if bad:
+            print(f"{r['tree']}: row 8 is not its chain bit for bit at {bad}")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "ab_kernel_times.json").write_text(json.dumps(
