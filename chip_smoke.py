@@ -74,6 +74,25 @@ Phases, each printing its own lines; any failure exits non-zero:
               kernels, keep the pools' invariants and leave no slot or page
               live; teacher-forced decode logits are held against
               impl="eager"
+  6b. engine: the continuous-batching Engine (serving/engine/) on
+              granite-8b at the same width, slots, cache rows, pages of 16
+              and prefill windows of 128: ENGINE_REQUESTS requests (prompts
+              of 129-501 token ids, most opening with one ENGINE_SYSTEM-
+              token system prompt that ends mid-page, arrivals staggered)
+              run four times with impl="kernel": contiguous, paged with
+              reserved pages, paged with prefix sharing, and paged with
+              optimistic admission under a budget of one max_len request.
+              Every kernel of DECODE_KERNELS must launch in each run (the
+              cache kernel in the contiguous one, the paged kernel in the
+              others); tokens and MI traces must be equal bit for bit
+              between runs 1 and 2, 2 and 3, 2 and 4; run 2's tokens must
+              equal the same engine's under impl="eager" (MI within
+              MODEL_TOL's variance tolerance); every run must drain (no
+              slot live, pool and index invariants, the only live pages
+              those the prefix index holds); run 3 must hit the prefix
+              index and copy on write, run 4 must preempt. Each run's
+              EngineMetrics summary, wall seconds, tokens/s, TTFT and step
+              times in steps and ms are printed beside the card
   7. times  : device times (CUDA graph replays between CUDA events) of
               each kernel at batch 10, 100 and 1024 and at the LM's shapes
               (the dense kernel also at a 4-slot decode step's shapes, the
@@ -105,7 +124,11 @@ Phases, each printing its own lines; any failure exits non-zero:
               in phase 6, with drop counts per pool, and once more on the
               contiguous pool with the empty-expert skip off (the same
               tokens and last-step logits bit for bit; experts holding a
-              row per decode MoE call printed). Then the batched kernels'
+              row per decode MoE call printed). (d) the engine: a few
+              requests through the paged Engine with Eq. 12 and with Eq. 7,
+              each launching its batched expert kernel (rows 12, 13) and
+              giving the eager impl's tokens; the drop share from
+              EngineMetrics. Then the batched kernels'
               times at the MoE shapes and at the decode shapes with the
               median decode call's kept rows, the MoE forward eager and
               in a CUDA graph, and a profile of one forward and one decode
@@ -223,6 +246,7 @@ ACT_SASS = {"relu": (63, 3), "gelu": (230, 17), "silu": (134, 17),
 POOL_SASS = (205, 9)
 SASS_KERNELS = ("activation", "maxpool2d")
 FLOOR_MS = None   # the empty kernel's device ms a launch (phase_times)
+CARD = None       # nvidia-smi's name and power limit (phase_card)
 NORM_OPS = {"rmsnorm": 8, "layernorm": 12}
 SOFTMAX_OPS_PER_SCORE = 6   # scale, mask, max, exp, sum, square of p
 # The LM serving phase: granite-8b at full width, cut to LM_LAYERS layers.
@@ -241,6 +265,30 @@ TEACHER_FORCED = (2, 8)   # requests, tokens fed after the prompt
 DECODE_KERNELS = ("dense", "activation", "rmsnorm", "glu_product",
                   "attention_cache", "attention_paged")
 CACHE_KERNELS = ("attention_cache", "attention_paged")
+# The engine phase: the continuous-batching Engine (serving/engine/) on the
+# same slots, cache rows, pages and prefill windows, ENGINE_BUDGET prompt
+# tokens a step. ENGINE_REQUESTS requests of ENGINE_PROMPTS tokens and
+# NEW_TOKENS new ones, all but the last ENGINE_COLD opening with one
+# ENGINE_SYSTEM-token system prompt: 16.5 pages of 16, so a shared prefix
+# ends mid-page and copy-on-write runs. Four runs: contiguous, paged with
+# reserved pages, paged with prefix sharing, and paged with optimistic
+# admission under a budget of ENGINE_TIGHT_PAGES pages (one max_len
+# request), which must preempt. Thresholds wide enough that nothing
+# abstains, escalation off.
+ENGINE_REQUESTS, ENGINE_COLD, ENGINE_SYSTEM = 10, 2, 264
+ENGINE_PROMPTS, ENGINE_BUDGET = (129, 501), 4 * PREFILL_CHUNK
+ENGINE_TIGHT_PAGES = DECODE_MAX_LEN // PAGE_SIZE
+ENGINE_ROUTER = dict(mi_continue=1e9, mi_abstain=2e9, escalate_samples=0)
+ENGINE_RUNS = {
+    "contiguous": dict(),
+    "paged": dict(page_size=PAGE_SIZE),
+    "prefix": dict(page_size=PAGE_SIZE, prefix_sharing=True),
+    "preempt": dict(page_size=PAGE_SIZE, reserve_pages=False,
+                    page_budget=ENGINE_TIGHT_PAGES),
+}
+# deepseek-moe-16b under the engine: paged, a few short requests, Eq. 12
+# and Eq. 7, each against the eager impl's tokens.
+ENGINE_MOE_REQUESTS, ENGINE_MOE_PROMPTS, ENGINE_MOE_NEW = 4, (129, 256), 8
 # Cache attention shapes: (B, H, Hkv, Tq, S, D, q_start, kv_len, window);
 # a paged shape appends the page size. S is the cache length (the logical
 # one when paged).
@@ -941,6 +989,8 @@ def phase_card():
         fail(f"nvidia-smi: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     print(f"[card] {card}")
+    global CARD
+    CARD = card
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -2347,6 +2397,296 @@ def phase_decode(device, cfg, model, seed, *, prompt_lens=PROMPT_LENS,
     total = {k: launches["contiguous"][k] + launches["paged"][k]
              for k in kernels}
     return total, info
+
+
+# ---------------------------------------------------------------------------
+# The continuous-batching engine
+# ---------------------------------------------------------------------------
+def _engine_requests(cfg, seed, n, prompts, new, system=0, cold=0):
+    """``n`` requests from ``seed``: prompt lengths in ``prompts``, ``new``
+    new tokens (an int, or an inclusive range). The first ``n - cold``
+    open with one ``system``-token prompt; the first DECODE_SLOTS arrive at
+    step 0, the others 8 steps apart."""
+    import numpy as np
+    from repro_torch.serving.batcher import Request
+    rng = np.random.default_rng(seed + 7)
+    head = rng.integers(0, cfg.vocab_size, system).astype(np.int32)
+    out = []
+    for uid in range(n):
+        shared = uid < n - cold
+        lo = max(prompts[0], system + 1) if shared else prompts[0]
+        hi = prompts[1] if shared else max(prompts[0], system - 1)
+        plen = int(rng.integers(lo, hi + 1))
+        tail = rng.integers(0, cfg.vocab_size,
+                            plen - (system if shared else 0)).astype(np.int32)
+        k = (int(new) if np.isscalar(new)
+             else int(rng.integers(new[0], new[1] + 1)))
+        out.append(Request(
+            uid=uid, prompt=np.concatenate([head, tail]) if shared else tail,
+            max_new_tokens=k,
+            arrival=float(max(0, uid - DECODE_SLOTS + 1) * 8)))
+    return out
+
+
+def _make_engine(cfg, model, device, impl, formulation, tracer=None,
+                 **config):
+    """An Engine at the phase's slots, cache rows, windows and budget."""
+    from repro_torch.serving.engine import (Engine, EngineConfig,
+                                            RequestScheduler, RouterConfig,
+                                            SchedulerConfig,
+                                            UncertaintyRouter)
+    return Engine(cfg, model, EngineConfig(
+        slots=DECODE_SLOTS, max_len=DECODE_MAX_LEN, impl=impl,
+        formulation=formulation, **config),
+        router=UncertaintyRouter(cfg, RouterConfig(**ENGINE_ROUTER),
+                                 formulation=formulation, impl=impl),
+        scheduler=RequestScheduler(SchedulerConfig(
+            prefill_chunk=PREFILL_CHUNK, prefill_budget=ENGINE_BUDGET)),
+        tracer=tracer, device=device)
+
+
+def _engine_step_profile(cfg, model, device, seed):
+    """torch.profiler over engine steps of the paged engine in which every
+    slot decodes (no prefill round): wall and device busy per step."""
+    eng = _make_engine(cfg, model, device, "kernel", "srm",
+                       page_size=PAGE_SIZE, seed=seed)
+    for req in _engine_requests(cfg, seed + 1, DECODE_SLOTS,
+                                (PREFILL_CHUNK + 1, PREFILL_CHUNK + 1),
+                                NEW_TOKENS[1]):
+        eng.submit(req)
+    while eng.decoding < DECODE_SLOTS:
+        eng.step()
+    return _profile(f"{cfg.name} engine decode step, {DECODE_SLOTS} slots "
+                    f"paged", eng.step, 5, 1)
+
+
+def _engine_run(cfg, model, device, requests, *, impl="kernel",
+                formulation="srm", **config):
+    """Drive ``requests`` through one Engine as run_load does (each request
+    submitted when the engine clock reaches its arrival), one CUDA sync
+    after every step for its wall time. Checks the drain and returns the
+    run's record: tokens, MI and finish reason per uid, launches, the
+    metrics summary, TTFT and step times."""
+    import copy
+
+    import torch
+    from repro_torch.kernels._launch import LAUNCHES, reset_launch_counts
+    from repro_torch.obs import Tracer
+    tracer = Tracer()
+    eng = _make_engine(cfg, model, device, impl, formulation, tracer,
+                       **config)
+    pending = sorted(copy.deepcopy(requests), key=lambda r: r.arrival)
+    submitted, step_end, step_ms = {}, [], []
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    i = 0
+    while i < len(pending) or not eng.idle:
+        while i < len(pending) and pending[i].arrival <= eng.now:
+            if not eng.submit(pending[i]):
+                fail(f"engine: request {pending[i].uid} rejected")
+            submitted[pending[i].uid] = time.perf_counter()
+            i += 1
+        if eng.now >= 20_000:
+            fail("engine: not drained after 20000 steps")
+        s0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        step_end.append(time.perf_counter())
+        step_ms.append((step_end[-1] - s0) * 1e3)
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    eng.pool.check_invariants()
+    if eng.prefix is not None:
+        eng.prefix.check_invariants(eng.pool)
+    summary = eng.metrics.summary()
+    if eng.pool.live or summary["final_live_pages"] != \
+            summary["final_prefix_held_pages"]:
+        fail(f"engine: {eng.pool.live} slots live, "
+             f"{summary['final_live_pages']} pages live against "
+             f"{summary['final_prefix_held_pages']} the prefix index holds "
+             f"after the drain")
+    if len(eng.finished) != len(requests) or any(
+            r.finish_reason != "length" for r in eng.finished):
+        fail(f"engine: finish reasons "
+             f"{sorted((r.uid, r.finish_reason) for r in eng.finished)}")
+    first, prefill_steps = {}, set()
+    submit_step = {}
+    for e in tracer.events:
+        if e["event"] == "route":
+            first.setdefault(e["uid"], e["step"])
+        elif e["event"] == "submit":
+            submit_step[e["uid"]] = e["step"]
+        elif e["event"] == "prefill_round":
+            prefill_steps.add(e["step"])
+    ttft_steps = [first[u] - submit_step[u] for u in sorted(first)]
+    ttft_ms = [(step_end[first[u]] - submitted[u]) * 1e3
+               for u in sorted(first)]
+    decode_only = [ms for k, ms in enumerate(step_ms)
+                   if k not in prefill_steps]
+    return {"results": {r.uid: (list(r.generated), list(r.mi_trace),
+                                r.finish_reason) for r in eng.finished},
+            "launches": launches, "summary": summary, "seconds": seconds,
+            "steps": len(step_ms), "step_ms": step_ms,
+            "decode_only_ms": decode_only, "ttft_steps": ttft_steps,
+            "ttft_ms": ttft_ms}
+
+
+def _q(xs, q):
+    import numpy as np
+    return float(np.percentile(xs, q)) if len(xs) else float("nan")
+
+
+def _engine_report(tag, name, run):
+    s = run["summary"]
+    print(f"[{tag}] {name}: {s['finished']} requests, "
+          f"{s['tokens_generated']} tokens in {run['steps']} steps, "
+          f"{run['seconds']:.3f} s wall, "
+          f"{s['tokens_generated'] / run['seconds']:.2f} tokens/s; TTFT "
+          f"median {_q(run['ttft_steps'], 50):g} / p90 "
+          f"{_q(run['ttft_steps'], 90):g} steps, median "
+          f"{_q(run['ttft_ms'], 50):.2f} / p90 {_q(run['ttft_ms'], 90):.2f}"
+          f" ms; step median {_q(run['step_ms'], 50):.3f} / p90 "
+          f"{_q(run['step_ms'], 90):.3f} ms, decode-only steps median "
+          f"{_q(run['decode_only_ms'], 50):.3f} / p90 "
+          f"{_q(run['decode_only_ms'], 90):.3f} ms "
+          f"({len(run['decode_only_ms'])}); prefill tokens "
+          f"{s['prefill_tokens']}, saved {s['prefill_tokens_saved']} "
+          f"({s['prefill_frac_saved']:.4f}), prefix hits "
+          f"{s['prefix_hits']}, copy-on-write {s['cow_copies']}, "
+          f"preemptions {s['preemptions']}; launches {run['launches']} "
+          f"({CARD})")
+    print(f"[{tag}] {name} summary {json.dumps(s, sort_keys=True)}")
+
+
+def phase_engine(device, lm_cfg, lm_model, seed=0):
+    """The serving engine on granite-8b: the four ENGINE_RUNS with the
+    kernels, then the paged run with the eager impl. Fails unless every
+    kernel of DECODE_KERNELS launched in each run (the cache kernel in the
+    contiguous one, the paged kernel in the others), tokens and MI traces
+    are bit for bit equal between runs 1 and 2, 2 and 3, 2 and 4, run 2's
+    tokens are the eager impl's (MI within MODEL_TOL's variance
+    tolerance), every run drains, run 3 hit the prefix index and copied
+    on write, and run 4 preempted."""
+    import numpy as np
+    t0 = time.perf_counter()
+    requests = _engine_requests(lm_cfg, seed, ENGINE_REQUESTS,
+                                ENGINE_PROMPTS, NEW_TOKENS,
+                                system=ENGINE_SYSTEM, cold=ENGINE_COLD)
+    print(f"[engine] {lm_cfg.name}, {lm_cfg.num_layers} layers: "
+          f"{ENGINE_REQUESTS} requests, prompts "
+          f"{[len(r.prompt) for r in requests]} ({ENGINE_REQUESTS - ENGINE_COLD}"
+          f" open with one {ENGINE_SYSTEM}-token system prompt), new tokens "
+          f"{[r.max_new_tokens for r in requests]}, arrivals "
+          f"{[r.arrival for r in requests]}; {DECODE_SLOTS} slots of "
+          f"{DECODE_MAX_LEN} rows, pages of {PAGE_SIZE}, prefill windows of "
+          f"{PREFILL_CHUNK}, {ENGINE_BUDGET} prompt tokens a step; random "
+          f"weights")
+    runs, launches = {}, {}
+    for name, config in ENGINE_RUNS.items():
+        run = _engine_run(lm_cfg, lm_model, device, requests, seed=seed,
+                          **config)
+        runs[name] = run
+        _engine_report("engine", name, run)
+        other = "attention_cache" if "page_size" in config \
+            else "attention_paged"
+        missing = [k for k in DECODE_KERNELS
+                   if k != other and not run["launches"].get(k)]
+        if missing:
+            fail(f"engine {name}: kernels never launched: {missing}")
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for a, b in (("contiguous", "paged"), ("paged", "prefix"),
+                 ("paged", "preempt")):
+        for uid, want in runs[a]["results"].items():
+            got = runs[b]["results"][uid]
+            if got[0] != want[0]:
+                fail(f"engine uid {uid}: {b} tokens {got[0]} != {a} "
+                     f"{want[0]}")
+            if got[1] != want[1]:
+                fail(f"engine uid {uid}: {b} MI trace differs from {a}'s "
+                     f"(max abs {np.max(np.abs(np.subtract(got[1], want[1]))):.3e})")
+    s3, s4 = runs["prefix"]["summary"], runs["preempt"]["summary"]
+    if not (s3["prefix_hits"] > 0 and s3["cow_copies"] > 0):
+        fail(f"engine prefix: {s3['prefix_hits']} prefix hits, "
+             f"{s3['cow_copies']} copies on write")
+    if not s4["preemptions"] > 0:
+        fail("engine preempt: no preemption under the tight page budget")
+    print("[engine] tokens and MI traces bit for bit: contiguous == paged, "
+          "paged == prefix-shared, paged == preempted-and-resumed")
+    eager = _engine_run(lm_cfg, lm_model, device, requests, impl="eager",
+                        seed=seed, **ENGINE_RUNS["paged"])
+    rtol, atol = MODEL_TOL["var"]
+    mi_err = 0.0
+    for uid, want in eager["results"].items():
+        got = runs["paged"]["results"][uid]
+        if got[0] != want[0]:
+            fail(f"engine uid {uid}: kernel tokens {got[0]} != eager "
+                 f"{want[0]}")
+        if not np.allclose(got[1], want[1], rtol=rtol, atol=atol):
+            fail(f"engine uid {uid}: kernel MI vs eager beyond "
+                 f"rtol {rtol} / atol {atol}")
+        mi_err = max(mi_err, float(np.max(np.abs(np.subtract(got[1],
+                                                             want[1])))))
+    print(f"[engine] paged, eager impl: {eager['seconds']:.3f} s wall; the "
+          f"kernel impl's tokens equal, MI max abs err {mi_err:.3e}")
+    profile = _engine_step_profile(lm_cfg, lm_model, device, seed)
+    seconds = time.perf_counter() - t0
+    print(f"[engine] phase {seconds:.1f} s")
+    strip = ("results",)
+    info = {name: {k: v for k, v in run.items() if k not in strip}
+            for name, run in runs.items()}
+    info["eager"] = {k: v for k, v in eager.items() if k not in strip}
+    info["mi_err_eager"] = mi_err
+    info["decode_step_profile"] = profile
+    info["tokens"] = {uid: r[0] for uid, r in runs["paged"]["results"].items()}
+    info["seconds"] = seconds
+    return launches, info
+
+
+def phase_engine_moe(device, cfg, model, seed=0):
+    """deepseek-moe-16b under the paged engine, Eq. 12 and Eq. 7: the
+    batched expert kernel of each formulation (rows 12 and 13) must launch,
+    the tokens equal the eager impl's, the pool drain, and the MoE drop
+    share is printed from EngineMetrics."""
+    t0 = time.perf_counter()
+    requests = _engine_requests(cfg, seed, ENGINE_MOE_REQUESTS,
+                                ENGINE_MOE_PROMPTS, ENGINE_MOE_NEW)
+    print(f"[moe engine] {cfg.name}, {cfg.num_layers} layers: "
+          f"{len(requests)} requests, prompts "
+          f"{[len(r.prompt) for r in requests]}, {ENGINE_MOE_NEW} new tokens "
+          f"each; paged, pages of {PAGE_SIZE}")
+    launches, info = {}, {}
+    for formulation in ("srm", "var"):
+        suffix = "_var" if formulation == "var" else ""
+        runs = {impl: _engine_run(cfg, model, device, requests, impl=impl,
+                                  formulation=formulation, seed=seed,
+                                  page_size=PAGE_SIZE)
+                for impl in ("kernel", "eager")}
+        run = runs["kernel"]
+        _engine_report("moe engine", formulation, run)
+        want = [k + suffix if k.startswith("dense") else k
+                for k in MOE_DECODE_KERNELS if k != "attention_cache"]
+        missing = [k for k in want if not run["launches"].get(k)]
+        if missing:
+            fail(f"moe engine {formulation}: kernels never launched: "
+                 f"{missing}")
+        for uid, (toks, _, _) in runs["eager"]["results"].items():
+            if run["results"][uid][0] != toks:
+                fail(f"moe engine {formulation} uid {uid}: kernel tokens "
+                     f"{run['results'][uid][0]} != eager {toks}")
+        s = run["summary"]
+        print(f"[moe engine] {formulation}: tokens equal the eager impl's; "
+              f"moe_dropped_assignments {s['moe_dropped_assignments']} of "
+              f"{s['moe_assignments']} (drop rate {s['moe_drop_rate']:.4f}; "
+              f"eager {runs['eager']['summary']['moe_drop_rate']:.4f}) "
+              f"({CARD})")
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        info[formulation] = {k: v for k, v in run.items() if k != "results"}
+    info["seconds"] = time.perf_counter() - t0
+    print(f"[moe engine] phase {info['seconds']:.1f} s")
+    return launches, info
 
 
 def moe_config():
@@ -3978,7 +4318,8 @@ def main():
     import torch
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the decode phase's requests")
+                        help="seed of the decode and engine phases' "
+                             "requests")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3995,6 +4336,8 @@ def main():
     launches["lm"], lm_info, lm_cfg, lm_model = phase_lm(device)
     launches["decode"], decode_info = phase_decode(device, lm_cfg, lm_model,
                                                    args.seed)
+    launches["engine"], engine_info = phase_engine(device, lm_cfg, lm_model,
+                                                   args.seed)
     rows, forwards = phase_times(device, lm_cfg, lm_model)
     profile = phase_profile(device, lm_cfg, lm_model)
     del lm_model
@@ -4006,6 +4349,8 @@ def main():
         device, moe_cfg, moe_model, args.seed,
         prompt_lens=(PREFILL_CHUNK, PREFILL_CHUNK),
         kernels=MOE_DECODE_KERNELS, tag="moe decode")
+    launches["moe_engine"], moe_engine_info = phase_engine_moe(
+        device, moe_cfg, moe_model, args.seed)
     moe_rows, moe_forward, moe_profile = phase_moe_times(
         device, moe_cfg, moe_model,
         moe_decode_info["occupancy"]["median_rows"])
@@ -4036,8 +4381,9 @@ def main():
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build": build, "kernels": kernels, "times": rows,
          "forwards": forwards, "profile": profile, "lm": lm_info,
-         "decode": decode_info, "moe": moe_info,
-         "moe_decode": moe_decode_info, "audio": audio_info,
+         "decode": decode_info, "engine": engine_info, "moe": moe_info,
+         "moe_decode": moe_decode_info, "moe_engine": moe_engine_info,
+         "audio": audio_info,
          "fused": fused_info,
          "train": train_info,
          "seconds": time.perf_counter() - t0}, indent=1))
