@@ -15,11 +15,14 @@ Phases, each printing its own lines; any failure exits non-zero:
   3. kernels: each CUDA kernel against its plain PyTorch version on the card,
               at the main paths' shapes (the CNNs' at batch 10, 100 and
               1024) and ragged ones, the dense kernel also at K on both
-              sides of its split boundaries and at granite-8b's decode
-              shapes; the Eq. 12 cancellation check and a LayerNorm row
-              offset by 100, both against fp64; a dense row's bits
-              independent of M (M 6, 100, 1024: three plans); the batched
-              kernel with kept-row counts (skipped rows +0, the rest bit
+              sides of its split boundaries, at granite-8b's decode and
+              verify shapes, and where K is split past LONG_K against
+              fp64 (long_k_check: within LONG_K_BOUND, which TF32 and bf16
+              inputs must break); the Eq. 12 cancellation check and a
+              LayerNorm row offset by 100, both against fp64; a dense
+              row's bits independent of M (M 6, 100, 1024: three plans);
+              the batched kernel
+              with kept-row counts (skipped rows +0, the rest bit
               for bit the kernel without them); the cache kernels' bit
               contract: the rows of one slot from one 512-row call come
               out bit for bit in chunks of 128 and at Tq 1 in a batch of
@@ -93,11 +96,33 @@ Phases, each printing its own lines; any failure exits non-zero:
               index and copy on write, run 4 must preempt. Each run's
               EngineMetrics summary, wall seconds, tokens/s, TTFT and step
               times in steps and ms are printed beside the card
+  6c. engine spec: the same requests with SVI escalation (SVI_SAMPLES
+              samples) and speculative decoding (SPEC_K tokens a block).
+              A calibration run sets mi_continue at the SPEC_CONTINUE_PCT
+              percentile of 6b's paged MI trace, mi_abstain at twice its
+              maximum and svi_mi_abstain at the median SVI MI (all
+              printed). Then escalate (paged, batched), escalate_seq,
+              escalate_contig, escalate_prefix, spec (everything
+              continues), spec_reject (every draft shifted by one),
+              spec_eager and spec_escalate. escalate_seq, escalate_prefix
+              and spec_escalate must give escalate's tokens, finish
+              reasons and MI bit for bit, escalate must escalate with both
+              outcomes and in a batch above one, escalate_contig its tokens
+              with MI within MI_ATOL; spec and spec_reject must give 6b's
+              paged run bit for bit with no one-token decode pass (and no
+              accepted draft in spec_reject), spec_eager spec's tokens (MI
+              within MODEL_TOL's variance tolerance); SPEC_KERNELS must
+              launch in spec and spec_escalate. spec_bit_check: escalation
+              replays give their routed logits, and one verify pass of
+              SPEC_K tokens gives SPEC_K plain decode steps' logits, bit for
+              bit. The verify pass, a decode step, a draft step and an SVI
+              second opinion are timed and profiled
   7. times  : device times (CUDA graph replays between CUDA events) of
               each kernel at batch 10, 100 and 1024 and at the LM's shapes
-              (the dense kernel also at a 4-slot decode step's shapes, the
-              cache kernels at granite-8b's and deepseek-moe-16b's decode
-              and at a prefill shape, each with a [plan] line), beside its
+              (the dense kernel also at a 4-slot decode step's and a
+              verify pass's shapes, the cache kernels at granite-8b's and
+              deepseek-moe-16b's decode, at a prefill shape and at the
+              verify pass's Tq SPEC_K, each with a [plan] line), beside its
               plain version, a one-call PyTorch yardstick and its bound,
               plus its time per eager call and each dense call's plan;
               the empty kernel's time (csrc/pfp_floor.cu, the floor no
@@ -229,6 +254,11 @@ PEAK_FP32 = 67e12
 SMS, ISSUE_LANES, MUFU_LANES = 132, 128, 16
 SM_CLOCK_HZ = 1.98e9
 DENSE_TOL = dict(rtol=1e-5, atol=1e-4)       # tests/test_kernels.py
+# A dense call that splits K past kernels/pfp_dense.py's LONG_K is also
+# held to fp64 (long_k_check): its mean and variance within LONG_K_BOUND
+# u sqrt(K) sum|products| (u = 2^-24), the size of one fp32 chain's error
+# over K terms of one sign. TF32 and bf16 inputs must exceed it.
+LONG_K_BOUND = 1.0
 ELEMENTWISE_TOL = dict(rtol=1e-5, atol=1e-5)
 NORM_TOL = dict(rtol=1e-4, atol=1e-5)        # norms and attention
 MODEL_TOL = dict(mean=(1e-3, 1e-4), var=(1e-2, 1e-5))  # test_impl_dispatch.py
@@ -286,6 +316,18 @@ ENGINE_RUNS = {
     "preempt": dict(page_size=PAGE_SIZE, reserve_pages=False,
                     page_budget=ENGINE_TIGHT_PAGES),
 }
+# The escalation and speculation phase: the engine of the engine phase on
+# the same requests, SVI second opinions of SVI_SAMPLES samples (the
+# reference's default) and speculative blocks of SPEC_K tokens. mi_continue
+# sits at the SPEC_CONTINUE_PCT percentile of the paged run's MI trace and
+# mi_abstain at twice its maximum, so about 30% of the tokens escalate and
+# none abstains outright; svi_mi_abstain at the median SVI MI of a
+# calibration run, so both outcomes occur. MI_ATOL is the reference's
+# tolerance between pass shapes (tests/test_speculative.py).
+SPEC_K, SVI_SAMPLES, SPEC_CONTINUE_PCT = 4, 8, 70
+MI_ATOL = 2e-5
+SPEC_KERNELS = ("dense", "activation", "rmsnorm", "glu_product",
+                "attention_paged")
 # deepseek-moe-16b under the engine: paged, a few short requests, Eq. 12
 # and Eq. 7, each against the eager impl's tokens.
 ENGINE_MOE_REQUESTS, ENGINE_MOE_PROMPTS, ENGINE_MOE_NEW = 4, (129, 256), 8
@@ -296,6 +338,9 @@ CACHE_DECODE = (4, 32, 8, 1, 1024, 128, (0, 340, 681, 1023),
                 (1, 341, 682, 1024), None)
 CACHE_PREFILL = (4, 32, 8, 512, 1024, 128, (0, 256, 0, 256),
                  (512, 768, 512, 768), None)
+# granite's 4-slot verify pass of SPEC_K tokens a slot.
+CACHE_VERIFY = (4, 32, 8, SPEC_K, 1024, 128, (0, 340, 681, 1020),
+                (SPEC_K, 340 + SPEC_K, 681 + SPEC_K, 1024), None)
 # deepseek-moe-16b's decode: 16 query heads over 16 KV heads (G 1).
 CACHE_DECODE_MOE = (4, 16, 16, 1, 1024, 128, (0, 340, 681, 1023),
                     (1, 341, 682, 1024), None)
@@ -306,6 +351,7 @@ CACHE_DECODE_AUDIO = (4, 24, 24, 1, 1024, 64, (0, 340, 681, 1023),
 CACHE_CHUNK_AUDIO = (1, 24, 24, 128, 1024, 64, (384,), (512,), None)
 CACHE_CHECKS = {
     "decode": CACHE_DECODE,
+    "verify": CACHE_VERIFY,
     "prefill chunk": CACHE_PREFILL,
     "window": (4, 32, 8, 64, 1024, 128, (100, 500, 0, 900),
                (164, 564, 64, 964), 128),
@@ -323,6 +369,7 @@ CHECK_PAGE_SIZES = (1, 16, 24)
 NORM_DECODE = ((DECODE_SLOTS, 1536), (DECODE_SLOTS, 2048),
                (DECODE_SLOTS, 4096))
 NORM_RAGGED = ((7, 333), (3, 4097))
+NORM_VERIFY = ((DECODE_SLOTS * SPEC_K, 4096),)   # granite's verify pass
 # The MoE phase: deepseek-moe-16b at full width, cut to MOE_LAYERS layers
 # (layer 0 dense, the rest MoE), requests as in the LM phase.
 MOE_ARCH = "deepseek-moe-16b"
@@ -507,6 +554,13 @@ def lm_decode_calls(cfg):
     block = [(m, d, cfg.attn_dim), (m, d, kv), (m, d, kv),
              (m, cfg.attn_dim, d), (m, d, f), (m, d, f), (m, f, d)]
     return block * cfg.num_layers + [(m, d, cfg.vocab_size)]
+
+
+def lm_verify_calls(cfg):
+    """The dense kernel's calls in one speculative verify pass of
+    DECODE_SLOTS slots x SPEC_K tokens: (M, K, N)."""
+    return [(DECODE_SLOTS * SPEC_K, *shape[1:])
+            for shape in lm_decode_calls(cfg)]
 
 
 def norm_decode_calls(cfg):
@@ -1155,6 +1209,7 @@ def phase_kernels(device):
     """Each kernel against its plain version; returns max abs err per kernel."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.pfp_dense import LONG_K
     errs = {k: 0.0 for k in KERNELS}
     cases = sorted(set(sum((main_path_calls(b, f) for b in BATCHES
                             for f in ("srm", "var")), [])))
@@ -1168,6 +1223,13 @@ def phase_kernels(device):
         cases += [(kernel, (37, k, 100)) for k in SPLIT_CHECK_K]
         cases += [(kernel, (DECODE_SLOTS, 4096, n))
                   for n in (4096, 1024, 14336, 49152)]
+    # granite-8b's verify pass (rows 1, 3, 5, 6 at DECODE_SLOTS x SPEC_K
+    # rows); its dense calls that split K also go to long_k_check.
+    m_verify = DECODE_SLOTS * SPEC_K
+    verify_dense = list(dict.fromkeys(lm_verify_calls(lm_config())))
+    cases += [("dense", shape) for shape in verify_dense]
+    cases += [("activation", ("silu", m_verify, 14336)),
+              ("glu_product", (m_verify, 14336))]
     for i, (kernel, shape) in enumerate(cases):
         args = operands(kernel, shape, 100 + i, device)
         got = run_kernel(kernel, args)
@@ -1181,13 +1243,16 @@ def phase_kernels(device):
         print(f"[kernels] {kernel:18s} {str(shape):20s} max_abs_err {err:.3e}"
               + ("" if plan is None else f"  plan {plan}"))
         del args, got, want
+    for i, shape in enumerate(verify_dense):
+        if shape[1] > LONG_K:
+            long_k_check(device, shape, 900 + i)
     act_pool_checks(device, errs)
     cancellation_check(device)
     m_independence_check(device)
     lm_kernel_checks(device, errs)
     audio_kernel_checks(device, errs)
     cache_kernel_checks(device, errs)
-    bit_contract_check(device, CACHE_DECODE)
+    bit_contract_check(device, CACHE_DECODE, verify_tq=(2, SPEC_K))
     bit_contract_check(device, CACHE_DECODE_AUDIO)
     norm_kernel_checks(device, errs)
     norm_m_independence_check(device)
@@ -1593,7 +1658,7 @@ def cache_kernel_checks(device, errs):
                   f"max_abs_err {perr:.3e}, bitwise the cache kernel's")
 
 
-def bit_contract_check(device, shape):
+def bit_contract_check(device, shape, verify_tq=()):
     """The cache kernels' rows depend on their own query and keys only
     (csrc/pfp_attention.cu: segments of fixed keys, one left fold). One
     slot at the widths of the decode ``shape`` (granite-8b's 32 / 8 heads of
@@ -1601,7 +1666,10 @@ def bit_contract_check(device, shape):
     at positions 300-811 from one Tq 512 call against the same rows in
     chunks of 128 rows and at Tq 1 (positions 300, 427, 428, 811) as slot
     0 of a 4-slot batch, under every cluster size of the decode block
-    (plan=) and through shuffled pages of 16 rows; all torch.equal."""
+    (plan=) and through shuffled pages of 16 rows; all torch.equal. Each
+    Tq of ``verify_tq`` (a speculative verify block) also runs as slot 0
+    of a 4-slot batch, contiguous and paged, at positions straddling a
+    segment's end."""
     import torch
     from repro_torch.kernels.pfp_attention import (MAX_CLUSTER,
                                                    pfp_attention_cache_cuda,
@@ -1635,6 +1703,9 @@ def bit_contract_check(device, shape):
     for pos in (n0, n0 + 127, n0 + 128, n0 + n - 1):
         runs += [(pos, 1, 4, None, (8, c)) for c in range(1, MAX_CLUSTER + 1)]
         runs.append((pos, 1, 4, PAGE_SIZE, None))
+    for tq in verify_tq:
+        for pos in (n0, n0 + 128 - tq // 2, n0 + n - tq):
+            runs += [(pos, tq, 4, None, None), (pos, tq, 4, PAGE_SIZE, None)]
     for q_start, tq, b, ps, plan in runs:
         got = run(q_start, tq, b, ps, plan)
         rows = slice(q_start - n0, q_start - n0 + tq)
@@ -1645,8 +1716,8 @@ def bit_contract_check(device, shape):
     torch.cuda.synchronize()
     print(f"[kernels] bit contract ({h} / {hkv} heads of {d}): "
           f"{len(runs) + 1} calls, every row of the slot bit for bit (Tq "
-          f"512 / 128 / 1, B 1 / 4, clusters 1-{MAX_CLUSTER}, pages of "
-          f"{PAGE_SIZE})")
+          f"512 / 128 / 1{''.join(f' / {t}' for t in verify_tq)}, B 1 / 4, "
+          f"clusters 1-{MAX_CLUSTER}, pages of {PAGE_SIZE})")
 
 
 def layernorm_offset_check(device):
@@ -1698,7 +1769,7 @@ def norm_kernel_checks(device, errs):
     for norm, kernel, plain, act in (
             ("rmsnorm", ops.pfp_rmsnorm, ref.pfp_rmsnorm_ref, "silu"),
             ("layernorm", ops.pfp_layernorm, ref.pfp_layernorm_ref, "gelu")):
-        for shape in NORM_DECODE + NORM_RAGGED:
+        for shape in NORM_DECODE + NORM_VERIFY + NORM_RAGGED:
             worst = 0.0
             for rep in ("var", "srm"):
                 for a in (None, act):
@@ -1756,8 +1827,8 @@ def m_independence_check(device):
     """A row's bits depend only on (K, N, mode): the first 6 rows of the
     same operands, bit for bit, at M = 6, 100, 128, 256 and 1024 (up to
     four plans), at a split shape and at decode and large-regime shapes (at
-    (14336, 4096): the decode tile, the (64, 4) ring tile at TM 4, 64 x 128
-    and 128 x 128), in each mode."""
+    (14336, 4096), K over 8 ranks: the decode tile and 128 x 128), in each
+    mode."""
     import torch
     for kernel in ("dense", "dense_first_layer", "dense_var"):
         for k, n in ((784, 120), (4096, 1024), (2048, 1408), (14336, 4096)):
@@ -1775,6 +1846,87 @@ def m_independence_check(device):
             print(f"[kernels] {kernel:18s} (M, {k}, {n}): rows 0-5 bit for "
                   f"bit at M 6 / 100 / 128 / 256 / 1024, plans {plans}")
             del args
+
+
+def _rounded(t, bits):
+    """fp32 ``t`` rounded to ``bits`` explicit mantissa bits, to nearest
+    even: 10 for TF32, 7 for bf16."""
+    import torch
+    drop = 23 - bits
+    i = t.contiguous().view(torch.int32)
+    odd = (i >> drop) & 1
+    i = (i + (1 << (drop - 1)) - 1 + odd) & ~((1 << drop) - 1)
+    return i.view(torch.float32)
+
+
+def long_k_errors(device, shape, seed):
+    """Row 1 (Eq. 12) at ``shape`` (M, K, N) on ``operands``: the errors
+    from an fp64 product of the kernel, its plain version, the plain
+    version on operands rounded to TF32 and to bf16, and the kernel with
+    K unsplit (split 1, one fp32 chain a row); each a (mean, var) pair in
+    units of u sqrt(K) sum|products|, the max over the outputs. Also the
+    plan and the kernel's distance from the plain version in DENSE_TOL."""
+    import math
+
+    import torch
+    from repro_torch.kernels.pfp_dense import (MODE_SRM, dense_plan,
+                                               pfp_dense_cuda)
+    m, k, n = shape
+    args = operands("dense", shape, seed, device)
+    plan = dense_plan(m, n, k)
+    outs = {"kernel": run_kernel("dense", args),
+            "plain": run_plain("dense", args),
+            "tf32": run_plain("dense", [_rounded(a, 10) for a in args]),
+            "bf16": run_plain("dense", [_rounded(a, 7) for a in args]),
+            "unsplit": pfp_dense_cuda(*args, mode=MODE_SRM,
+                                      plan=plan._replace(split=1))}
+    torch.cuda.synchronize()
+    for name, out in outs.items():
+        if not all(torch.isfinite(t).all() for t in out):
+            fail(f"dense{shape}: non-finite {name} output")
+    mx, sx, mw, sw = (a.double() for a in args)
+    exact = (mx @ mw, sx @ sw - (mx * mx) @ (mw * mw))
+    unit = 2.0 ** -24 * math.sqrt(k)
+    scale = (unit * (mx.abs() @ mw.abs()),
+             unit * (sx @ sw + (mx * mx) @ (mw * mw)))
+    del mx, sx, mw, sw
+    errs = {name: tuple(float(((o.double() - x).abs() / a).max())
+                        for o, x, a in zip(out, exact, scale))
+            for name, out in outs.items()}
+    got, want = outs["kernel"], outs["plain"]
+    errs["dense_tol"] = max(
+        float(((g - w).abs() / (DENSE_TOL["atol"] + DENSE_TOL["rtol"]
+                                * w.abs())).max())
+        for g, w in zip(got, want))
+    errs["plan"] = tuple(plan)
+    return errs
+
+
+def long_k_check(device, shape, seed):
+    """Row 1 where K is split past LONG_K (granite's down projection, K
+    14336 over 8 ranks): the kernel's mean and variance within
+    LONG_K_BOUND of fp64 (long_k_errors' units), and the TF32 and bf16
+    controls outside it, so the bound tells a lower precision from fp32.
+    Prints every error, the unsplit kernel's and the kernel-to-plain
+    ratio."""
+    e = long_k_errors(device, shape, seed)
+    for name, (mean, var) in ((n, e[n]) for n in ("kernel", "plain", "tf32",
+                                                 "bf16", "unsplit")):
+        print(f"[kernels] dense {str(shape):20s} long K, {name:8s}: mean "
+              f"{mean:.4f} var {var:.4f} u sqrt(K) sum|p| from fp64")
+    ratio = [k_ / max(p, 1e-30) for k_, p in zip(e["kernel"], e["plain"])]
+    print(f"[kernels] dense {str(shape):20s} long K, plan {e['plan']}: "
+          f"kernel / plain from fp64: mean {ratio[0]:.2f} var {ratio[1]:.2f};"
+          f" kernel-plain {e['dense_tol']:.3f} DENSE_TOL; bound "
+          f"{LONG_K_BOUND}")
+    if max(e["kernel"]) > LONG_K_BOUND:
+        fail(f"dense{shape}: kernel (mean, var) {e['kernel']} from fp64, "
+             f"past {LONG_K_BOUND} u sqrt(K) sum|p|")
+    for name in ("tf32", "bf16"):
+        if min(e[name]) <= LONG_K_BOUND:
+            fail(f"dense{shape}: {name} inputs give (mean, var) {e[name]}, "
+                 f"within {LONG_K_BOUND}: the bound cannot tell them from "
+                 f"fp32")
 
 
 def cancellation_check(device):
@@ -2429,8 +2581,9 @@ def _engine_requests(cfg, seed, n, prompts, new, system=0, cold=0):
 
 
 def _make_engine(cfg, model, device, impl, formulation, tracer=None,
-                 **config):
-    """An Engine at the phase's slots, cache rows, windows and budget."""
+                 router=None, **config):
+    """An Engine at the phase's slots, cache rows, windows and budget;
+    ``router``: RouterConfig fields (default ENGINE_ROUTER)."""
     from repro_torch.serving.engine import (Engine, EngineConfig,
                                             RequestScheduler, RouterConfig,
                                             SchedulerConfig,
@@ -2438,7 +2591,8 @@ def _make_engine(cfg, model, device, impl, formulation, tracer=None,
     return Engine(cfg, model, EngineConfig(
         slots=DECODE_SLOTS, max_len=DECODE_MAX_LEN, impl=impl,
         formulation=formulation, **config),
-        router=UncertaintyRouter(cfg, RouterConfig(**ENGINE_ROUTER),
+        router=UncertaintyRouter(cfg, RouterConfig(**(router or
+                                                       ENGINE_ROUTER)),
                                  formulation=formulation, impl=impl),
         scheduler=RequestScheduler(SchedulerConfig(
             prefill_chunk=PREFILL_CHUNK, prefill_budget=ENGINE_BUDGET)),
@@ -2461,12 +2615,15 @@ def _engine_step_profile(cfg, model, device, seed):
 
 
 def _engine_run(cfg, model, device, requests, *, impl="kernel",
-                formulation="srm", **config):
+                formulation="srm", router=None, reasons=("length",),
+                setup=None, **config):
     """Drive ``requests`` through one Engine as run_load does (each request
     submitted when the engine clock reaches its arrival), one CUDA sync
-    after every step for its wall time. Checks the drain and returns the
+    after every step for its wall time. ``router``: RouterConfig fields;
+    ``reasons``: the finish reasons allowed; ``setup(engine)`` runs before
+    the first step (test hooks, timers). Checks the drain and returns the
     run's record: tokens, MI and finish reason per uid, launches, the
-    metrics summary, TTFT and step times."""
+    metrics summary, TTFT and step times, and the escalate events."""
     import copy
 
     import torch
@@ -2474,7 +2631,9 @@ def _engine_run(cfg, model, device, requests, *, impl="kernel",
     from repro_torch.obs import Tracer
     tracer = Tracer()
     eng = _make_engine(cfg, model, device, impl, formulation, tracer,
-                       **config)
+                       router, **config)
+    if setup is not None:
+        setup(eng)
     pending = sorted(copy.deepcopy(requests), key=lambda r: r.arrival)
     submitted, step_end, step_ms = {}, [], []
     reset_launch_counts()
@@ -2507,7 +2666,7 @@ def _engine_run(cfg, model, device, requests, *, impl="kernel",
              f"{summary['final_prefix_held_pages']} the prefix index holds "
              f"after the drain")
     if len(eng.finished) != len(requests) or any(
-            r.finish_reason != "length" for r in eng.finished):
+            r.finish_reason not in reasons for r in eng.finished):
         fail(f"engine: finish reasons "
              f"{sorted((r.uid, r.finish_reason) for r in eng.finished)}")
     first, prefill_steps = {}, set()
@@ -2529,7 +2688,9 @@ def _engine_run(cfg, model, device, requests, *, impl="kernel",
             "launches": launches, "summary": summary, "seconds": seconds,
             "steps": len(step_ms), "step_ms": step_ms,
             "decode_only_ms": decode_only, "ttft_steps": ttft_steps,
-            "ttft_ms": ttft_ms}
+            "ttft_ms": ttft_ms,
+            "escalate_events": [e for e in tracer.events
+                                if e["event"] == "escalate"]}
 
 
 def _q(xs, q):
@@ -2641,7 +2802,312 @@ def phase_engine(device, lm_cfg, lm_model, seed=0):
     info["decode_step_profile"] = profile
     info["tokens"] = {uid: r[0] for uid, r in runs["paged"]["results"].items()}
     info["seconds"] = seconds
-    return launches, info
+    return launches, info, runs["paged"]["results"]
+
+
+def _timed(eng, name, acc):
+    """Wrap ``eng.<name>`` so that every call's ms (CUDA-synced on both
+    sides) is appended to ``acc[name]``."""
+    import torch
+    fn = getattr(eng, name)
+
+    def wrapped(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        acc.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(eng, name, wrapped)
+
+
+def spec_bit_check(device, cfg, model, seed):
+    """On a paged engine (kernel impl) whose DECODE_SLOTS slots all decode:
+    (1) each slot's escalation replay (``_replay_for``: its fed-token
+    window against the pre-step pool) run under PFP gives the logits the
+    router read, bit for bit; (2) one verify pass of SPEC_K tokens for
+    slot 0 gives, row by row, the (mean, var) logits of SPEC_K plain
+    decode steps from the same pool, bit for bit. Then times (CUDA
+    events) the verify pass, a plain 4-slot decode step, one mean-only
+    draft step and one SVI second opinion of SVI_SAMPLES samples on a
+    slot's replay, and profiles each (device busy, top kernels). Returns
+    the times and profiles."""
+    import numpy as np
+    import torch
+    from repro_torch.core.modes import Mode
+    from repro_torch.models import lm
+    from repro_torch.nn.module import Context
+    from repro_torch.serving.engine import RouterConfig, UncertaintyRouter
+    eng = _make_engine(cfg, model, device, "kernel", "srm",
+                       page_size=PAGE_SIZE, seed=seed)
+    for req in _engine_requests(cfg, seed + 2, DECODE_SLOTS,
+                                (PREFILL_CHUNK + 1, PREFILL_CHUNK + 1),
+                                NEW_TOKENS[1]):
+        eng.submit(req)
+    while eng.decoding < DECODE_SLOTS:
+        eng.step()
+    for _ in range(3):
+        eng.step()
+    ctx = Context(mode=Mode.PFP, impl="kernel", device=device)
+    for slot in range(DECODE_SLOTS):
+        sl = eng._slots[slot]
+        state, inputs, out_idx = eng._replay_for(slot, sl)
+        logits, _ = lm.decode_step(model, cfg, inputs, state, ctx)
+        if sl.replay is not None or not (
+                torch.equal(logits.mean[0, out_idx], eng._lm_mean[slot])
+                and torch.equal(logits.var[0, out_idx], eng._lm_var[slot])):
+            fail(f"spec bit check: slot {slot}'s escalation replay does not "
+                 f"give its routed logits bit for bit")
+    b, k, slot = DECODE_SLOTS, SPEC_K, 0
+    pos = int(eng.pool.positions[slot])
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, k)
+    table = np.zeros_like(eng.pool.page_table)
+    table[slot] = eng.pool.page_table[slot]
+    positions = np.tile(np.arange(k), (b, 1))
+    positions[slot] += pos
+    cache_len = np.ones(b, np.int64)
+    cache_len[slot] = pos + k
+    tokens = np.zeros((b, k), np.int64)
+    tokens[slot] = toks
+    verify_inputs = {"tokens": tokens, "positions": positions,
+                     "cache_len": cache_len,
+                     "write_start": np.zeros(b, np.int64),
+                     "page_table": table}
+    states = eng.pool.states
+    vmean, vvar, _ = eng._verify_step(verify_inputs, states)
+    active = np.zeros(b, bool)
+    active[slot] = True
+    device_table = eng.pool.device_table()
+    active_t = eng._as_tensor(active, torch.bool)
+
+    def plain_step(j, st):
+        feed = np.zeros(b, np.int64)
+        feed[slot] = toks[j]
+        p = eng.pool.positions.astype(np.int64)
+        p[slot] = pos + j
+        return eng._decode_step_paged(feed[:, None], p[:, None], p + active,
+                                      active_t, st, device_table,
+                                      eng._lm_mean, eng._lm_var)
+
+    st = states
+    for j in range(k):
+        mean, var, st, _ = plain_step(j, st)
+        if not (torch.equal(mean[slot], vmean[slot, j])
+                and torch.equal(var[slot], vvar[slot, j])):
+            fail(f"spec bit check: verify row {j} differs from the plain "
+                 f"decode step's logits (max abs "
+                 f"{float((mean[slot] - vmean[slot, j]).abs().max()):.3e})")
+    print(f"[engine spec] bit check: {DECODE_SLOTS} escalation replays "
+          f"give their routed logits, and a {k}-token verify pass at "
+          f"position {pos} gives {k} plain decode steps' (mean, var) "
+          f"logits, bit for bit")
+    router = UncertaintyRouter(cfg, RouterConfig(
+        escalate_samples=SVI_SAMPLES), impl="kernel")
+    state, inputs, out_idx = eng._replay_for(slot, eng._slots[slot])
+    uid = eng._slots[slot].request.uid
+    draft_inputs = {"tokens": eng._as_tensor(tokens[:, :1]),
+                    "positions": eng._as_tensor(positions[:, :1]),
+                    "cache_len": eng._as_tensor(positions[:, 0] + 1),
+                    "page_table": device_table}
+    calls = {
+        "verify": (f"verify pass ({b} x {k} tokens)", 5,
+                   lambda: eng._verify_step(verify_inputs, states)),
+        "decode_step": (f"plain decode step ({b} slots)", 5,
+                        lambda: plain_step(0, states)),
+        "draft_step": (f"draft step ({b} slots)", 5,
+                       lambda: lm.draft_decode_step(model, cfg, draft_inputs,
+                                                    states, ctx)),
+        "second_opinion": (
+            f"SVI second opinion ({SVI_SAMPLES} samples, window "
+            f"{PREFILL_CHUNK})", 3,
+            lambda: router.second_opinion(model, inputs, state,
+                                          eng._svi_noise(uid, 0), out_idx)),
+    }
+    times = {f"{name}_ms": time_ms(fn, reps, 1)
+             for name, (_, reps, fn) in calls.items()}
+    print("[engine spec] times (CUDA events, mean of back-to-back eager "
+          "calls): " + ", ".join(f"{label} {times[name + '_ms']:.3f} ms"
+                                 for name, (label, _, _) in calls.items())
+          + f" ({CARD})")
+    times["profiles"] = {name: _profile(f"{cfg.name} {label}", fn,
+                                        min(reps, 2), 0)
+                         for name, (label, reps, fn) in calls.items()}
+    return times
+
+
+def phase_engine_spec(device, lm_cfg, lm_model, paged, seed=0):
+    """SVI escalation and speculative decoding on granite-8b, the engine
+    phase's requests. ``paged``: the engine phase's paged run (uid ->
+    tokens, MI trace, finish reason). A calibration run sets the
+    thresholds; then A (paged, batched escalations), B (sequential), C
+    (contiguous), D (prefix sharing), E (SPEC_K-token speculation, nothing
+    escalates), E-reject (every draft shifted by one), E-eager and F
+    (speculation with A's escalations). Fails unless B, D and F give A's
+    tokens, finish reasons and MI traces bit for bit, A escalated with
+    both outcomes in a batch above 1, C gives A's tokens and finish
+    reasons with MI within MI_ATOL, E and E-reject give the paged run
+    bit for bit with no one-token decode pass (and no accepted draft in
+    E-reject), E-eager E's tokens with MI within MODEL_TOL's variance
+    tolerance, SPEC_KERNELS launched in E and F, and spec_bit_check
+    holds. Returns (escalation launches, speculation launches, info)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    requests = _engine_requests(lm_cfg, seed, ENGINE_REQUESTS,
+                                ENGINE_PROMPTS, NEW_TOKENS,
+                                system=ENGINE_SYSTEM, cold=ENGINE_COLD)
+    mis = np.concatenate([r[1] for r in paged.values()])
+    mi_continue = float(np.percentile(mis, SPEC_CONTINUE_PCT))
+    mi_abstain = 2.0 * float(mis.max())
+    calib_router = dict(mi_continue=mi_continue, mi_abstain=mi_abstain,
+                        escalate_samples=SVI_SAMPLES,
+                        svi_mi_abstain=float("inf"))
+    both = ("length", "abstain")
+    run_kw = dict(seed=seed, reasons=both)
+    calib = _engine_run(lm_cfg, lm_model, device, requests,
+                        router=calib_router, page_size=PAGE_SIZE, **run_kw)
+    svi_mis = [e["svi_mi"] for e in calib["escalate_events"]]
+    if not svi_mis:
+        fail("engine spec: the calibration run escalated nothing")
+    router = dict(calib_router, svi_mi_abstain=float(np.median(svi_mis)))
+    print(f"[engine spec] thresholds: mi_continue {mi_continue!r} (the "
+          f"{SPEC_CONTINUE_PCT}th percentile of the paged run's "
+          f"{len(mis)} MIs), mi_abstain {mi_abstain!r} (twice their max), "
+          f"svi_mi_abstain {router['svi_mi_abstain']!r} (the median of the "
+          f"calibration run's {len(svi_mis)} SVI MIs); {SVI_SAMPLES} SVI "
+          f"samples, speculative blocks of {SPEC_K}")
+    _engine_report("engine spec", "calibrate", calib)
+    timers = {name: {} for name in ("escalate", "escalate_seq",
+                                    "escalate_contig", "spec")}
+
+    def timing(name, *methods):
+        return lambda eng: [_timed(eng, m, timers[name]) for m in methods]
+
+    def reject(eng):
+        eng._draft_override = lambda d: (d + 1) % lm_cfg.vocab_size
+
+    runs = {}
+    specs = {
+        "escalate": dict(router=router, page_size=PAGE_SIZE,
+                         setup=timing("escalate", "_escalate_batched")),
+        "escalate_seq": dict(router=router, page_size=PAGE_SIZE,
+                             batch_escalations=False,
+                             setup=timing("escalate_seq", "_escalate")),
+        "escalate_contig": dict(router=router,
+                                setup=timing("escalate_contig", "_escalate")),
+        "escalate_prefix": dict(router=router, page_size=PAGE_SIZE,
+                                prefix_sharing=True),
+        "spec": dict(page_size=PAGE_SIZE, speculate_k=SPEC_K,
+                     setup=timing("spec", "_verify_step", "_draft_steps")),
+        "spec_reject": dict(page_size=PAGE_SIZE, speculate_k=SPEC_K,
+                            setup=reject),
+        "spec_eager": dict(page_size=PAGE_SIZE, speculate_k=SPEC_K,
+                           impl="eager"),
+        "spec_escalate": dict(router=router, page_size=PAGE_SIZE,
+                              speculate_k=SPEC_K),
+    }
+    for name, kw in specs.items():
+        runs[name] = _engine_run(lm_cfg, lm_model, device, requests,
+                                 **run_kw, **kw)
+        _engine_report("engine spec", name, runs[name])
+    a = runs["escalate"]
+    for other in ("escalate_seq", "escalate_prefix", "spec_escalate"):
+        if runs[other]["results"] != a["results"]:
+            bad = [u for u in a["results"]
+                   if runs[other]["results"][u] != a["results"][u]]
+            fail(f"engine spec: {other} differs from escalate (tokens, "
+                 f"finish reasons or MI) for uids {bad}")
+    sa = a["summary"]
+    outcomes = {e["outcome"] for e in a["escalate_events"]}
+    if outcomes != {"continue", "abstain"}:
+        fail(f"engine spec: escalate's escalation outcomes {outcomes}")
+    if not sa["max_escalation_batch"] > 1:
+        fail(f"engine spec: escalate never resolved more than one slot's "
+             f"escalation in one call (batches {sa['max_escalation_batch']})")
+    if not runs["escalate_prefix"]["summary"]["prefix_hits"] > 0:
+        fail("engine spec: escalate_prefix never hit the prefix index")
+    mi_err = 0.0
+    for uid, (toks, mi, reason) in a["results"].items():
+        got = runs["escalate_contig"]["results"][uid]
+        if (got[0], got[2]) != (toks, reason) or len(got[1]) != len(mi):
+            fail(f"engine spec uid {uid}: escalate_contig {got[0]} {got[2]}"
+                 f" != escalate {toks} {reason}")
+        if not np.allclose(got[1], mi, rtol=0, atol=MI_ATOL):
+            fail(f"engine spec uid {uid}: escalate_contig MI beyond "
+                 f"{MI_ATOL}")
+        mi_err = max(mi_err, float(np.max(np.abs(np.subtract(got[1], mi)),
+                                          initial=0.0)))
+    for name in ("spec", "spec_reject"):
+        if runs[name]["results"] != paged:
+            bad = [u for u in paged if runs[name]["results"][u] != paged[u]]
+            fail(f"engine spec: {name} differs from the engine phase's "
+                 f"paged run for uids {bad}")
+        if runs[name]["summary"]["decode_passes"]:
+            fail(f"engine spec: {name} ran one-token decode passes")
+    if runs["spec_reject"]["summary"]["accepted_draft_tokens"]:
+        fail("engine spec: spec_reject accepted a draft")
+    rtol, atol = MODEL_TOL["var"]
+    eager_err = 0.0
+    for uid, (toks, mi, reason) in runs["spec"]["results"].items():
+        got = runs["spec_eager"]["results"][uid]
+        if got[0] != toks or not np.allclose(got[1], mi, rtol=rtol,
+                                             atol=atol):
+            fail(f"engine spec uid {uid}: spec_eager {got[0]} != spec "
+                 f"{toks}, or MI beyond rtol {rtol} / atol {atol}")
+        eager_err = max(eager_err, float(np.max(
+            np.abs(np.subtract(got[1], mi)), initial=0.0)))
+    for name in ("spec", "spec_escalate"):
+        missing = [k for k in SPEC_KERNELS
+                   if not runs[name]["launches"].get(k)]
+        if missing:
+            fail(f"engine spec {name}: kernels never launched: {missing}")
+    s = runs["spec"]["summary"]
+    print(f"[engine spec] escalate == escalate_seq == escalate_prefix == "
+          f"spec_escalate bit for bit ({sa['escalations']} escalations: "
+          f"{sa['escalate_continue']} continue, {sa['escalate_abstain']} "
+          f"abstain; {sa['svi_passes']} batched calls, mean batch "
+          f"{sa['mean_escalation_batch']:.3f}, largest "
+          f"{sa['max_escalation_batch']}); escalate_contig: the same "
+          f"tokens, MI max abs err {mi_err:.3e}; spec == spec_reject == the "
+          f"engine phase's paged run bit for bit, no one-token decode pass; "
+          f"spec_eager: spec's tokens, MI max abs err {eager_err:.3e}")
+    print(f"[engine spec] spec: draft acceptance "
+          f"{s['draft_acceptance_rate']!r}, pfp_passes_per_token "
+          f"{s['pfp_passes_per_token']!r}, accepted_tokens_per_verify "
+          f"{s['accepted_tokens_per_verify']!r} ({s['verify_passes']} "
+          f"verify passes for {s['tokens_generated']} tokens); "
+          f"spec_escalate: pfp_passes_per_token "
+          f"{runs['spec_escalate']['summary']['pfp_passes_per_token']!r}")
+    per_token = {}
+    for name, method in (("escalate", "_escalate_batched"),
+                         ("escalate_seq", "_escalate"),
+                         ("escalate_contig", "_escalate")):
+        ms = timers[name].get(method, [])
+        n = runs[name]["summary"]["escalations"]
+        per_token[name] = sum(ms) / max(n, 1)
+    spec_t = {m: float(np.median(v)) for m, v in timers["spec"].items()}
+    print(f"[engine spec] SVI second opinion per escalated token "
+          f"(CUDA-synced wall, {SVI_SAMPLES} samples): escalate "
+          f"{per_token['escalate']:.3f} ms, escalate_seq "
+          f"{per_token['escalate_seq']:.3f}, escalate_contig "
+          f"{per_token['escalate_contig']:.3f}; spec's verify pass median "
+          f"{spec_t.get('_verify_step', float('nan')):.3f} ms, its "
+          f"{SPEC_K - 1} draft steps median "
+          f"{spec_t.get('_draft_steps', float('nan')):.3f} ms ({CARD})")
+    times = spec_bit_check(device, lm_cfg, lm_model, seed)
+    esc_launches, spec_launches = {}, {}
+    for name, run in [("calibrate", calib)] + list(runs.items()):
+        into = spec_launches if name.startswith("spec") else esc_launches
+        for k, v in run["launches"].items():
+            into[k] = into.get(k, 0) + v
+    seconds = time.perf_counter() - t0
+    print(f"[engine spec] phase {seconds:.1f} s")
+    info = {name: {k: v for k, v in run.items() if k != "results"}
+            for name, run in [("calibrate", calib)] + list(runs.items())}
+    info.update(thresholds=router, mi_err_contig=mi_err,
+                mi_err_eager=eager_err, second_opinion_per_token_ms=per_token,
+                spec_pass_ms=spec_t, times=times, seconds=seconds)
+    return esc_launches, spec_launches, info
 
 
 def phase_engine_moe(device, cfg, model, seed=0):
@@ -2988,11 +3454,15 @@ def phase_times(device, lm_cfg, lm_model):
                           norm_decode_calls(lm_cfg)[0], device))
     for shape in dict.fromkeys(lm_chunk_calls(lm_cfg)):
         rows.append(_time_row("lm-chunk", "dense", shape, device))
+    # Rows 1 and 11 at the speculative verify pass's shapes.
+    for shape in dict.fromkeys(lm_verify_calls(lm_cfg)):
+        rows.append(_time_row("lm-verify", "dense", shape, device))
     for kernel in CACHE_KERNELS:
         paged = (PAGE_SIZE,) if kernel == "attention_paged" else ()
         for label, shape in (("decode", CACHE_DECODE),
                              ("decode-moe", CACHE_DECODE_MOE),
-                             ("prefill", CACHE_PREFILL)):
+                             ("prefill", CACHE_PREFILL),
+                             ("verify", CACHE_VERIFY)):
             rows.append(_time_row(label, kernel, shape + paged, device))
     models = _models(device)
     forwards = []
@@ -4197,6 +4667,7 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg):
                if r["kernel"] == "rmsnorm"
                and r["batch"] in ("lm-decode", "moe-decode")}
     chunk = {tuple(r["shape"]): r for r in rows if r["batch"] == "lm-chunk"}
+    verify = {tuple(r["shape"]): r for r in rows if r["batch"] == "lm-verify"}
     fused = {tuple(r["shape"]): r for r in rows if r["batch"] == "fused"}
     aud = {(r["kernel"], tuple(r["shape"])): r for r in rows
            if r["batch"] in ("audio", "audio-decode")}
@@ -4259,6 +4730,9 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg):
                 kernel,
                 [cache[(kernel, "decode-audio")]] * audio_cfg.num_layers)
             extra["prefill_per_call"] = per_call(cache[(kernel, "prefill")])
+            # One speculative verify pass: one call per layer at Tq SPEC_K.
+            extra["verify_pass"] = summed(
+                kernel, [cache[(kernel, "verify")]] * lm_cfg.num_layers)
             extra["prefill_chunk_audio_per_call"] = per_call(
                 cache[(kernel, "chunk-audio")])
         elif kernel in CNN_KERNELS:
@@ -4274,6 +4748,8 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg):
                     kernel, [dec[s] for s in lm_decode_calls(lm_cfg)])
                 extra["prefill_chunk"] = summed(
                     kernel, [chunk[s] for s in lm_chunk_calls(lm_cfg)])
+                extra["verify_pass"] = summed(
+                    kernel, [verify[s] for s in lm_verify_calls(lm_cfg)])
             if kernel == "dense_var":
                 # Beside: one LM forward's dense calls in Eq. 7.
                 extra["lm_forward"] = summed(kernel, [
@@ -4336,8 +4812,10 @@ def main():
     launches["lm"], lm_info, lm_cfg, lm_model = phase_lm(device)
     launches["decode"], decode_info = phase_decode(device, lm_cfg, lm_model,
                                                    args.seed)
-    launches["engine"], engine_info = phase_engine(device, lm_cfg, lm_model,
-                                                   args.seed)
+    launches["engine"], engine_info, paged_results = phase_engine(
+        device, lm_cfg, lm_model, args.seed)
+    launches["engine_escalate"], launches["engine_spec"], spec_info = \
+        phase_engine_spec(device, lm_cfg, lm_model, paged_results, args.seed)
     rows, forwards = phase_times(device, lm_cfg, lm_model)
     profile = phase_profile(device, lm_cfg, lm_model)
     del lm_model
@@ -4381,7 +4859,8 @@ def main():
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build": build, "kernels": kernels, "times": rows,
          "forwards": forwards, "profile": profile, "lm": lm_info,
-         "decode": decode_info, "engine": engine_info, "moe": moe_info,
+         "decode": decode_info, "engine": engine_info,
+         "engine_spec": spec_info, "moe": moe_info,
          "moe_decode": moe_decode_info, "moe_engine": moe_engine_info,
          "audio": audio_info,
          "fused": fused_info,

@@ -65,14 +65,23 @@
 //    threads. At decode the tile has TM = 1 and as few thread rows as
 //    cover M, since each staged weight is read from shared memory once per
 //    thread row.
-//  * Cluster split-K (narrow regime only, split = 2..8, a function of K
-//    and N): the `split` CTAs of a thread-block cluster each sum one
-//    contiguous, 16-aligned K range of the same output tile with the
-//    single accumulator above; ranks 1.. leave their partial (mu, var)
-//    tiles in shared memory and rank 0 adds them in rank order over
-//    distributed shared memory. One launch, no workspace, no atomics,
-//    deterministic. Every CTA waits at the last cluster barrier, so no
-//    shared memory is freed while rank 0 reads it.
+//  * Cluster split-K (split = 2..8, a function of K and N): the `split`
+//    CTAs of a thread-block cluster each sum one contiguous K range of
+//    the same output tile, a whole number of 16-k tiles whatever the
+//    tile, with the single accumulator above; ranks 1.. leave their
+//    partial (mu, var) tiles in shared memory and rank 0 adds them in
+//    rank order over distributed shared memory. One launch, no workspace,
+//    no atomics, deterministic. Every CTA waits at the last cluster
+//    barrier, so no shared memory is freed while rank 0 reads it. The
+//    narrow regime splits for latency. Every regime splits K past 4096
+//    (N > 128) for accuracy: the variance's terms share a sign, so one
+//    chain's error grows as u sqrt(K) sum|terms| (at K 14336 as large
+//    as TF32 inputs give); 4 or 8 chains of at most 2048 err about S
+//    times less. The large regime walks the ranges in one CTA instead
+//    (`serial`): each summed from zero, added into the outputs in range
+//    order, the same additions as rank 0's. Its tiles hold an SM alone,
+//    and clusters of 8 of them left a GPC's odd SMs idle: K 14336 at M
+//    2048 ran 14% slower as a cluster (PERF.md, row 1 at long K).
 //  * Batched experts: the expert axis is blockIdx.z and each block offsets
 //    its operands by its expert's strides (in 64 bits: the recurrent lift
 //    puts thousands of problems on that axis). Blocks of all experts run
@@ -119,11 +128,11 @@ pfp_dense_ring_kernel(const float* __restrict__ xa,
                       float* __restrict__ mu_out, float* __restrict__ var_out,
                       const int* __restrict__ rows, int M, int N, int K,
                       long long x_stride, long long w_stride, int split,
-                      int chunk, int vec_x, int vec_w) {
+                      int chunk, int serial, int vec_x, int vec_w) {
   extern __shared__ __align__(16) float smem[];
   dense_ring<MODE, BN, TN, TM, STAGES, BATCHED>(
       smem, xa, xb, wa, wb, rows, M, N, K, x_stride, w_stride, split, chunk,
-      vec_x, vec_w, StoreEpilogue{mu_out, var_out});
+      serial, vec_x, vec_w, StoreEpilogue{mu_out, var_out});
 }
 
 // The problem: E independent (M,K) x (K,N) denses, expert e's operands at
@@ -142,25 +151,27 @@ bool aligned16(const void* p) {
 }
 
 template <int MODE, int BN, int TN, int TM, int STAGES, bool BATCHED>
-int launch_tile(const Problem& p, int split, cudaStream_t stream) {
+int launch_tile(const Problem& p, int split, int serial,
+                cudaStream_t stream) {
   using R = Ring<MODE, BN, TN, TM, STAGES>;
   const long long m_tiles = (p.M + R::BM - 1) / R::BM;
-  if (m_tiles * split > 0x7fffffffLL || (p.N + BN - 1) / BN > 65535 ||
-      (R::kWide && split != 1))
+  const int ranks = serial ? 1 : split;  // CTAs an output tile
+  if (m_tiles * ranks > 0x7fffffffLL || (p.N + BN - 1) / BN > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = pfp_dense_ring_kernel<MODE, BN, TN, TM, STAGES, BATCHED>;
   static bool raised[pfp::kMaxDevices] = {};
   constexpr int kBytes = R::kFloats * 4;
   cudaError_t err = pfp::allow_smem(kernel, kBytes, raised);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // Each rank's range: K / split rounded up to whole tiles of this ring.
-  const int chunk = ((p.K + split - 1) / split + R::BK - 1) / R::BK * R::BK;
+  // Each rank's range: K / split rounded up to whole kBK, whatever the
+  // tile (a wide tile's last one in a range may be half zero-filled).
+  const int chunk = ((p.K + split - 1) / split + kBK - 1) / kBK * kBK;
   const int vec_x = p.K % 4 == 0 && p.x_stride % 4 == 0 &&
                     aligned16(p.xa) && aligned16(p.xb);
   const int vec_w = p.N % 4 == 0 && p.w_stride % 4 == 0 &&
                     aligned16(p.wa) && aligned16(p.wb);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(m_tiles * split),
+  cfg.gridDim = dim3(static_cast<unsigned>(m_tiles * ranks),
                      static_cast<unsigned>((p.N + BN - 1) / BN),
                      static_cast<unsigned>(p.E));
   cfg.blockDim = dim3(kThreads);
@@ -168,14 +179,14 @@ int launch_tile(const Problem& p, int split, cudaStream_t stream) {
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.x = ranks;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = split > 1 ? 1 : 0;
+  cfg.numAttrs = ranks > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kernel, p.xa, p.xb, p.wa, p.wb, p.mu, p.var,
                            p.rows, p.M, p.N, p.K, p.x_stride, p.w_stride,
-                           split, chunk, vec_x, vec_w);
+                           split, chunk, serial, vec_x, vec_w);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it: the launch never ran
     return static_cast<int>(err);
@@ -184,14 +195,15 @@ int launch_tile(const Problem& p, int split, cudaStream_t stream) {
 }
 
 struct Plan {
-  int split, bn, tn, tm, stages;
+  int split, bn, tn, tm, stages, serial;
 };
 
 template <int MODE, bool BATCHED>
 int launch_plan(const Problem& p, const Plan& plan, cudaStream_t stream) {
 #define PFP_DENSE_CASE(BN, TN, TM, ST)                                  \
   if (plan.bn == BN && plan.tn == TN && plan.tm == TM && plan.stages == ST) \
-    return launch_tile<MODE, BN, TN, TM, ST, BATCHED>(p, plan.split, stream);
+    return launch_tile<MODE, BN, TN, TM, ST, BATCHED>(p, plan.split,       \
+                                                      plan.serial, stream);
   PFP_DENSE_TILES(PFP_DENSE_CASE)
 #undef PFP_DENSE_CASE
   return static_cast<int>(cudaErrorInvalidValue);  // not instantiated
@@ -212,23 +224,25 @@ int launch_mode(const Problem& p, const Plan& plan, cudaStream_t stream) {
 // contiguous (e, m, n). rows: null, or e int32 kept-row counts on the
 // device (expert i's rows from rows[i] on are zero in x, and come out as
 // zeros). Modes as below. The plan (split, bn, tn, tm, stages) must be one
-// of PFP_DENSE_TILES with 1 <= split <= 8 (1 for the wide tiles, tn 8);
-// anything else returns cudaErrorInvalidValue. Requires 1 <= e <= 65535
-// (the grid's z extent), m, n >= 1 and k >= 0.
+// of PFP_DENSE_TILES with 1 <= split <= 8; anything else returns
+// cudaErrorInvalidValue. serial: 0, a cluster of `split` CTAs an output
+// tile; 1, one CTA walking the split's K ranges in order (the same sums).
+// Requires 1 <= e <= 65535 (the grid's z extent), m, n >= 1 and k >= 0.
 PFP_EXPORT int pfp_dense_batched_launch(
     int mode, const void* xa, const void* xb, const void* wa, const void* wb,
     void* mu, void* var, const void* rows, int e, int m, int n, int k,
     long long x_stride, long long w_stride, int split, int bn, int tn, int tm,
-    int stages, void* stream) {
+    int stages, int serial, void* stream) {
   if (e < 1 || e > 65535 || m < 1 || n < 1 || k < 0 || x_stride < 0 ||
-      w_stride < 0 || split < 1 || split > kMaxSplit)
+      w_stride < 0 || split < 1 || split > kMaxSplit || serial < 0 ||
+      serial > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Problem p{static_cast<const float*>(xa), static_cast<const float*>(xb),
                   static_cast<const float*>(wa), static_cast<const float*>(wb),
                   static_cast<float*>(mu), static_cast<float*>(var),
                   static_cast<const int*>(rows), e, m, n, k, x_stride,
                   w_stride};
-  const Plan plan{split, bn, tn, tm, stages};
+  const Plan plan{split, bn, tn, tm, stages, serial};
   auto s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kSrm:
@@ -245,15 +259,15 @@ PFP_EXPORT int pfp_dense_batched_launch(
 // mode: 0 = Eq. 12 (mu_x, srm_x, mu_w, srm_w), 1 = Eq. 13 (x, unused, mu_w,
 // var_w), 2 = Eq. 7 (mu_x, var_x, mu_w, var_w). All fp32, row-major,
 // contiguous, on the device of `stream`. Requires M, N >= 1 and K >= 0;
-// the plan as for pfp_dense_batched_launch.
+// the plan and serial as for pfp_dense_batched_launch.
 PFP_EXPORT int pfp_dense_launch(int mode, const void* xa, const void* xb,
                                 const void* wa, const void* wb, void* mu,
                                 void* var, int m, int n, int k, int split,
                                 int bn, int tn, int tm, int stages,
-                                void* stream) {
+                                int serial, void* stream) {
   return pfp_dense_batched_launch(mode, xa, xb, wa, wb, mu, var, nullptr, 1,
                                   m, n, k, 0, 0, split, bn, tn, tm, stages,
-                                  stream);
+                                  serial, stream);
 }
 
 PFP_EXPORT const char* pfp_error_string(int code) {

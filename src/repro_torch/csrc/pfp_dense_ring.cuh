@@ -6,7 +6,8 @@
 //
 // dense_ring() is the whole body of a block: the `load` of a tile into the
 // ring, the ring itself, wide_tile / interleaved_tile on each landed tile,
-// cluster split-K, and the epilogue, a policy that says what becomes of
+// cluster split-K (every tile, in ranges of whole kBK = 16 k), and the
+// epilogue, a policy that says what becomes of
 // the sums: StoreEpilogue (the dense kernels) writes (mean, var);
 // pfp_fused.cu's ActEpilogue runs the activation's moment functions on
 // them. The design and what bounds each regime are set out in
@@ -86,10 +87,11 @@ struct Ring {
   static constexpr int kXTRow = BM + 4;  // 16-byte rows, banks staggered
   static constexpr int kXT = BK * kXTRow;
   static constexpr int kTile = kWide ? (kNX + 1) * kXT + kW : 0;
-  // Wide tiles never split K, so they keep no partials.
-  static constexpr int kPartial = kWide ? 0 : 2 * TM * TN * kThreads;
-  static constexpr int kFloats =
-      STAGES * kStage > kPartial ? STAGES * kStage + kTile : kPartial;
+  // A split rank's partial (mean, var) sums, once the ring is drained.
+  static constexpr int kPartial = 2 * TM * TN * kThreads;
+  static constexpr int kFloats = STAGES * kStage + kTile > kPartial
+                                     ? STAGES * kStage + kTile
+                                     : kPartial;
   static_assert(TM % kGroup == 0 && TN % kGroup == 0, "groups of four");
 
   __device__ __forceinline__ static int row(int ty, int i) {
@@ -125,6 +127,7 @@ __device__ __forceinline__ void store_tile(float* mu_out, float* var_out,
 // The dense kernels' epilogue: (mean, var) to (mu, var), expert e's at
 // offset e * M * N.
 struct StoreEpilogue {
+  static constexpr bool kAccumulates = true;
   float* mu;
   float* var;
   __device__ __forceinline__ void offset(long long off) {
@@ -136,6 +139,29 @@ struct StoreEpilogue {
                                         const float (&acc_v)[TM][TN], int M,
                                         int N, long long m0, int n0) const {
     store_tile<R>(mu, var, acc_mu, acc_v, M, N, m0, n0);
+  }
+  // One K range's sums into the outputs, which hold the running total of
+  // the ranges before it (`add`), else are written. Each output is read
+  // and written by the thread that owns it, in program order.
+  template <class R, int TM, int TN>
+  __device__ __forceinline__ void accumulate(const float (&acc_mu)[TM][TN],
+                                             const float (&acc_v)[TM][TN],
+                                             int M, int N, long long m0,
+                                             int n0, bool add) const {
+    const int tx = threadIdx.x % R::TX, ty = threadIdx.x / R::TX;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const long long m = m0 + R::row(ty, i);
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int n = n0 + R::col(tx, j);
+        if (n >= N) continue;
+        const long long off = m * N + n;
+        mu[off] = add ? mu[off] + acc_mu[i][j] : acc_mu[i][j];
+        var[off] = add ? var[off] + acc_v[i][j] : acc_v[i][j];
+      }
+    }
   }
 };
 
@@ -270,25 +296,33 @@ __device__ __forceinline__ void interleaved_tile(const float* s_xa,
 // (kFirstLayer), mu_x and var_x (kVar); wa, wb: mu_w and srm_w (kSrm),
 // mu_w and var_w (kFirstLayer, kVar). `split` CTAs (a cluster along x)
 // share an output tile, rank r summing K range [r * chunk, (r + 1) *
-// chunk); vec_x and vec_w allow 16-byte copies of the x and w rows. smem
-// holds Ring::kFloats floats.
+// chunk), chunk a multiple of kBK whatever the tile, so the ranges and
+// hence the sums do not depend on it. With `serial` (and an epilogue that
+// accumulates) one CTA walks all `split` ranges in order instead, each
+// range summed from zero as a rank sums it and added into the running
+// total in rank order: the same additions, so the same bits, with no
+// cluster (the large regime, whose one-block-an-SM tiles pack a GPC
+// badly in clusters). vec_x and vec_w allow 16-byte copies of the x and
+// w rows. smem holds Ring::kFloats floats.
 template <int MODE, int BN, int TN, int TM, int STAGES, bool BATCHED,
           class Epilogue>
 __device__ __forceinline__ void dense_ring(
     float* smem, const float* __restrict__ xa, const float* __restrict__ xb,
     const float* __restrict__ wa, const float* __restrict__ wb,
     const int* __restrict__ rows, int M, int N, int K, long long x_stride,
-    long long w_stride, int split, int chunk, int vec_x, int vec_w,
-    Epilogue epi) {
+    long long w_stride, int split, int chunk, int serial, int vec_x,
+    int vec_w, Epilogue epi) {
   using R = Ring<MODE, BN, TN, TM, STAGES>;
   constexpr int TX = R::TX, BM = R::BM;
   constexpr bool kTwoX = MODE != kFirstLayer;
 
   const int tx = threadIdx.x % TX;
   const int ty = threadIdx.x / TX;
+  const bool walk = Epilogue::kAccumulates && serial && split > 1;
+  const int ranks = walk ? 1 : split;  // CTAs an output tile
   const int rank =
-      split > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
-  const long long m0 = static_cast<long long>(blockIdx.x / split) * BM;
+      ranks > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  const long long m0 = static_cast<long long>(blockIdx.x / ranks) * BM;
   const int n0 = blockIdx.y * BN;
   if constexpr (BATCHED) {
     // Offsets a block's operands to its expert (blockIdx.z). A block whose
@@ -307,10 +341,11 @@ __device__ __forceinline__ void dense_ring(
       return;
     }
   }
-  const int k_begin = min(K, rank * chunk);
-  const int k_end = min(K, k_begin + chunk);
+  // The K ranges this CTA sums: its rank's, or (walk) all of them in
+  // order, each range's sums added into the epilogue's running total.
+  const int r_first = walk ? 0 : rank, r_last = walk ? split : rank + 1;
+  int k_begin = 0, k_end = 0;
   constexpr int BK = R::BK, kXPitch = R::kXPitch;
-  const int tiles = (k_end - k_begin + BK - 1) / BK;
 
   auto load = [&](int stage, int k0) {
     float* s_xa = smem + stage * R::kStage;
@@ -362,77 +397,89 @@ __device__ __forceinline__ void dense_ring(
   };
 
   float acc_mu[TM][TN], acc_v[TM][TN];
+#pragma unroll 1
+  for (int r = r_first; r < r_last; ++r) {
+    k_begin = min(K, r * chunk);
+    k_end = min(K, k_begin + chunk);
+    const int tiles = (k_end - k_begin + BK - 1) / BK;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
+    for (int i = 0; i < TM; ++i) {
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      acc_mu[i][j] = 0.0f;
-      acc_v[i][j] = 0.0f;
+      for (int j = 0; j < TN; ++j) {
+        acc_mu[i][j] = 0.0f;
+        acc_v[i][j] = 0.0f;
+      }
     }
-  }
 
 #pragma unroll 1
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < tiles) load(s, k_begin + s * BK);
-    cp_async_commit();
-  }
-  for (int t = 0; t < tiles; ++t) {
-    // Tile t has landed, this thread's part and (after the barrier) every
-    // thread's; every thread is done with stage t - 1, which is refilled.
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int next = t + STAGES - 1;
-    if (next < tiles) load(next % STAGES, k_begin + next * BK);
-    cp_async_commit();
-
-    const float* s_xa = smem + (t % STAGES) * R::kStage;
-    const float* s_xb = s_xa + R::kX;
-    const float* s_wa = s_xa + R::kNX * R::kX;
-    const float* s_wb = s_wa + R::kW;
-    if constexpr (R::kWide) {
-      wide_tile<MODE, R>(s_xa, s_xb, s_wa, s_wb, smem + STAGES * R::kStage,
-                         tx, ty, acc_mu, acc_v);
-    } else {
-      interleaved_tile<MODE, R>(s_xa, s_xb, s_wa, s_wb, tx, ty, acc_mu,
-                                acc_v);
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < tiles) load(s, k_begin + s * BK);
+      cp_async_commit();
     }
-  }
+    for (int t = 0; t < tiles; ++t) {
+      // Tile t has landed, this thread's part and (after the barrier) every
+      // thread's; every thread is done with stage t - 1, which is refilled.
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      const int next = t + STAGES - 1;
+      if (next < tiles) load(next % STAGES, k_begin + next * BK);
+      cp_async_commit();
 
-  if constexpr (!R::kWide) {
-    if (split > 1) {
-      cg::cluster_group cluster = cg::this_cluster();
-      cp_async_wait<0>();
-      __syncthreads();  // the ring is drained: it now holds the partials
-      float* part = smem;
-      constexpr int kOuts = TM * TN;
-      if (rank != 0) {
+      const float* s_xa = smem + (t % STAGES) * R::kStage;
+      const float* s_xb = s_xa + R::kX;
+      const float* s_wa = s_xa + R::kNX * R::kX;
+      const float* s_wb = s_wa + R::kW;
+      if constexpr (R::kWide) {
+        wide_tile<MODE, R>(s_xa, s_xb, s_wa, s_wb, smem + STAGES * R::kStage,
+                           tx, ty, acc_mu, acc_v);
+      } else {
+        interleaved_tile<MODE, R>(s_xa, s_xb, s_wa, s_wb, tx, ty, acc_mu,
+                                  acc_v);
+      }
+    }
+    if (walk) {
+      if constexpr (Epilogue::kAccumulates) {
+        cp_async_wait<0>();
+        __syncthreads();  // every thread is done with the ring: refill it
+        epi.template accumulate<R>(acc_mu, acc_v, M, N, m0, n0, r > 0);
+      }
+    }
+  }  // the K ranges
+  if (walk) return;
+
+  if (ranks > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is drained: it now holds the partials
+    float* part = smem;
+    constexpr int kOuts = TM * TN;
+    if (rank != 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          part[(i * TN + j) * kThreads + threadIdx.x] = acc_mu[i][j];
+          part[(kOuts + i * TN + j) * kThreads + threadIdx.x] = acc_v[i][j];
+        }
+      }
+    }
+    cluster.sync();
+    if (rank == 0) {
+      for (int r = 1; r < split; ++r) {  // rank order: deterministic
+        const float* theirs = cluster.map_shared_rank(part, r);
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
 #pragma unroll
           for (int j = 0; j < TN; ++j) {
-            part[(i * TN + j) * kThreads + threadIdx.x] = acc_mu[i][j];
-            part[(kOuts + i * TN + j) * kThreads + threadIdx.x] = acc_v[i][j];
+            acc_mu[i][j] += theirs[(i * TN + j) * kThreads + threadIdx.x];
+            acc_v[i][j] +=
+                theirs[(kOuts + i * TN + j) * kThreads + threadIdx.x];
           }
         }
       }
-      cluster.sync();
-      if (rank == 0) {
-        for (int r = 1; r < split; ++r) {  // rank order: deterministic
-          const float* theirs = cluster.map_shared_rank(part, r);
-#pragma unroll
-          for (int i = 0; i < TM; ++i) {
-#pragma unroll
-            for (int j = 0; j < TN; ++j) {
-              acc_mu[i][j] += theirs[(i * TN + j) * kThreads + threadIdx.x];
-              acc_v[i][j] +=
-                  theirs[(kOuts + i * TN + j) * kThreads + threadIdx.x];
-            }
-          }
-        }
-      }
-      cluster.sync();  // no rank leaves while rank 0 reads its shared memory
-      if (rank != 0) return;
     }
+    cluster.sync();  // no rank leaves while rank 0 reads its shared memory
+    if (rank != 0) return;
   }
   epi.template store<R>(smem, acc_mu, acc_v, M, N, m0, n0);
 }

@@ -9,8 +9,8 @@
 // It computes what the unfused kernel chain computes (pfp_norms.cu, torch's
 // to_srm, pfp_dense.cu mode 0, pfp_activations.cu), bit for bit, at every
 // tile, wherever the chain's dense does not split K (kernels/pfp_dense.py
-// split_k is 1: every N > 128, every N < 64, every K <= 64), in two
-// launches where the chain takes five:
+// split_k is 1: N > 128 with K <= 4096, every N < 64, every K <= 64), in
+// two launches where the chain takes five:
 //  * The norm pass (pfp_norm_srm_kernel): the norm kernel's own row pass
 //    (pfp_norm.cuh norm_row: one block a row on the norm kernel's plan,
 //    the row in registers), then h_srm = h_var + h_mu^2 rounded as torch's two-op
@@ -116,6 +116,7 @@ pfp_norm_srm_kernel(const float* __restrict__ mu,
 
 // The activation on the block's (mean, var) sums: (mean, srm) out.
 struct ActEpilogue {
+  static constexpr bool kAccumulates = false;  // a split runs as a cluster
   int act;
   float* mu;
   float* srm;
@@ -184,11 +185,11 @@ pfp_norm_dense_act_kernel(int act, const float* __restrict__ h_mu,
                           const float* __restrict__ srm_w,
                           float* __restrict__ mu_out,
                           float* __restrict__ srm_out, int M, int N, int K,
-                          int chunk, int vec_x, int vec_w) {
+                          int split, int chunk, int vec_x, int vec_w) {
   extern __shared__ __align__(16) float smem[];
   dense_ring<kSrm, BN, TN, TM, STAGES, false>(
-      smem, h_mu, h_srm, mu_w, srm_w, nullptr, M, N, K, 0, 0, 1, chunk,
-      vec_x, vec_w, ActEpilogue{act, mu_out, srm_out});
+      smem, h_mu, h_srm, mu_w, srm_w, nullptr, M, N, K, 0, 0, split, chunk,
+      0, vec_x, vec_w, ActEpilogue{act, mu_out, srm_out});
 }
 
 struct Problem {
@@ -198,7 +199,7 @@ struct Problem {
   float* h;  // (2, M, K): h_mu, then h_srm
   const float *mu_w, *srm_w;
   float *mu_out, *srm_out;
-  int M, N, K;
+  int M, N, K, split;  // split: the chain's dense's (split_k)
   float eps;
 };
 
@@ -211,7 +212,7 @@ int launch(const Problem& p, cudaStream_t stream) {
   using R = Ring<kSrm, BN, TN, TM, STAGES>;
   constexpr int kBytes = R::kFloats * 4;
   const long long m_tiles = (p.M + R::BM - 1) / R::BM;
-  if (m_tiles > 0x7fffffffLL || (p.N + BN - 1) / BN > 65535)
+  if (m_tiles * p.split > 0x7fffffffLL || (p.N + BN - 1) / BN > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = pfp_norm_dense_act_kernel<BN, TN, TM, STAGES>;
   static bool raised[pfp::kMaxDevices] = {};
@@ -232,15 +233,30 @@ int launch(const Problem& p, cudaStream_t stream) {
   PFP_NORM_GROUPS(PFP_NORM_CASE)
 #undef PFP_NORM_CASE
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int chunk = (p.K + R::BK - 1) / R::BK * R::BK;  // split 1
+  // The dense kernel's ranges: K / split in whole kBK.
+  const int chunk = ((p.K + p.split - 1) / p.split + kBK - 1) / kBK * kBK;
   const int vec_x = p.K % 4 == 0 && aligned16(p.h);
   const int vec_w = p.N % 4 == 0 && aligned16(p.mu_w) && aligned16(p.srm_w);
-  const dim3 grid(static_cast<unsigned>(m_tiles),
-                  static_cast<unsigned>((p.N + BN - 1) / BN));
-  kernel<<<grid, kThreads, kBytes, stream>>>(p.act, h_mu, h_srm, p.mu_w,
-                                             p.srm_w, p.mu_out, p.srm_out,
-                                             p.M, p.N, p.K, chunk, vec_x,
-                                             vec_w);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(m_tiles * p.split),
+                     static_cast<unsigned>((p.N + BN - 1) / BN));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.split > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, p.act, h_mu, h_srm, p.mu_w, p.srm_w,
+                           p.mu_out, p.srm_out, p.M, p.N, p.K, p.split,
+                           chunk, vec_x, vec_w);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the launch never ran
+    return static_cast<int>(err);
+  }
   return pfp::launch_status();
 }
 
@@ -271,7 +287,9 @@ int launch_rep(int rep, int bn, int tn, int tm, int stages, const Problem& p,
 // moment is a variance, 1 a second raw moment; act: an activation kind of
 // pfp_moments.cuh; (bn, tn, tm, stages): one of PFP_FUSED_TILES;
 // (norm_threads, norm_groups): the norm kernel's plan at k
-// (kernels/pfp_norms.py norm_plan), one of PFP_NORM_GROUPS. mu, sec
+// (kernels/pfp_norms.py norm_plan), one of PFP_NORM_GROUPS; split: the
+// unfused dense's split of K (kernels/pfp_dense.py split_k), 1..8, run as
+// a cluster so the sums are the dense kernel's. mu, sec
 // (m, k); gain, bias (k,); h (2, m, k), a workspace the norm pass writes;
 // mu_w, srm_w (k, n); the outputs (m, n) mean and srm. All fp32,
 // row-major, contiguous, on the device of `stream`. Requires m, n, k >= 1.
@@ -280,8 +298,10 @@ PFP_EXPORT int pfp_norm_dense_act_launch(
     int norm, int rep, int act, int bn, int tn, int tm, int stages,
     int norm_threads, int norm_groups, const void* mu, const void* sec,
     const void* gain, const void* bias, void* h, const void* mu_w,
-    const void* srm_w, void* mu_out, void* srm_out, int m, int n, int k, float eps, void* stream) {
+    const void* srm_w, void* mu_out, void* srm_out, int m, int n, int k,
+    int split, float eps, void* stream) {
   if (m < 1 || n < 1 || k < 1 || act < pfp::kRelu || act > pfp::kSigmoid ||
+      split < 1 || split > kMaxSplit ||
       !pfp::norm_plan_ok(norm_threads, norm_groups, k))
     return static_cast<int>(cudaErrorInvalidValue);
   const Problem p{act,
@@ -296,7 +316,7 @@ PFP_EXPORT int pfp_norm_dense_act_launch(
                   static_cast<const float*>(srm_w),
                   static_cast<float*>(mu_out),
                   static_cast<float*>(srm_out),
-                  m, n, k, eps};
+                  m, n, k, split, eps};
   auto s = static_cast<cudaStream_t>(stream);
   if (norm == kRms) return launch_rep<kRms>(rep, bn, tn, tm, stages, p, s);
   if (norm == kLayer)

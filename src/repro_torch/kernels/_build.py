@@ -35,9 +35,9 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "pfp_dense_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _P],
+                         _I, _I, _I, _I, _P],
     "pfp_dense_batched_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _I, _L, _L, _I, _I, _I, _I, _I, _P],
+                                 _I, _L, _L, _I, _I, _I, _I, _I, _I, _P],
     "pfp_activation_launch": [_I, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     "pfp_glu_launch": [_P, _P, _P, _P, _P, _P, _L, _P],
     "pfp_maxpool2d_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -45,8 +45,8 @@ _SIGNATURES = {
     "pfp_norm_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                         _F, _P],
     "pfp_norm_dense_act_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                                  _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                                  _P],
+                                  _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _F, _P],
     "pfp_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _F, _I, _P],
     "pfp_attention_kv_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

@@ -59,6 +59,8 @@ SPLIT_N = 64               # N from this up to NARROW_N: K is split
 SPLIT_MIN_K = 64           # K up to this (4 tiles): not split
 SPLIT_K = 48               # K per cluster rank, before rounding to tiles
 MAX_SPLIT = 8              # the portable cluster size
+LONG_K = 4096              # N > 128: K past this is split
+LONG_SPLIT_K = 2048        # there, K per rank at most (up to MAX_SPLIT)
 TILE_K = 16                # K of one staged tile
 RING_STAGES = 4            # tiles in the cp.async ring (3 in flight)
 WIDE_STAGES = 2            # the same for the wide tiles, of 32 k each
@@ -81,17 +83,29 @@ def thread_rows(bn: int, tn: int) -> int:
 
 def split_k(k: int, n: int, mode: int = MODE_SRM) -> int:
     """The cluster split of K: a function of (K, N, mode) only, so a row's
-    result never depends on M or E.
+    result never depends on M or E (prefill, verify and decode rows agree
+    bit for bit).
 
-    1 whenever N > 128 (every LM shape: prefill and decode rows agree bit
-    for bit); for N < 64: in the paper's models those are the conv layers'
+    For N > 128 (the LM shapes): 1 up to K = LONG_K, else the fewest of
+    4 or 8 ranks that leave each at most LONG_SPLIT_K of K (8 past
+    16384). The split is for accuracy: one fp32 chain over K terms of one
+    sign (Eq. 12's variance) errs by about u sqrt(K) sum|terms|, as much
+    as rounding the inputs to TF32 does at K 14336; S chains of K / S
+    added in rank order err about S times less (PERF.md, row 1 at long
+    K). Powers of two, so clusters of one-block-an-SM wide tiles pack a
+    GPC. 1 for N < 64: in the paper's models those are the conv layers'
     im2col products, whose 196-784 rows per image fill the card unsplit,
     where the cluster's combine costs (conv2 at batch 1024,
     ``tools/dense_plan_sweep.py``); and for K <= 64, a loop of at most 4
-    tiles. Else about one rank per 48 of K, at most 8, each rank whole
-    tiles of 16 and none left empty."""
+    tiles. Else (64 <= N <= 128) about one rank per 48 of K, at most 8.
+    Every rank sums whole tiles of 16 and none is left empty."""
     del mode   # every formulation splits alike
-    if not SPLIT_N <= n <= NARROW_N or k <= SPLIT_MIN_K:
+    if n > NARROW_N:
+        split = 1
+        while k > LONG_K and split < MAX_SPLIT and split * LONG_SPLIT_K < k:
+            split *= 2
+        return split
+    if n < SPLIT_N or k <= SPLIT_MIN_K:
         return 1
     split = min(MAX_SPLIT, -(-k // SPLIT_K))
     chunk = -(-k // split)
@@ -103,6 +117,15 @@ def _blocks(m, n, e, bn, tn, tm, split=1):
     return -(-m // (thread_rows(bn, tn) * tm)) * -(-n // bn) * e * split
 
 
+def walks_split(m: int, n: int) -> bool:
+    """Whether one CTA walks a split's K ranges in order (``serial``):
+    in the large regime (M > DECODE_M, N > NARROW_N), whose tiles hold an
+    SM alone and would pack a GPC badly in clusters of 8. Elsewhere a
+    cluster of ``split`` CTAs shares the tile. Both add the same range
+    sums in the same order, so the bits are the same."""
+    return m > DECODE_M and n > NARROW_N
+
+
 def dense_plan(m: int, n: int, k: int, e: int = 1,
                mode: int = MODE_SRM) -> DensePlan:
     """The plan for E problems of (M, K) x (K, N).
@@ -112,25 +135,29 @@ def dense_plan(m: int, n: int, k: int, e: int = 1,
       and 1 that gives FILL_LARGE blocks, else the last: where rows or
       columns are few (a prefill chunk of 128 rows), more blocks beat a
       faster block (``tools/dense_plan_sweep.py``). Every tile sums an
-      output alike, so the choice moves no bit.
+      output alike, so the choice moves no bit. A split of K is walked
+      in one block (:func:`walks_split`), so it adds no blocks.
     * Narrow (N <= 128): the narrowest tile that holds all of N, so x is
       read once; K split by :func:`split_k` over a cluster; TM 4 once TM 1
       would give more than two blocks an SM (never for M <= 16).
     * Decode (M <= 16, N > 128): TM 1 and the fewest thread rows (4, 8 or
       16) that cover M, at the tile measured fastest for them.
+
+    K is split by :func:`split_k` in every regime: over a cluster, or in
+    the large regime by one block in turn (:func:`walks_split`).
     """
     split = split_k(k, n, mode)
     if n > NARROW_N and m > DECODE_M:
         tile = next((t for t in _LARGE
                      if _blocks(m, n, e, *t[:3]) >= FILL_LARGE), _LARGE[-1])
-        return DensePlan(1, *tile)
+        return DensePlan(split, *tile)
     if n <= NARROW_N:
         bn, tn = next(t for t in _NARROW if t[0] >= n)
         tm = 4 if (m > DECODE_M and _blocks(m, n, e, bn, tn, 1, split)
                    >= FILL_BLOCKS) else 1
         return DensePlan(split, bn, tn, tm, RING_STAGES)
     bn, tn = _DECODE[next(r for r in sorted(_DECODE) if r >= m)]
-    return DensePlan(1, bn, tn, 1, RING_STAGES)
+    return DensePlan(split, bn, tn, 1, RING_STAGES)
 
 
 def launch_plan(plan: Optional[DensePlan], m, n, k, e, mode) -> DensePlan:
@@ -163,7 +190,7 @@ def pfp_dense_cuda(x_a, x_b, w_a, w_b, *, mode: int,
         status = lib.pfp_dense_launch(
             mode, x_a.data_ptr(), x_b.data_ptr(), w_a.data_ptr(),
             w_b.data_ptr(), mu.data_ptr(), var.data_ptr(), m, n, k, *plan,
-            stream_ptr(x_a.device))
+            int(walks_split(m, n)), stream_ptr(x_a.device))
     _build.check(status, f"pfp_dense_launch {plan}")
     LAUNCHES[_COUNTER[mode]] += 1
     return mu, var

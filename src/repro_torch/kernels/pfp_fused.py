@@ -46,9 +46,10 @@ _PLAN_OF = dict(zip(TILES, PLANS))
 
 def fusable(k: int, n: int) -> bool:
     """Whether the fused unit is the unfused chain bit for bit at (K, N):
-    where the chain's dense splits K over a cluster (``split_k`` > 1, 64
-    <= N <= 128) its sums run in another order than the fused unit's
-    single pass, so the fusion pass runs the chain there."""
+    where the chain's dense splits K over a cluster (``split_k`` > 1: 64
+    <= N <= 128, or N > 128 and K > 4096) its sums run in another order
+    than the fused unit's single pass, so the fusion pass runs the chain
+    there."""
     return split_k(k, n) == 1
 
 
@@ -76,7 +77,9 @@ def pfp_norm_dense_act_cuda(mu, second, gain, bias, mu_w, srm_w, *,
     """Launch the fused kernel on 2-D CUDA operands: the norm input
     (mu, second) (M, K), the norm's gain and (LayerNorm) bias (K,), the
     dense weight (mu_w, srm_w) (K, N). ``tile`` is one of ``TILES``
-    (None: :func:`default_tile`). Returns fp32 (mean, srm) (M, N)."""
+    (None: :func:`default_tile`). Where the unfused dense splits K
+    (``split_k``), the ring runs the same split as a cluster, so the
+    sums are the chain's. Returns fp32 (mean, srm) (M, N)."""
     m, k = mu.shape
     n = mu_w.shape[-1]
     tile = default_tile(m, n, k) if tile is None else tuple(tile)
@@ -106,8 +109,8 @@ def pfp_norm_dense_act_cuda(mu, second, gain, bias, mu_w, srm_w, *,
             NORMS[norm], REPS[rep], KINDS[act], *_PLAN_OF[tile], *norm_pass,
             mu.data_ptr(), second.data_ptr(), gain.data_ptr(),
             bias.data_ptr(), h.data_ptr(), mu_w.data_ptr(),
-            srm_w.data_ptr(), mean.data_ptr(), srm.data_ptr(), m, n, k, eps,
-            stream_ptr(mu.device))
+            srm_w.data_ptr(), mean.data_ptr(), srm.data_ptr(), m, n, k,
+            split_k(k, n), eps, stream_ptr(mu.device))
     _build.check(status, "pfp_norm_dense_act_launch")
     LAUNCHES["norm_dense_act"] += 1
     return mean, srm

@@ -18,7 +18,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import LAUNCHES, cuda_operands, stream_ptr
 from repro_torch.kernels.pfp_dense import (MODE_FIRST_LAYER, MODE_SRM,
-                                           MODE_VAR, DensePlan, launch_plan)
+                                           MODE_VAR, DensePlan, launch_plan,
+                                           walks_split)
 from repro_torch.kernels.ref import (  # noqa: F401
     pfp_dense_batched_first_layer_ref, pfp_dense_batched_ref,
     pfp_dense_batched_var_ref)
@@ -73,7 +74,8 @@ def pfp_dense_batched_cuda(x_a, x_b, w_a, w_b, *, mode: int, rows=None,
         status = lib.pfp_dense_batched_launch(
             mode, x_a.data_ptr(), x_b.data_ptr(), w_a.data_ptr(),
             w_b.data_ptr(), mu.data_ptr(), var.data_ptr(), rows_ptr, e, c,
-            n, k, c * k, k * n, *plan, stream_ptr(x_a.device))
+            n, k, c * k, k * n, *plan, int(walks_split(c, n)),
+            stream_ptr(x_a.device))
     _build.check(status, f"pfp_dense_batched_launch {plan}")
     LAUNCHES[_COUNTER[mode]] += 1
     return mu, var

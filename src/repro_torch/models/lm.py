@@ -22,14 +22,18 @@ The same definition serves three programs, as in the reference:
   decode_step()  a step against per-layer decode state (one token, or a
                  chunk of tokens under a paged page table)
 
+plus ``draft_decode_step()``, the mean-only pass that drafts tokens for
+speculative decoding.
+
 Decode state keeps the reference's tree: ``{'head0': KVCache, 'stack':
 {'b0': KVCache}}``, stack leaves with a leading layer-group axis, so the
-slot helpers work along the same axes (``_state_batch_axis``). Speculative
-drafting and the recurrent, SSM and cross-attention blocks come with later
-slices (ROADMAP.md).
+slot helpers work along the same axes (``_state_batch_axis``). The
+recurrent, SSM and cross-attention blocks come with later slices
+(ROADMAP.md).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional
 
 import numpy as np
@@ -429,6 +433,23 @@ def decode_step_with_aux(model: LM, cfg: ModelConfig, inputs: Mapping,
     Returns (logits, aux, new_states)."""
     return forward(model, cfg, inputs, ctx, states=dict(states),
                    collect_states=True, moe_aux_loss=False)
+
+
+def draft_decode_step(model: LM, cfg: ModelConfig, inputs: Mapping, states,
+                      ctx: Optional[Context] = None):
+    """Mean-only (zero-variance) decode pass for speculative drafting:
+    :func:`decode_step` in ``Mode.DETERMINISTIC``, every weight at its
+    posterior mean and no variance propagated. On a Gaussian KV pool it
+    writes rows with ``v_var = 0``; the caller discards ``new_states``, so
+    no such row ever reaches a served computation (the verify pass re-feeds
+    the drafted tokens through the PFP pass). Returns ``(mean_logits,
+    new_states)``, ``mean_logits`` a plain (B, T, V) tensor."""
+    dctx = (dataclasses.replace(ctx, mode=Mode.DETERMINISTIC)
+            if ctx is not None else Context(mode=Mode.DETERMINISTIC))
+    logits, new_states = decode_step(model, cfg, inputs, states, dctx)
+    if is_gaussian(logits):
+        logits = logits.mean
+    return logits, new_states
 
 
 def prefill(model: LM, cfg: ModelConfig, inputs: Mapping, ctx: Context,

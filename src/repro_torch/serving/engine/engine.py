@@ -1,9 +1,7 @@
 """The continuous-batching serving engine for PFP-BNN language models.
 
-Counterpart of ``repro/serving/engine/engine.py`` without SVI escalation
-and speculative decoding, which come with port slice 3b, part (b)
-(ROADMAP.md queue A item 2). One ``Engine`` owns a fixed decode batch of
-``slots`` sequences over one model:
+Counterpart of ``repro/serving/engine/engine.py``. One ``Engine`` owns a
+fixed decode batch of ``slots`` sequences over one model:
 
   submit -> scheduler (admission control, priority/deadline + aging;
             paged engines admit on PAGE budget, not slot count — with
@@ -17,9 +15,12 @@ and speculative decoding, which come with port slice 3b, part (b)
             paged engines batch each round's chunks into ONE multi-slot
             pass; prefix-shared slots prefill only the non-shared suffix)
          -> lockstep PFP decode (ONE probabilistic pass per step for the
-            whole batch: logit means + variances)
-         -> uncertainty router (continue / abstain; the grey zone abstains
-            until escalation is ported)
+            whole batch: logit means + variances), or on paged engines
+            with ``speculate_k`` K: K-1 mean-only draft steps and ONE
+            chunked PFP pass verifying the K-token block
+         -> uncertainty router (continue / escalate to an N-sample SVI
+            second opinion / abstain; paged engines resolve every slot a
+            step escalates in one call)
          -> eviction on completion or abstention (slot + pages return to
             the pool; optimistic page admission may PREEMPT the youngest
             slot when the pool runs dry — its request is requeued and
@@ -35,11 +36,16 @@ insert in ``nn/attention.py``).
 
 The passes run eagerly: the reference shares jitted executables between
 engines, the port has nothing to share. Every pass keeps one shape per
-engine (prefill windows of ``prefill_chunk`` rows, decode at slot width),
-so the bits of a row depend only on its own tokens and keys on the card
-(the dense and norm kernels' rows do not depend on M, the cache kernels'
-rows not on Tq, B or the page layout): a request's tokens and MI are the
-same on both pools, with and without prefix sharing or preemption.
+engine (prefill windows and escalation replays of ``prefill_chunk`` rows,
+decode at slot width, verify at slot width x K), so the bits of a row
+depend only on its own tokens and keys on the card (the dense and norm
+kernels' rows do not depend on M, the cache kernels' rows not on Tq, B or
+the page layout): a request's tokens and MI are the same on both pools,
+with and without prefix sharing, preemption or speculation, and batched
+second opinions are the sequential ones. An SVI second opinion runs the
+plain torch ops, whose attention reads the gathered pages on one pool and
+the cache on the other, so across the two pools it need only agree at
+tolerance.
 """
 from __future__ import annotations
 
@@ -67,7 +73,6 @@ from repro_torch.serving.engine.scheduler import (RequestScheduler,
 from repro_torch.serving.engine.state import (DecodeStatePool,
                                               PagedDecodeStatePool)
 
-_LATER = "port slice 3b, part (b) (ROADMAP.md queue A item 2)"
 _MASK64 = (1 << 64) - 1
 
 
@@ -102,16 +107,24 @@ class EngineConfig:
     prefix_retention_pages: Optional[int] = None  # max pages the prefix
     #                                index may hold after their writers
     #                                finished; None = the whole page budget
-    speculate_k: int = 0           # must stay 0 until speculation is ported
-    batch_escalations: bool = True  # accepted and ignored: nothing
-    #                                 escalates in this slice
+    # -- uncertainty-speculative decoding (paged engines only) --------------
+    speculate_k: int = 0           # 0 = off. K >= 1: each decode round
+    #                                drafts K-1 tokens with a mean-only
+    #                                (zero-variance) pass, then verifies the
+    #                                K-token block (served-but-unfed head +
+    #                                drafts) with ONE chunked PFP pass and
+    #                                serves the verified tokens greedily
+    #                                while routing says CONTINUE
+    batch_escalations: bool = True  # paged: resolve every slot the router
+    #                                escalates in a step with ONE call that
+    #                                runs each slot's N-sample SVI replay
+    #                                (bit for bit the sequential second
+    #                                opinion); contiguous engines always go
+    #                                sequential
 
     def __post_init__(self):
         if self.speculate_k < 0:
             raise ValueError("speculate_k must be >= 1 (or 0 = off)")
-        if self.speculate_k:
-            raise NotImplementedError(
-                f"speculative decoding (speculate_k > 0) comes with {_LATER}")
 
 
 @dataclasses.dataclass
@@ -120,6 +133,13 @@ class _Slot:
     admit_seq: int
     phase: str = "prefill"         # 'prefill' -> 'decode'
     prefill_pos: int = 0
+    last_input: Optional[int] = None  # token fed at the step behind the
+    #                                   current logits (SVI replay input)
+    # Escalation replay while the current logits come from a prefill
+    # chunk: (pre-chunk state, chunk inputs, out_idx). None once a decode
+    # step ran — the engine then replays the trailing fed-token window
+    # against the pre-decode pool snapshot instead.
+    replay: Optional[tuple] = None
     # Tokens this slot prefills: the prompt, plus — after a preemption —
     # the tokens already generated (PFP K/V rows are deterministic per
     # (token, position), so re-prefilling prompt+generated reproduces the
@@ -130,6 +150,11 @@ class _Slot:
     # already cached — the paged insert redirects re-fed writes there to
     # the trash page, and prefill starts here).
     write_start: int = 0
+    # Speculative decode: the one token already SERVED (appended to
+    # generated, MI recorded) but not yet fed — the head of the next
+    # draft+verify block. None when the slot's current logits are fresh
+    # (the next step routes them in phase 0 instead).
+    pending: Optional[int] = None
 
 
 def _splitmix64(x: int) -> int:
@@ -160,8 +185,8 @@ class Engine:
                  device: DeviceLike = None):
         """``model`` is the port's ``lm.LM`` (converted to PFP) on
         ``device`` (None: the CUDA card; this raises without one).
-        ``router`` defaults to the reference's thresholds with
-        ``escalate_samples=0``. ``pool``/``prefix`` inject SHARED decode
+        ``router`` defaults to the reference's ``RouterConfig()``.
+        ``pool``/``prefix`` inject SHARED decode
         state (disaggregated serving: a prefill engine and a decode engine
         over one page pool and one prefix index); the injecting owner
         wires the pool's remap listener, so one defrag remaps the shared
@@ -173,8 +198,8 @@ class Engine:
         self.config = config
         self.device = resolve_device(device)
         self.router = router if router is not None else UncertaintyRouter(
-            cfg, RouterConfig(escalate_samples=0),
-            formulation=config.formulation, impl=config.impl)
+            cfg, RouterConfig(), formulation=config.formulation,
+            impl=config.impl)
         self.scheduler = scheduler if scheduler is not None else \
             RequestScheduler(SchedulerConfig(), max_len=config.max_len)
         if self.scheduler.max_len is None:
@@ -191,6 +216,12 @@ class Engine:
                 "the engine serves attention-family models only "
                 f"(recurrent/SSM carries are not ported): {cfg.name}")
         self.paged = config.page_size is not None
+        if config.speculate_k and not self.paged:
+            raise ValueError(
+                "speculative decoding requires the paged Gaussian KV-cache "
+                "(set page_size): the chunked verify pass leans on "
+                "trash-page write redirection to leave rejected rows "
+                "rollback-free")
         if pool is not None:
             if self.paged != isinstance(pool, PagedDecodeStatePool):
                 raise ValueError("injected pool layout does not match "
@@ -243,6 +274,10 @@ class Engine:
                         else tracer)
         self.finished: List[Request] = []
         self._slots: List[Optional[_Slot]] = [None] * config.slots
+        # Pool states as of just BEFORE the latest lockstep decode step — a
+        # reference swap, not a copy (the old tensors stay alive one step).
+        # Escalation replays against this snapshot.
+        self._prev_states = None
         self._admit_seq = 0
         self._step_idx = 0
         v = cfg.vocab_size
@@ -256,6 +291,18 @@ class Engine:
         # noise that replaces the draw (the tests hand in the reference's
         # own fold_in-keyed normals).
         self._noise_override: Optional[Callable[[int, int], object]] = None
+        # SVI second-opinion noise: a second generator, reseeded per
+        # (request, token) with noise_seed(seed + 1, ...); the N samples
+        # draw from it in turn.
+        self._gen_esc = torch.Generator(device=self.device)
+        # Test hook: fn(uid, tok_idx) -> escalate_samples ``Context.eps``
+        # callables, one a sample (the tests hand in the reference's own
+        # fold_in-keyed weight noise).
+        self._svi_eps_override: Optional[Callable[[int, int], list]] = None
+        # Test hook: fn((B, K-1) drafted tokens) -> replacement array.
+        # Forcing drafts to always/never match the verified tokens pins the
+        # acceptance extremes in the bit-for-bit parity tests.
+        self._draft_override = None
 
     # -- device passes -------------------------------------------------------
     def _ctx(self) -> Context:
@@ -321,6 +368,39 @@ class Engine:
         return (torch.where(keep, mean[rows, out_idx].float(), lm_mean),
                 torch.where(keep, var[rows, out_idx].float(), lm_var),
                 new_states)
+
+    def _draft_steps(self, head, positions, states, table):
+        """K-1 mean-only (zero-variance) draft decode steps over the shared
+        page pool: :func:`lm.draft_decode_step` in a loop, each step
+        feeding the previous argmax. Returns the (B, K-1) drafted tokens;
+        the steps' state updates (zero-variance k/v rows) are DISCARDED —
+        only the verify pass's PFP rows ever reach ``pool.states``. Rows
+        not drafting this round run at position 0 over their own (or the
+        trash) pages; their proposals are ignored."""
+        tok, st, drafts = head, states, []
+        for i in range(self.config.speculate_k - 1):
+            inputs = {"tokens": tok[:, None],
+                      "positions": (positions + i)[:, None],
+                      "cache_len": positions + i + 1,
+                      "page_table": table}
+            logits, st = lm.draft_decode_step(self.model, self.cfg, inputs,
+                                              st, self._ctx())
+            tok = torch.argmax(logits[:, -1], dim=-1)
+            drafts.append(tok)
+        return torch.stack(drafts, dim=1)
+
+    def _verify_step(self, inputs, states):
+        """ONE chunked PFP pass over each slot's (B, K) speculative block —
+        the chunked-prefill machinery pointed at decode: logit means AND
+        variances for every block position, plus the pool with all fed
+        rows' PFP k/v written (``cache_len`` bounds the writable window;
+        pad rows land on the trash page). Rows the acceptance scan rejects
+        need no rollback — the engine leaves ``positions`` at the accepted
+        prefix, so stale rows stay masked until re-fed."""
+        logits, new_states = lm.decode_step(self.model, self.cfg, inputs,
+                                            states, self._ctx())
+        mean, var = self._split_logits(logits)
+        return mean.float(), var.float(), new_states
 
     def _as_tensor(self, array, dtype=torch.long):
         return torch.from_numpy(np.ascontiguousarray(array)).to(
@@ -555,6 +635,8 @@ class Engine:
                     self._finish(slot, "prefill", float(self._step_idx))
                     continue
                 sl.phase = "decode"
+                sl.last_input = int(prompt[-1])
+                sl.replay = (sub, inputs, out_idx)
                 row = self._as_tensor([slot])
                 self._lm_mean = self._lm_mean.index_copy(0, row, mean)
                 self._lm_var = self._lm_var.index_copy(0, row, var)
@@ -610,9 +692,13 @@ class Engine:
             planned = [p for p in planned if self._slots[p[0]] is not None]
             if not planned:
                 continue
+            pre_states = self.pool.states  # escalation-replay snapshot
+            #            (copy-on-write duplicates are already in it: every
+            #            _ensure_pages above ran before this reference)
+            table = self.pool.device_table()
             inputs = {"tokens": tokens, "positions": positions,
                       "cache_len": cache_len, "write_start": write_start,
-                      "page_table": self.pool.device_table()}
+                      "page_table": table}
             self._lm_mean, self._lm_var, self.pool.states = \
                 self._batch_chunk_step(inputs, self.pool.states,
                                        self._as_tensor(out_idx),
@@ -632,6 +718,19 @@ class Engine:
                         self._finish(slot, "prefill", float(self._step_idx))
                         continue
                     sl.phase = "decode"
+                    sl.last_input = int(sl.prefill_tokens[-1])
+                    # The replay leaves out write_start: its writes go to a
+                    # copy of the pool, so it may rewrite its whole window,
+                    # shared prefix rows included. A replay is then a
+                    # function of the request's tokens and position alone,
+                    # the same with or without prefix sharing, and the
+                    # same as a mid-decode window (_replay_window) after a
+                    # preemption's re-prefill.
+                    row = {"tokens": tokens[slot:slot + 1],
+                           "positions": positions[slot:slot + 1],
+                           "cache_len": cache_len[slot:slot + 1],
+                           "page_table": table[slot:slot + 1]}
+                    sl.replay = (pre_states, row, int(out_idx[slot]))
 
     def _noise(self, uid: int, tok_idx: int) -> torch.Tensor:
         """(num_uncertainty_samples, V) Eq. 11 noise of request ``uid``'s
@@ -646,20 +745,30 @@ class Engine:
                             self.cfg.vocab_size), generator=self._gen,
                            dtype=torch.float32, device=self.device)
 
-    def _route_current(self, decode_slots):
-        """Route every listed slot's CURRENT logits: one uncertainty pass
-        over the slot batch with each row's noise keyed by (request,
-        token index), one host read of the tokens and MI. Returns {slot:
-        (token, mi, decision)}."""
+    def _svi_noise(self, uid: int, tok_idx: int):
+        """The SVI second opinion's noise for request ``uid``'s token
+        ``tok_idx``: the escalation generator reseeded by
+        ``noise_seed(seed + 1, uid, tok_idx)`` (the samples draw from it in
+        turn), or the test hook's ``Context.eps`` callables."""
+        if self._svi_eps_override is not None:
+            return self._svi_eps_override(uid, tok_idx)
+        self._gen_esc.manual_seed(noise_seed(self.config.seed + 1, uid,
+                                             tok_idx))
+        return self._gen_esc
+
+    def _uncertainty(self, mean, var, keyed):
+        """One uncertainty pass over (B, V) logit moments: a (2, B) float64
+        tensor of (token, MI) per row on the device, row ``r``'s noise
+        keyed by ``keyed[r] = (uid, tok_idx)``; rows not in ``keyed`` get
+        zero noise and nobody reads them. The plain step and every column
+        of a speculative block call this at the same (B, V) shape."""
         n, v = self.config.num_uncertainty_samples, self.cfg.vocab_size
         zero = torch.zeros((n, v), dtype=torch.float32, device=self.device)
-        rows = {slot: self._noise(self._slots[slot].request.uid,
-                                  len(self._slots[slot].request.generated))
-                for slot in decode_slots}
+        rows = {slot: self._noise(*key) for slot, key in keyed.items()}
         eps = torch.stack([rows.get(s, zero)
                            for s in range(self.config.slots)], dim=1)
         out = uncertainty_decode(
-            self._lm_mean[:, None], self._lm_var[:, None], eps=eps,
+            mean[:, None], var[:, None], eps=eps,
             num_uncertainty_samples=n,
             mi_threshold=self.router.config.mi_abstain, greedy=True)
         tokens = out.token
@@ -668,29 +777,32 @@ class Engine:
             # after its noise draw, so it too is keyed per (request,
             # token).
             tokens = tokens.clone()
-            for slot in decode_slots:
-                req = self._slots[slot].request
-                self._gen.manual_seed(noise_seed(self.config.seed, req.uid,
-                                                 len(req.generated)))
+            for slot, (uid, tok_idx) in keyed.items():
+                self._gen.manual_seed(noise_seed(self.config.seed, uid,
+                                                 tok_idx))
                 row = uncertainty_decode(
-                    self._lm_mean[slot:slot + 1, None],
-                    self._lm_var[slot:slot + 1, None], self._gen,
-                    num_uncertainty_samples=n, greedy=False)
+                    mean[slot:slot + 1, None], var[slot:slot + 1, None],
+                    self._gen, num_uncertainty_samples=n, greedy=False)
                 tokens[slot] = row.token[0]
-        host = torch.stack((tokens.double(),
-                            out.mutual_info.double())).cpu().numpy()
-        resolved = {}
-        for slot in decode_slots:
-            tok, mi = int(host[0, slot]), float(host[1, slot])
-            decision = self.router.route(mi)
-            self.metrics.on_decision(mi, decision.value)
-            if decision is Decision.ESCALATE:
-                raise NotImplementedError(
-                    f"SVI escalation comes with {_LATER}")
-            resolved[slot] = (tok, mi, decision)
-        return resolved
+        return torch.stack((tokens.double(), out.mutual_info.double()))
+
+    def _route_current(self, decode_slots):
+        """Route every listed slot's CURRENT logits: one uncertainty pass
+        over the slot batch with each row's noise keyed by (request,
+        token index), one host read of the tokens and MI, and one SVI
+        resolution (batched, when paged) of the slots the router
+        escalates. Returns {slot: (token, mi, decision)}."""
+        keyed = {slot: (self._slots[slot].request.uid,
+                        len(self._slots[slot].request.generated))
+                 for slot in decode_slots}
+        host = self._uncertainty(self._lm_mean, self._lm_var,
+                                 keyed).cpu().numpy()
+        return self._resolve_escalations(decode_slots, host[0], host[1])
 
     def _route_and_decode(self, now: float) -> None:
+        if self.config.speculate_k:
+            self._route_and_decode_spec(now)
+            return
         decode_slots = [slot for slot, sl in enumerate(self._slots)
                         if sl is not None and sl.phase == "decode"]
         if not decode_slots:
@@ -700,7 +812,8 @@ class Engine:
         feed = np.zeros(self.config.slots, np.int32)
         active = np.zeros(self.config.slots, bool)
         for slot in decode_slots:
-            req = self._slots[slot].request
+            sl = self._slots[slot]
+            req = sl.request
             tok, mi, decision = resolved[slot]
             if self._tracer is not None:
                 self._tracer.emit(self._step_idx, "route", uid=req.uid,
@@ -722,6 +835,7 @@ class Engine:
             else:
                 feed[slot] = tok
                 active[slot] = True
+                sl.last_input = tok
 
         if not active.any():
             return
@@ -741,6 +855,13 @@ class Engine:
             if not active.any():
                 return
         positions = self.pool.positions.copy()
+        # The replay snapshot is a reference, not a copy: it stays valid
+        # only because every update to the pool's state makes new tensors
+        # (the cache inserts, write_slot, reset, copy-on-write, defrag and
+        # compaction are all out of place). An in-place write added to any
+        # of them would change this snapshot too and corrupt escalation
+        # replays without an error.
+        self._prev_states = self.pool.states
         args = (feed[:, None], positions[:, None], positions + active,
                 self._as_tensor(active, torch.bool), self.pool.states)
         if self.paged:
@@ -759,6 +880,378 @@ class Engine:
             self._tracer.emit(self._step_idx, "decode_step",
                               active=int(active.sum()))
         self.pool.positions[active] += 1
+        for slot in np.flatnonzero(active):
+            self._slots[slot].replay = None  # replay via _prev_states now
+
+    # -- uncertainty-speculative decoding ------------------------------------
+    def _route_and_decode_spec(self, now: float) -> None:
+        """The speculative decode round, replacing the one-token lockstep:
+
+        phase 0  slots whose current logits are FRESH (just prefilled or
+                 escalate-deferred) route them exactly like the plain
+                 engine — serve/abstain/escalate under the same keys — but
+                 a served token becomes the slot's ``pending`` head
+                 instead of a one-token feed;
+        phase 1  every slot holding a pending head drafts K-1 more tokens
+                 with the mean-only pass and the whole (head + drafts)
+                 block is verified by ONE chunked PFP pass; verified
+                 tokens are served greedily while the router says
+                 CONTINUE and the next draft matches.
+
+        Every served (token, mi) is keyed per (request uid, token index)
+        and reduced by the plain step's function at its shape, so the
+        served stream is the plain engine's — speculation only changes
+        how many full-PFP passes it takes to produce it."""
+        decode_slots = [slot for slot, sl in enumerate(self._slots)
+                        if sl is not None and sl.phase == "decode"]
+        if not decode_slots:
+            return
+        route_slots = [s for s in decode_slots
+                       if self._slots[s].pending is None]
+        if route_slots:
+            resolved = self._route_current(route_slots)
+            for slot in route_slots:
+                sl = self._slots[slot]
+                req = sl.request
+                tok, mi, decision = resolved[slot]
+                if self._tracer is not None:
+                    self._tracer.emit(self._step_idx, "route", uid=req.uid,
+                                      token=tok, mi=mi,
+                                      decision=decision.value,
+                                      tok_idx=len(req.generated))
+                if decision is Decision.ABSTAIN:
+                    req.mi_trace.append(mi)
+                    req.abstained = True
+                    self._finish(slot, "abstain", now)
+                    continue
+                req.generated.append(tok)
+                req.mi_trace.append(mi)
+                self.metrics.on_token()
+                if self.config.eos_id is not None and \
+                        tok == self.config.eos_id:
+                    self._finish(slot, "eos", now)
+                elif len(req.generated) >= req.max_new_tokens:
+                    self._finish(slot, "length", now)
+                else:
+                    sl.pending = tok
+        spec_slots = [s for s in decode_slots
+                      if self._slots[s] is not None
+                      and self._slots[s].pending is not None]
+        if spec_slots:
+            self._speculative_round(spec_slots, now)
+
+    def _speculative_round(self, spec_slots, now: float) -> None:
+        """Draft K-1 tokens per pending slot, verify the K-token block
+        with one chunked PFP pass, accept greedily."""
+        k = self.config.speculate_k
+        b = self.config.slots
+        # Per-slot block width: the pending head plus up to K-1 drafts,
+        # clipped so a fully-accepted block lands exactly on the request's
+        # generation budget (fed positions then never pass max_len - 1).
+        f_of = {}
+        for slot in spec_slots:
+            sl = self._slots[slot]
+            if sl is None:
+                continue  # preempted as a page victim below
+            req = sl.request
+            f = min(k, req.max_new_tokens - len(req.generated))
+            pos = int(self.pool.positions[slot])
+            if not self._ensure_pages(slot, pos + f) and \
+                    not self._make_room(slot, pos + f):
+                self._preempt(slot)
+                continue
+            f_of[slot] = f
+        live = [s for s in spec_slots
+                if self._slots[s] is not None and s in f_of]
+        if not live:
+            return
+
+        head = np.zeros(b, np.int64)
+        pos0 = np.zeros(b, np.int64)
+        for slot in live:
+            head[slot] = self._slots[slot].pending
+            pos0[slot] = self.pool.positions[slot]
+        drafts = np.zeros((b, max(k - 1, 0)), np.int64)
+        if k > 1:
+            drafts = self._draft_steps(
+                self._as_tensor(head), self._as_tensor(pos0),
+                self.pool.states, self.pool.device_table()).cpu().numpy()
+            self.metrics.on_draft_pass(k - 1)
+            if self._tracer is not None:
+                self._tracer.emit(self._step_idx, "spec_draft",
+                                  slots=len(live), drafted=k - 1)
+        if self._draft_override is not None:
+            drafts = np.asarray(self._draft_override(drafts))
+
+        # ONE chunked PFP verify pass over every block. Pad rows (beyond a
+        # slot's width, or whole rows for slots not speculating) carry
+        # positions at/past cache_len or an all-trash table row, so the
+        # pool is only written through live blocks' own pages.
+        tokens = np.zeros((b, k), np.int64)
+        positions = np.tile(np.arange(k, dtype=np.int64), (b, 1))
+        cache_len = np.ones(b, np.int64)
+        write_start = np.zeros(b, np.int64)
+        vtable = np.zeros_like(self.pool.page_table)
+        fed_of = {}
+        for slot in live:
+            sl = self._slots[slot]
+            f = f_of[slot]
+            fed = [int(head[slot])] + [int(t) for t in drafts[slot, :f - 1]]
+            fed_of[slot] = fed
+            tokens[slot, :f] = fed
+            positions[slot] = pos0[slot] + np.arange(k, dtype=np.int64)
+            cache_len[slot] = pos0[slot] + f
+            write_start[slot] = sl.write_start
+            vtable[slot] = self.pool.page_table[slot]
+        inputs = {"tokens": tokens, "positions": positions,
+                  "cache_len": cache_len, "write_start": write_start,
+                  "page_table": vtable}
+        vmean, vvar, self.pool.states = self._verify_step(inputs,
+                                                          self.pool.states)
+        self.metrics.on_verify_pass()
+        # The block's (token, MI): column i runs the plain step's
+        # uncertainty pass at its (B, V) shape, row b keyed by (uid,
+        # tok0 + i) — one host read for the block.
+        columns = []
+        for i in range(k):
+            keyed = {slot: (self._slots[slot].request.uid,
+                            len(self._slots[slot].request.generated) + i)
+                     for slot in live if i < f_of[slot]}
+            columns.append(self._uncertainty(vmean[:, i].contiguous(),
+                                             vvar[:, i].contiguous(), keyed))
+        host = torch.stack(columns, dim=2).cpu().numpy()   # (2, B, K)
+        tok_np, mi_np = host[0], host[1]
+
+        drafted_total = accepted_total = 0
+        for slot in live:
+            sl = self._slots[slot]
+            req = sl.request
+            f = f_of[slot]
+            fed = fed_of[slot]
+            a = f                    # fed rows that stay valid
+            finish_reason = None
+            defer_row = None
+            for i in range(f):
+                mi = float(mi_np[slot, i])
+                tok = int(tok_np[slot, i])
+                decision = self.router.route(mi)
+                if decision is not Decision.ESCALATE:
+                    # An ESCALATE row is NOT counted here: it re-routes
+                    # next step in phase 0 under the same (uid, token)
+                    # key, and _resolve_escalations counts it there —
+                    # band totals match the plain engine's exactly.
+                    self.metrics.on_decision(mi, decision.value)
+                if self._tracer is not None:
+                    self._tracer.emit(self._step_idx, "route",
+                                      uid=req.uid, token=tok, mi=mi,
+                                      decision=decision.value,
+                                      tok_idx=len(req.generated),
+                                      speculative=True)
+                if decision is Decision.ESCALATE:
+                    # Stop UNSERVED: row i's logits become the slot's
+                    # current logits and next step's phase 0 — same
+                    # (uid, token) key, same MI — escalates them.
+                    a = i + 1
+                    sl.pending = None
+                    sl.last_input = fed[i]
+                    defer_row = i
+                    break
+                if decision is Decision.ABSTAIN:
+                    req.mi_trace.append(mi)
+                    req.abstained = True
+                    a = i + 1
+                    finish_reason = "abstain"
+                    break
+                req.generated.append(tok)
+                req.mi_trace.append(mi)
+                self.metrics.on_token()
+                if self.config.eos_id is not None and \
+                        tok == self.config.eos_id:
+                    a = i + 1
+                    finish_reason = "eos"
+                    break
+                if len(req.generated) >= req.max_new_tokens:
+                    a = i + 1
+                    finish_reason = "length"
+                    break
+                if i + 1 < f and tok == fed[i + 1]:
+                    continue         # draft confirmed; row i+1 stays valid
+                # Draft mismatch (or block exhausted): the verified token
+                # is served but unfed — it heads the next block. Rows past
+                # i are stale; they sit masked past ``positions`` until
+                # re-fed (rollback-to-trash, no device work).
+                a = i + 1
+                sl.pending = tok
+                sl.last_input = fed[i]
+                break
+            drafted_total += f - 1
+            accepted_total += a - 1
+            self.pool.positions[slot] = int(pos0[slot]) + a
+            sl.replay = None
+            if defer_row is not None:
+                row = self._as_tensor([slot])
+                self._lm_mean = self._lm_mean.index_copy(
+                    0, row, vmean[slot:slot + 1, defer_row])
+                self._lm_var = self._lm_var.index_copy(
+                    0, row, vvar[slot:slot + 1, defer_row])
+            if finish_reason is not None:
+                self._finish(slot, finish_reason, now)
+        self.metrics.on_spec_round(drafted_total, accepted_total)
+        if self._tracer is not None:
+            self._tracer.emit(self._step_idx, "spec_verify",
+                              slots=len(live), drafted=drafted_total,
+                              accepted=accepted_total)
+
+    # -- escalation ----------------------------------------------------------
+    def _resolve_escalations(self, decode_slots, tok_np, mi_np):
+        """Route each slot's (token, MI); resolve every ESCALATE with the
+        SVI second opinion — one call for all of them on paged engines
+        (``batch_escalations``), a call per slot otherwise. Returns
+        {slot: (token, mi, decision)} with ESCALATE already replaced by
+        the second opinion's CONTINUE/ABSTAIN."""
+        out = {}
+        esc = []
+        for slot in decode_slots:
+            mi = float(mi_np[slot])
+            tok = int(tok_np[slot])
+            decision = self.router.route(mi)
+            self.metrics.on_decision(mi, decision.value)
+            if decision is Decision.ESCALATE:
+                esc.append(slot)
+            else:
+                out[slot] = (tok, mi, decision)
+        if esc:
+            if self.paged and self.config.batch_escalations:
+                out.update(self._escalate_batched(esc, tok_np, mi_np))
+            else:
+                for slot in esc:
+                    out[slot] = self._escalate(slot, self._slots[slot],
+                                               float(mi_np[slot]),
+                                               int(tok_np[slot]))
+        return out
+
+    def _escalate_batched(self, esc_slots, pfp_tok_np, pfp_mi_np):
+        """ONE call resolving every escalating slot's second opinion. Every
+        row replays the inputs that produced its current logits (the
+        stored prefill chunk, or the trailing fed-token window) against
+        the CURRENT pool: pages are refcounted and copy-on-write, so no
+        other slot can have touched this slot's rows, and the replay
+        rewrites its whole window out of place before attending and masks
+        everything past cache_len — bit for bit the sequential replay
+        against the pre-step snapshot. Returns {slot: (tok, mi,
+        decision)}."""
+        b = self.config.slots
+        rows = {}
+        uids = np.zeros(b, np.int64)
+        tok_idx = np.zeros(b, np.int64)
+        out_idx = np.zeros(b, np.int64)
+        for slot in esc_slots:
+            sl = self._slots[slot]
+            self.metrics.on_escalation()
+            sl.request.escalated += 1
+            uids[slot] = sl.request.uid
+            tok_idx[slot] = len(sl.request.generated)
+            rows[slot], out_idx[slot] = self._replay_inputs(slot, sl)
+        stoks, smis = self.router.second_opinion_batched(
+            self.model, rows, self.pool.states, self._svi_noise, uids,
+            tok_idx, out_idx)
+        self.metrics.on_svi_pass(len(esc_slots))
+        host = torch.stack((stoks.double(), smis.double())).cpu().numpy()
+        return {slot: self._svi_outcome(
+                    self._slots[slot], int(pfp_tok_np[slot]),
+                    float(pfp_mi_np[slot]), int(host[0, slot]),
+                    float(host[1, slot]), batched=True)
+                for slot in esc_slots}
+
+    def _svi_outcome(self, sl: _Slot, pfp_tok: int, pfp_mi: float,
+                     stok: int, mi: float, *, batched: bool):
+        """The final (token, mi, decision) of one second opinion: serve
+        the SVI token, or abstain when the sampled ensemble is still
+        uncertain; records its telemetry and trace event."""
+        decision = (Decision.ABSTAIN if mi >= self.router.svi_mi_abstain
+                    else Decision.CONTINUE)
+        self.metrics.on_escalation_outcome(pfp_mi, pfp_tok, mi, stok,
+                                           decision.value)
+        if self._tracer is not None:
+            self._tracer.emit(self._step_idx, "escalate", uid=sl.request.uid,
+                              pfp_mi=pfp_mi, svi_mi=mi,
+                              agree=pfp_tok == stok,
+                              outcome=decision.value, batched=batched)
+        return stok, mi, decision
+
+    def _replay_window(self, slot: int, sl: _Slot):
+        """The SVI replay window of a mid-decode escalation: the last
+        ``prefill_chunk`` fed tokens ending at the slot's position
+        (right-padded past cache_len while fewer have been fed) — the
+        SAME shape as a stored prefill-chunk replay, so every replay of
+        an attention model runs at one (1, C) shape. MoE models replay the
+        one last token, as the reference does (their expert capacity
+        follows the pass's token count). Returns (tokens (1, w), positions
+        (1, w), cache_len (1,), out_idx)."""
+        pos = int(self.pool.positions[slot])
+        c = (self.scheduler.config.prefill_chunk
+             if all(k == "attn" for k in self.cfg.pattern) else 1)
+        lo = max(0, pos - c)
+        window = self._request_tokens(sl.request)[lo:pos]
+        tokens = np.zeros(c, np.int64)
+        tokens[:len(window)] = window
+        positions = lo + np.arange(c, dtype=np.int64)
+        return (tokens[None], positions[None],
+                np.asarray([pos], np.int64), len(window) - 1)
+
+    def _replay_inputs(self, slot: int, sl: _Slot):
+        """(inputs, out_idx) reproducing the pass that made the slot's
+        current logits: the stored chunk inputs right after prefill, else
+        the trailing fed-token window (with the slot's page-table row on
+        a paged engine)."""
+        if sl.replay is not None:
+            _, inputs, out_idx = sl.replay
+            return inputs, out_idx
+        tokens, positions, cache_len, out_idx = self._replay_window(slot, sl)
+        inputs = {"tokens": tokens, "positions": positions,
+                  "cache_len": cache_len}
+        if self.paged:
+            inputs["page_table"] = self.pool.device_table(
+                np.asarray([slot], np.int64))
+        return inputs, out_idx
+
+    def _replay_for(self, slot: int, sl: _Slot):
+        """(state, inputs, out_idx) reproducing the pass that made the
+        slot's current logits: the pre-chunk state + chunk inputs right
+        after prefill, else the trailing fed-token window against the
+        pre-decode pool. Paged engines replay against the WHOLE page pool
+        (there is no per-slot state to extract), the slot's page-table row
+        doing the selection."""
+        if sl.replay is not None:
+            return sl.replay
+        inputs, out_idx = self._replay_inputs(slot, sl)
+        if self.paged:
+            # Speculative mode replays against the CURRENT pool: the
+            # verify pass writes several rows per step, so no pre-step
+            # snapshot exists. The replay rewrites its whole window out of
+            # place before attending and masks everything past cache_len,
+            # so the two states give the same bits.
+            if self.config.speculate_k:
+                return self.pool.states, inputs, out_idx
+            return self._prev_states, inputs, out_idx
+        sub = lm.take_decode_slots(self._prev_states, [slot])
+        return sub, inputs, out_idx
+
+    def _escalate(self, slot: int, sl: _Slot, pfp_mi: float, pfp_tok: int):
+        """SVI second opinion for one grey-zone token: the final (token,
+        mi, decision) of :meth:`_svi_outcome`."""
+        self.metrics.on_escalation()
+        sl.request.escalated += 1
+        sub, inputs, out_idx = self._replay_for(slot, sl)
+        # keyed per (request, token), like the PFP uncertainty sampling:
+        # escalated second opinions are schedule-invariant too
+        noise = self._svi_noise(sl.request.uid, len(sl.request.generated))
+        stok, smi = self.router.second_opinion(self.model, inputs, sub,
+                                               noise, out_idx=out_idx)
+        self.metrics.on_svi_pass(1)
+        host = torch.stack((stok.double(), smi.double())).cpu().numpy()
+        return self._svi_outcome(sl, pfp_tok, pfp_mi, int(host[0]),
+                                 float(host[1]), batched=False)
 
     def _finish(self, slot: int, reason: str, now: float) -> None:
         sl = self._slots[slot]
@@ -843,15 +1336,19 @@ class Engine:
 
     def defrag(self) -> None:
         """Pack live pages to the pool front (the prefix index follows
-        through the pool's remap listener)."""
+        through the pool's remap listener); keep the escalation-replay
+        snapshot page-aligned with the rewritten tables."""
         if not self.paged:
             raise ValueError("defrag() applies to the paged engine; the "
                              "contiguous engine compacts slots instead")
-        if self.pool.defrag() is None:
+        perm = self.pool.defrag()
+        if perm is None:
             return
         self.metrics.on_defrag()
         if self._tracer is not None:
             self._tracer.emit(self._step_idx, "defrag")
+        if self._prev_states is not None:
+            self._prev_states = lm.take_decode_slots(self._prev_states, perm)
 
     def compact(self) -> None:
         """Pack live slots to the front; remap host-side slot records and
@@ -871,3 +1368,7 @@ class Engine:
         index = self._as_tensor(perm)
         self._lm_mean = self._lm_mean[index]
         self._lm_var = self._lm_var[index]
+        if self._prev_states is not None:
+            # keep the escalation-replay snapshot slot-aligned (free rows
+            # may duplicate — replay only ever reads live slots)
+            self._prev_states = lm.take_decode_slots(self._prev_states, perm)

@@ -13,10 +13,11 @@ two outputs are a function of its query, its valid keys, its position,
 heads a KV head, as granite-8b, and G 1, as deepseek-moe-16b and
 musicgen-medium, at every head_dim of ``HEAD_DIMS``; a cache of 640 keys: 5
 segments) come out ``torch.equal`` to those of
-one Tq 512 call when run in chunks of 128, at Tq 3 and Tq 1; inside
-batches of 4 and 32 slots (one of them without keys, which gives 0);
-through pages of 1, 16 and 24 rows in shuffled order; and under every
-block size and cluster a plan may take (``plan=``), with and without a
+one Tq 512 call when run in chunks of 128, at Tq 4, 3, 2 (a speculative
+verify block of 4 slots) and Tq 1; inside batches of 4 and 32 slots (one
+of them without keys, which gives 0); through pages of 1, 16 and 24
+rows in shuffled order; and under every block size and cluster a plan
+may take (``plan=``), with and without a
 window. The Tq 512 call and the plans of 8 ranks (every segment fold) are
 also held to the plain version at ``ATT_TOL``. The library's block size
 and occupancy match the plan's model of them. No JAX: ``python -m pytest
@@ -109,7 +110,7 @@ def test_every_plan_is_instantiated():
                                               MAX_CLUSTER)
     for b in (1, 4, 32):
         for h, hkv in ((32, 8), (16, 16), (4, 2)):
-            for tq in (1, 3, 128, 512):
+            for tq in (1, 2, 3, 4, 128, 512):
                 for capacity in (40, 640, 1024, 4096):
                     plan = attention_plan(b, h, hkv, tq, capacity, 128)
                     assert plan.block_rows in blocks
@@ -337,6 +338,10 @@ RUNS = {
     "tq3": ([(N0, 3), (N0 + 250, 3), (N0 + N - 3, 3)], 1, 0),
     "tq1": ([(p, 1) for p in (N0, N0 + 39, N0 + 40, N0 + 167, N0 + N - 1)],
             1, 0),
+    # A speculative engine's verify pass: K = 2 keeps the 8-row block at
+    # G 4, K = 4 takes the 64-row one; slot 2 of a 4-slot batch.
+    "tq2": ([(N0, 2), (N0 + 127, 2), (N0 + 255, 2), (N0 + N - 2, 2)], 4, 2),
+    "tq4": ([(N0, 4), (N0 + 126, 4), (N0 + 300, 4), (N0 + N - 4, 4)], 4, 2),
     "b4": ([(N0 + 300, 1), (N0 + 128, 128)], 4, 2),
     "b32": ([(N0 + 200, 1), (N0 + N - 1, 1)], 32, 17),
 }
@@ -358,10 +363,11 @@ def test_rows_bit_for_bit_across_tq_and_batch(cuda, slot, whole, run,
 @pytest.mark.parametrize("window", WINDOWS, ids=["full", "window"])
 @pytest.mark.parametrize("ps", [1, 16, 24])
 def test_paged_rows_bit_for_bit(cuda, slot, whole, ps, window):
-    """Shuffled pages of 1, 16 and 24 rows: a decode step of 4 slots and a
-    chunk of 128 rows of one, as the contiguous cache gives them."""
-    for q_start, tq, b, at in ((N0 + 300, 1, 4, 2), (N0 + 256, 128, 1, 0),
-                               (N0 + N - 1, 1, 1, 0)):
+    """Shuffled pages of 1, 16 and 24 rows: a decode step of 4 slots, a
+    4-token verify block of 4 slots and a chunk of 128 rows of one, as the
+    contiguous cache gives them."""
+    for q_start, tq, b, at in ((N0 + 300, 1, 4, 2), (N0 + 300, 4, 4, 2),
+                               (N0 + 256, 128, 1, 0), (N0 + N - 1, 1, 1, 0)):
         got = _run(slot, cuda, q_start, tq, b=b, at=at, window=window, ps=ps,
                    seed=ps)
         _assert_rows(got, whole[window], q_start,

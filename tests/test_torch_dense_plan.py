@@ -1,9 +1,10 @@
 """The dense kernel's launch plan and the MoE expert-row counts.
 
 On the CPU: ``kernels/pfp_dense.py``'s ``dense_plan`` (the K split depends
-only on (K, N, mode); no split at any LM shape; TM 1 for M <= 16; the
-128 x 128 wide tile exactly where it fills the card; every plan it
-gives is one ``csrc/pfp_dense.cu`` instantiates), the batched
+only on (K, N, mode); no split at an LM shape up to K 4096, 4 or 8
+ranks past it; TM 1 for M <= 16; the 128 x 128 wide tile exactly where
+it fills the card; every plan it gives is one ``csrc/pfp_dense.cu``
+instantiates), the batched
 plain versions with ``rows=``, the counts ``nn/moe.py`` passes to the
 expert MLP, and ``moe_apply`` with and without them, bit for bit.
 
@@ -11,7 +12,8 @@ The tests marked ``gpu`` hold the kernel on the card: against its plain
 version at the paper's shapes at batch 10, 100 and 1024, at ragged K on
 both sides of each split boundary, at granite-8b's decode shapes and at
 ragged large-regime shapes under both wide tiles (single, and batched
-with ``rows``); a row's bits independent of M; the Eq. 12 cancellation
+with ``rows``); a row's bits independent of M; Eq. 12 at long K within
+an fp64 bound that TF32 inputs break; the Eq. 12 cancellation
 check at a split shape; the batched kernel with ``rows``; and a plan the
 kernel did not instantiate refused. They skip where there is no card:
 ``python -m pytest -m gpu tests/test_torch_dense_plan.py``.
@@ -31,7 +33,7 @@ from repro_torch.kernels.pfp_dense import (FILL_LARGE, MODE_FIRST_LAYER,
                                            MODE_SRM, MODE_VAR, RING_STAGES,
                                            TILES, WIDE_STAGES, DensePlan,
                                            dense_plan, pfp_dense_cuda,
-                                           split_k, thread_rows)
+                                           split_k, thread_rows, walks_split)
 from repro_torch.kernels.pfp_moe import pfp_dense_batched_cuda
 from repro_torch.nn import moe
 from repro_torch.nn.module import Context
@@ -81,7 +83,8 @@ def test_tiles_are_the_kernels_instantiations():
 @pytest.mark.parametrize("n", [6, 10, 16, 84, 100, 120, 128, 129, 1408,
                                4096])
 def test_split_depends_only_on_k_n_mode(mode, n):
-    for k in (0, 1, 17, 25, 84, 127, 128, 129, 150, 783, 784, 785, 4096):
+    for k in (0, 1, 17, 25, 84, 127, 128, 129, 150, 783, 784, 785, 4096,
+              4097, 6144, 14336, 20000):
         want = split_k(k, n, mode)
         for m in (1, 4, 6, 16, 17, 100, 1024, 200704):
             for e in (1, 64):
@@ -101,9 +104,26 @@ def test_split_boundaries():
         assert split_k(k, 63) == split_k(k, 129) == split_k(k, 16) == 1
 
 
+def test_long_k_split_boundaries():
+    """N > 128: no split up to K 4096, then the fewest of 4 or 8 ranks
+    that leave each at most 2048 of K (8 past 16384), every rank whole
+    tiles of 16 and none empty."""
+    ks = (4096, 4097, 5120, 6144, 8192, 8193, 10944, 14336, 16384, 16385,
+          40000)
+    for n in (129, 4096, 49152):
+        assert [split_k(k, n) for k in ks] == [1, 4, 4, 4, 4, 8, 8, 8, 8,
+                                               8, 8]
+    for k in ks:
+        split = split_k(k, 4096)
+        chunk = -(-(-(-k // split)) // 16) * 16
+        assert (split - 1) * chunk < k <= split * chunk   # no empty rank
+        assert split == 1 or chunk <= 2048 or split == 8
+
+
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_no_split_at_any_lm_shape(arch):
-    """N > 128 everywhere, so S = 1: prefill and decode rows agree bit for
+    """N > 128 everywhere: no split up to K 4096, and past it the same
+    split at every M and E, so prefill and decode rows agree bit for
     bit."""
     cfg = get_config(arch)
     experts = max(cfg.num_experts, 1)
@@ -112,7 +132,8 @@ def test_no_split_at_any_lm_shape(arch):
         for m in (1, 4, 6, 16, 240, 2048):
             for e in {1, experts}:
                 plan = dense_plan(m, n, k, e)
-                assert plan.split == 1, (arch, m, k, n, e)
+                assert plan.split == split_k(k, n), (arch, m, k, n, e)
+                assert (plan.split == 1) == (k <= 4096), (arch, k, n)
                 assert plan[1:] in TILES
                 assert plan.stages > 1   # the cp.async ring, every regime
 
@@ -123,13 +144,14 @@ def test_wide_tile_exactly_where_it_fills_the_card(arch):
     (2048), for one problem and for every expert: 128 x 128 (8 x 8 outputs
     a thread) exactly where that gives FILL_LARGE blocks (5/6 of the SMs);
     elsewhere the first smaller tile that does, or the one with the most
-    blocks."""
+    blocks. A split of K is walked in one block, so it adds none."""
     cfg = get_config(arch)
     for k, n in lm_dense_kn(cfg):
         for m in (128, 240, 2048):
             for e in {1, max(cfg.num_experts, 1)}:
                 plan = dense_plan(m, n, k, e)
-                assert plan.split == 1 and plan.stages == (
+                assert walks_split(m, n)
+                assert plan.split == split_k(k, n) and plan.stages == (
                     WIDE_STAGES if plan.tn == 8 else RING_STAGES)
                 rows = plan.tm * thread_rows(plan.bn, plan.tn)
                 blocks = -(-m // rows) * -(-n // plan.bn) * e
@@ -142,14 +164,17 @@ def test_wide_tile_exactly_where_it_fills_the_card(arch):
 def test_wide_tiles_at_the_main_paths():
     """granite's forward: every dense at 128 x 128; its prefill chunks of
     128 rows: 128 x 128 where N is 14336 or more, the ring tiles where it
-    is 1024 or 4096 (16 x 64 and 64 x 64, 128 blocks each); deepseek's
-    experts at 128 x 128."""
+    is 1024 or 4096 (16 x 64 and 64 x 64, 128 blocks each); the down
+    projection's K 14336 in 8 ranges; deepseek's experts at 128 x 128."""
     wide = DensePlan(1, 128, 8, 8, 2)
     chunk = {1024: DensePlan(1, 64, 4, 1, 4), 4096: DensePlan(1, 64, 4, 4, 4)}
     for k, n in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
                  (4096, 49152)):
-        assert dense_plan(2048, n, k) == wide
-        assert dense_plan(128, n, k) == chunk.get(n, wide)
+        split = split_k(k, n)
+        assert dense_plan(2048, n, k) == wide._replace(split=split)
+        assert dense_plan(128, n, k) == chunk.get(n, wide)._replace(
+            split=split)
+    assert split_k(14336, 4096) == 8
     assert dense_plan(256, 4096, 4096) == DensePlan(1, 128, 8, 4, 2)
     assert dense_plan(240, 1408, 2048, 64) == wide
     assert dense_plan(240, 2048, 1408, 64) == wide
@@ -369,12 +394,12 @@ def test_dense_at_granite_decode_shapes_on_card(cuda, form, n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("k,n", [(784, 120), (150, 16), (2048, 1408),
-                                 (4096, 1024), (14336, 4096)])
+                                 (4096, 1024), (14336, 4096), (6144, 1536)])
 @pytest.mark.parametrize("form", FORMS)
 def test_row_bits_independent_of_m_on_card(cuda, form, k, n):
     """The first 6 rows, bit for bit, at M = 6, 100, 128, 256 and 1024 (up
-    to four plans for the same weights; at (14336, 4096) the decode tile,
-    the (64, 4) ring tile at TM 4, 64 x 128 and 128 x 128)."""
+    to four plans for the same weights; at (14336, 4096), K over 8 ranks,
+    and at (6144, 1536), over 4: the decode tile and the wide tiles)."""
     mode = dict(zip(FORMS, MODES))[form]
     big = _operands(1024, k, n, 5, form, cuda)
     first = None
@@ -387,7 +412,12 @@ def test_row_bits_independent_of_m_on_card(cuda, form, k, n):
 
 
 LARGE_RAGGED = ((300, 4100, 1000), (2049, 4096, 1031))
-WIDE_PLANS = (DensePlan(1, 128, 8, 8, 2), DensePlan(1, 128, 8, 4, 2))
+
+
+def wide_plans(k, n):
+    """Both wide tiles at the split of (K, N): 4 ranks at K 4100."""
+    return (DensePlan(split_k(k, n), 128, 8, 8, 2),
+            DensePlan(split_k(k, n), 128, 8, 4, 2))
 
 
 @pytest.mark.gpu
@@ -400,7 +430,7 @@ def test_large_regime_ragged_on_card(cuda, form, shape):
     mode = dict(zip(FORMS, MODES))[form]
     args = _operands(m, k, n, sum(shape), form, cuda)
     want = _check_dense(form, args)
-    for plan in WIDE_PLANS:
+    for plan in wide_plans(k, n):
         got = pfp_dense_cuda(*args, mode=mode, plan=plan)
         assert all(torch.equal(g, w) for g, w in zip(got, want)), plan
 
@@ -423,7 +453,7 @@ def test_large_regime_batched_rows_on_card(cuda, form, shape):
     args[:2] = [torch.where(keep, a, 0.0) for a in args[:2]]
     rows = rows.to(cuda)
     want = _plain(form, args, rows)
-    for plan in WIDE_PLANS:
+    for plan in wide_plans(k, n):
         got = pfp_dense_batched_cuda(*args, mode=mode, rows=rows, plan=plan)
         torch.cuda.synchronize()
         for gt, w in zip(got, want):
@@ -452,6 +482,32 @@ def test_eq12_cancellation_at_a_split_shape_on_card(cuda):
     err_k = float((var_k.double() - var_64).abs().max())
     err_p = float((var_p.double() - var_64).abs().max())
     assert err_k <= 4 * err_p, (err_k, err_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(16, 14336, 4096), (4, 6144, 1536),
+                                   (128, 14336, 4096)])
+def test_long_k_within_fp64_bound_on_card(cuda, shape):
+    """Eq. 12 where K is split: mean and variance within u sqrt(K)
+    sum|products| of fp64 (u = 2^-24), a bound the same product on
+    operands rounded to TF32 exceeds."""
+    m, k, n = shape
+    assert dense_plan(m, n, k).split > 1
+    args = _operands(m, k, n, 3, "srm", cuda)
+    tf32 = []
+    for a in args:
+        i = a.view(torch.int32)
+        i = (i + 0xFFF + ((i >> 13) & 1)) & ~0x1FFF
+        tf32.append(i.view(torch.float32))
+    mx, sx, mw, sw = (a.double() for a in args)
+    exact = (mx @ mw, sx @ sw - (mx * mx) @ (mw * mw))
+    unit = 2.0 ** -24 * k ** 0.5
+    bound = (unit * (mx.abs() @ mw.abs()),
+             unit * (sx @ sw + (mx * mx) @ (mw * mw)))
+    for out, within in ((pfp_dense_cuda(*args, mode=MODE_SRM), True),
+                        (ref.pfp_dense_ref(*tf32), False)):
+        for o, x, b in zip(out, exact, bound):
+            assert bool(((o.double() - x).abs() <= b).all()) == within
 
 
 @pytest.mark.gpu
@@ -488,7 +544,7 @@ def test_plan_not_instantiated_raises_on_card(cuda):
     args = _operands(4, 64, 256, 0, "srm", cuda)
     for plan in (DensePlan(1, 64, 4, 2, 1), DensePlan(2, 64, 4, 1, 1),
                  DensePlan(9, 128, 4, 1, 4), DensePlan(1, 128, 4, 1, 3),
-                 DensePlan(1, 64, 4, 4, 1), DensePlan(2, 128, 8, 8, 2),
+                 DensePlan(1, 64, 4, 4, 1), DensePlan(0, 128, 8, 8, 2),
                  DensePlan(1, 128, 8, 8, 4)):
         with pytest.raises(RuntimeError, match="invalid argument"):
             pfp_dense_cuda(*args, mode=MODE_SRM, plan=plan)

@@ -563,10 +563,9 @@ def test_engine_summary_and_exports(port_model):
 # ---------------------------------------------------------------------------
 def test_refusals(port_model, monkeypatch):
     cfg, model = port_model
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        UncertaintyRouter(cfg, RouterConfig())
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        EngineConfig(speculate_k=2)
+    # Speculation needs the paged pool, as in the reference.
+    with pytest.raises(ValueError, match="paged"):
+        _engine(port_model, speculate_k=2)
     with pytest.raises(ValueError):
         EngineConfig(speculate_k=-1)
     with pytest.raises(ValueError, match="prefix_sharing"):
@@ -588,11 +587,13 @@ def test_refusals(port_model, monkeypatch):
         _engine(port_model).defrag()
     with pytest.raises(ValueError, match="compaction"):
         _engine(port_model, page_size=4).compact()
-    # Defaults: the reference's thresholds, with escalation off.
+    # Defaults: the reference's router, escalating the grey zone with 8
+    # SVI samples.
     eng = Engine(cfg, model, EngineConfig(), device="cpu")
-    assert eng.router.config.escalate_samples == 0
+    assert eng.router.config.escalate_samples == 8
     assert eng.router.route(0.1) is Decision.CONTINUE
-    assert eng.router.route(1.0) is Decision.ABSTAIN
+    assert eng.router.route(1.0) is Decision.ESCALATE
+    assert eng.router.route(2.0) is Decision.ABSTAIN
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(cfg, model, EngineConfig())

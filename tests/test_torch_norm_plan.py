@@ -286,12 +286,14 @@ def test_row_bits_do_not_depend_on_the_rows(cuda, d, norm, rep):
 @pytest.mark.parametrize("rep", ["var", "srm"])
 @pytest.mark.parametrize("norm", NORMS)
 @pytest.mark.parametrize("m,k", [(33, 1536), (4, 2048), (9, 333),
-                                 (250, 4096), (4, 5120)])
+                                 (250, 4096), (4, 5120), (250, 5120)])
 def test_fused_norm_pass_is_the_norm_kernel_and_to_srm(cuda, m, k, norm,
                                                        rep):
     """The fused unit, whose norm pass runs the norm kernel's plan and
     norm_row, against the unfused kernel chain (norm kernel, to_srm, dense,
-    activation), bit for bit at every width's plan."""
+    activation), bit for bit at every width's plan; at K 5120 both split
+    K in 4 (the fused unit over a cluster, the chain's large regime in
+    one block in turn)."""
     from repro_torch.tuning.measure import unfused_chain
     mu, var = _pair((m, k), k + m)
     second = var if rep == "var" else var + mu * mu

@@ -82,7 +82,10 @@ parent, change, change, parent::
 
 ``--only attention`` times rows 9-11 and the two decode steps alone;
 ``--only act_pool`` rows 3 and 4, the floor and the CNN forwards;
-``--only norms`` rows 6-8 and the floor (about a minute a tree).
+``--only norms`` rows 6-8 and the floor (about a minute a tree);
+``--only dense`` row 1 at granite-8b's decode (4, K, N), verify (16, K, N),
+chunk and forward shapes and at musicgen-medium's K-6144 calls (with each
+call's plan), row 2 at the large shapes, and the two decode steps.
 
 A tree is a directory holding ``src/repro_torch`` (``git archive <rev>
 src/repro_torch | tar -x -C <dir>``). The rows go to stdout and, in full,
@@ -119,6 +122,10 @@ MODES = ("srm", "first", "var")
 LM_FORWARD = ((2048, 4096, 4096), (2048, 4096, 1024), (2048, 4096, 14336),
               (2048, 14336, 4096), (2048, 4096, 49152))
 LM_CHUNK = tuple((128, k, n) for _, k, n in LM_FORWARD)
+# A verify pass of 4 slots x 4 tokens; musicgen-medium's calls at K 6144
+# (its down projection) at a decode step, a chunk and a forward.
+LM_VERIFY = tuple((16, k, n) for _, k, n in LM_DECODE)
+AUDIO_LONG_K = ((4, 6144, 1536), (128, 6144, 1536), (2048, 6144, 1536))
 MOE_LARGE = (MOE_FORWARD, (64, 240, 1408, 2048))
 LARGE_MODES = ("srm", "var")
 REG_KERNELS = ("pfp_norm_kernel", "pfp_norm_dense_act_kernel",
@@ -234,6 +241,29 @@ def _small_regime(ops, draw):
         timed(f"dense_batched {MOE_DECODE} 24 experts",
               lambda: ops.pfp_dense_batched(xa, xb, wa, wb, rows=held))
     return rows, digests
+
+
+def _dense_lm(ops, dev):
+    """Row 1 (Eq. 12) at granite-8b's decode and verify shapes and at
+    musicgen-medium's K-6144 calls: (times, digests, plans). Operands come
+    from a generator seeded by the shape, so every tree sees the same
+    ones."""
+    import torch
+    from repro_torch.kernels.pfp_dense import dense_plan
+    rows, digests, plans = {}, {}, {}
+    for shape in LM_DECODE + LM_VERIFY + AUDIO_LONG_K:
+        g = torch.Generator(device=dev).manual_seed(sum(shape))
+        m, k, n = shape
+        xa = torch.randn((m, k), generator=g, device=dev)
+        xb = torch.randn((m, k), generator=g, device=dev).abs()
+        wa = 0.1 * torch.randn((k, n), generator=g, device=dev)
+        wb = 0.1 * torch.randn((k, n), generator=g, device=dev).abs()
+        name = f"dense srm {shape}"
+        rows[name] = _device_ms(lambda: ops.pfp_dense(xa, xb, wa, wb))
+        digests[name] = _digest(ops.pfp_dense(xa, xb, wa, wb))
+        plans[name] = tuple(dense_plan(m, n, k))
+        del xa, xb, wa, wb
+    return rows, digests, plans
 
 
 def _large_regime(ops, dev):
@@ -651,13 +681,19 @@ def child(tree, only=None):
         rows.update(large)
         digests.update(large_digests)
     plans = {}
+    if only == "dense":
+        rows, digests, plans = _dense_lm(ops, dev)
+        large, large_digests = _large_regime(ops, dev)
+        rows.update(large)
+        digests.update(large_digests)
+        torch.cuda.empty_cache()
     if only in (None, "attention"):
         att, att_digests, plans = _attention(ops, dev)
         rows.update(att)
         digests.update(att_digests)
         torch.cuda.empty_cache()
     if only != "norms":
-        rows.update(_forwards(dev, cnn=only != "attention",
+        rows.update(_forwards(dev, cnn=only not in ("attention", "dense"),
                               lm_steps=only != "act_pool"))
     log = (Path(_build.BUILD_INFO["directory"]) / "ptxas.log").read_text()
     print(json.dumps({"tree": tree, "ms": rows, "differ_from_chain": differ,
