@@ -28,9 +28,12 @@ Phases, each printing its own lines; any failure exits non-zero:
               out bit for bit in chunks of 128 and at Tq 1 in a batch of
               4, through shuffled pages of 16 rows and under every
               cluster size (kernels/pfp_attention.py attention_plan), at
-              granite-8b's widths and at musicgen-medium's (24 / 24 heads
-              of 64); the cache kernels also at musicgen's decode step and
-              prefill chunk; the attention kernel without a cache (row 9)
+              granite-8b's widths, at musicgen-medium's (24 / 24 heads
+              of 64) and at recurrentgemma-2b's (10 / 1 heads of 256, every
+              block size, with and without a window); the cache kernels
+              also at musicgen's decode step and prefill chunk and at
+              recurrentgemma's (window 2048; pages of 1, 16 and 24 bit for
+              bit the contiguous kernel); the attention kernel without a cache (row 9)
               at granite's and musicgen's forward shapes and at ragged ones
               (Tq and Tk on no multiple of its block or tile, Tq below and
               above Tk, G 4 and 1, head_dim 16, 64 and 128, causal and
@@ -177,6 +180,30 @@ Phases, each printing its own lines; any failure exits non-zero:
               CUDA graph, profiled), prefill and step times, peak memory,
               and the kernels' times at the path's shapes (B=audio,
               audio-decode, decode-audio, chunk-audio)
+ 10b. families: mamba2-370m whole (48 SSD layers, d_model 1024, state 128
+              in heads of 64, vocab 50280) and recurrentgemma-2b at full
+              width (d_model 2560, RG-LRU blocks of d_rnn 2560, local
+              attention of 10 query heads of 256 over one KV head, window
+              2048, GeGLU d_ff 7680, vocab 256000; the one cut: FAMILY_LAYERS
+              layers of 26, one (rec, rec, attn) group and a 2-layer tail),
+              random weights drawn on the card from a seed. Each: a 4 x
+              512-token forward with impl="kernel" launching exactly its
+              path's kernels (family_path_calls; recurrentgemma's
+              depthwise conv on the batched dense kernel, row 12) and
+              within MODEL_TOL of the eager impl; a prefill of the same
+              prompts into FAMILY_MAX_LEN cache rows and FAMILY_STEPS
+              4-slot lockstep decode steps, every pass within MODEL_TOL of
+              eager (recurrentgemma's attention on the cache kernel at
+              head_dim 256); paged decode state and the paged Engine
+              refused with ValueError; the contiguous Engine serving
+              FAMILY_REQUESTS requests (recurrentgemma's first prompt past
+              its window) with every token continuing, then escalating the
+              tokens above the median MI to an SVI_SAMPLES-sample
+              sequential second opinion; forward and decode-step times,
+              eager and device busy, beside the weights' bytes bound;
+              recurrentgemma's cache kernels and depthwise lift timed at
+              their shapes (B=rg-decode / rg-chunk / depthwise /
+              depthwise-decode rows)
  11. fused  : the fused norm -> dense -> activation kernel (row 8) against
               its plain version at ragged shapes (both norms, both input
               reps, the five activations, every tile) and, at granite's
@@ -331,6 +358,40 @@ SPEC_KERNELS = ("dense", "activation", "rmsnorm", "glu_product",
 # deepseek-moe-16b under the engine: paged, a few short requests, Eq. 12
 # and Eq. 7, each against the eager impl's tokens.
 ENGINE_MOE_REQUESTS, ENGINE_MOE_PROMPTS, ENGINE_MOE_NEW = 4, (129, 256), 8
+# The family phase: mamba2-370m whole and recurrentgemma-2b at full width,
+# cut to FAMILY_LAYERS layers (one stacked (rec, rec, attn) group and the
+# 2-layer tail). A forward of LM_BATCH x LM_SEQ tokens, a prefill of the
+# same into FAMILY_MAX_LEN cache rows and FAMILY_STEPS lockstep steps, both
+# held to eager; then the contiguous Engine on FAMILY_REQUESTS requests of
+# FAMILY_NEW new tokens (recurrentgemma's first prompt FAMILY_LONG_PROMPT
+# tokens, past its 2048-key window), once with every token continuing and
+# once escalating every token whose MI is above the FAMILY_ESCALATE_PCT
+# percentile of the first run's (mamba2's 48 layers take about 2 s an
+# SVI second opinion, host-bound).
+SSM_ARCH, HYBRID_ARCH = "mamba2-370m", "recurrentgemma-2b"
+FAMILY_LAYERS = {HYBRID_ARCH: 5}
+FAMILY_MAX_LEN, FAMILY_STEPS = 2304, 4
+FAMILY_REQUESTS, FAMILY_NEW, FAMILY_LONG_PROMPT = 4, 8, 2100
+FAMILY_ESCALATE_PCT = 75
+# recurrentgemma-2b's cache attention at head_dim 256, 10 query heads over
+# one KV head, window 2048: a 4-slot decode step (a slot past the window)
+# and a 128-token prefill chunk past the window.
+CACHE_DECODE_RG = (4, 10, 1, 1, FAMILY_MAX_LEN, 256, (0, 700, 2047, 2200),
+                   (1, 701, 2048, 2201), 2048)
+CACHE_CHUNK_RG = (1, 10, 1, 128, FAMILY_MAX_LEN, 256, (2100,), (2228,), 2048)
+# Its depthwise conv lifted onto the batched dense kernel (rows 12 and 13):
+# d_rnn channels as experts of (B*T, 4) x (4, 1), at the forward and at a
+# 4-slot decode step.
+DEPTHWISE = (2560, LM_BATCH * LM_SEQ, 4, 1)
+DEPTHWISE_DECODE = (2560, DECODE_SLOTS, 4, 1)
+FAMILY_TIMES = {HYBRID_ARCH: (
+    ("rg-decode", "attention_cache", CACHE_DECODE_RG),
+    ("rg-chunk", "attention_cache", CACHE_CHUNK_RG),
+    ("rg-decode", "attention_paged", CACHE_DECODE_RG + (PAGE_SIZE,)),
+    ("depthwise", "dense_batched", DEPTHWISE),
+    ("depthwise", "dense_batched_var", DEPTHWISE),
+    ("depthwise-decode", "dense_batched", DEPTHWISE_DECODE),
+    ("depthwise-decode", "dense_batched_var", DEPTHWISE_DECODE))}
 # Cache attention shapes: (B, H, Hkv, Tq, S, D, q_start, kv_len, window);
 # a paged shape appends the page size. S is the cache length (the logical
 # one when paged).
@@ -362,6 +423,9 @@ CACHE_CHECKS = {
     "audio decode": CACHE_DECODE_AUDIO,
     "audio chunk": CACHE_CHUNK_AUDIO,
     "head_dim 64 window": (2, 8, 2, 37, 300, 64, (10, 250), (47, 287), 50),
+    "rg decode": CACHE_DECODE_RG,
+    "rg decode, no window": CACHE_DECODE_RG[:8] + (None,),
+    "rg chunk": CACHE_CHUNK_RG,
 }
 CHECK_PAGE_SIZES = (1, 16, 24)
 # The norms' checks: the 4-slot decode shapes of musicgen-medium,
@@ -1158,8 +1222,9 @@ def attention_build_lines(log):
     would then count on a wave the card does not run."""
     import ctypes
     from repro_torch.kernels import _build
-    from repro_torch.kernels.pfp_attention import (BLOCK_ROWS, HEAD_DIMS,
+    from repro_torch.kernels.pfp_attention import (CACHE_HEAD_DIMS,
                                                    KV_REGISTERS,
+                                                   block_sizes,
                                                    blocks_per_sm,
                                                    kv_block_bytes)
     out = []
@@ -1170,8 +1235,8 @@ def attention_build_lines(log):
             found.append(f"<{tmpl}> {r} registers, {sp} bytes spilled")
         out.append(f"{kernel}: " + ", ".join(found))
     lib = _build.load()
-    for d in HEAD_DIMS:
-        for bq in BLOCK_ROWS:
+    for d in CACHE_HEAD_DIMS:
+        for bq in block_sizes(d):
             for paged in (0, 1):
                 nbytes, per_sm = ctypes.c_int(), ctypes.c_int()
                 _build.check(lib.pfp_attention_kv_block(
@@ -1254,6 +1319,9 @@ def phase_kernels(device):
     cache_kernel_checks(device, errs)
     bit_contract_check(device, CACHE_DECODE, verify_tq=(2, SPEC_K))
     bit_contract_check(device, CACHE_DECODE_AUDIO)
+    for window in (None, 200):
+        bit_contract_check(device, CACHE_DECODE_RG, verify_tq=(2,),
+                           window=window)
     norm_kernel_checks(device, errs)
     norm_m_independence_check(device)
     layernorm_offset_check(device)
@@ -1426,13 +1494,16 @@ def act_pool_checks(device, errs):
 
 def moe_kernel_checks(device, errs):
     """The batched expert kernel in its three modes against its plain
-    version at the MoE shapes and a ragged one, and bit for bit against the
-    single dense kernel on every expert's slice; updates ``errs``."""
+    version at the MoE shapes, recurrentgemma-2b's depthwise lift (DEPTHWISE,
+    DEPTHWISE_DECODE: 2560 experts of K 4, N 1) and a ragged one, and bit
+    for bit against the single dense kernel on every expert's slice;
+    updates ``errs``."""
     import torch
     from repro_torch.kernels.pfp_dense import (MODE_FIRST_LAYER, MODE_SRM,
                                                MODE_VAR, pfp_dense_cuda)
     modes = dict(zip(BATCHED_KERNELS, (MODE_SRM, MODE_FIRST_LAYER, MODE_VAR)))
-    for seed, shape in enumerate(MOE_SHAPES + ((3, 7, 130, 5),), start=900):
+    for seed, shape in enumerate(MOE_SHAPES + (DEPTHWISE, DEPTHWISE_DECODE,
+                                               (3, 7, 130, 5)), start=900):
         for kernel in BATCHED_KERNELS:
             args = operands(kernel, shape, seed, device)
             got = run_kernel(kernel, args)
@@ -1658,20 +1729,21 @@ def cache_kernel_checks(device, errs):
                   f"max_abs_err {perr:.3e}, bitwise the cache kernel's")
 
 
-def bit_contract_check(device, shape, verify_tq=()):
+def bit_contract_check(device, shape, verify_tq=(), window=None):
     """The cache kernels' rows depend on their own query and keys only
     (csrc/pfp_attention.cu: segments of fixed keys, one left fold). One
     slot at the widths of the decode ``shape`` (granite-8b's 32 / 8 heads of
-    128, musicgen-medium's 24 / 24 of 64; 1024 keys): its rows
-    at positions 300-811 from one Tq 512 call against the same rows in
-    chunks of 128 rows and at Tq 1 (positions 300, 427, 428, 811) as slot
-    0 of a 4-slot batch, under every cluster size of the decode block
-    (plan=) and through shuffled pages of 16 rows; all torch.equal. Each
-    Tq of ``verify_tq`` (a speculative verify block) also runs as slot 0
-    of a 4-slot batch, contiguous and paged, at positions straddling a
-    segment's end."""
+    128, musicgen-medium's 24 / 24 of 64, recurrentgemma-2b's 10 / 1 of
+    256), its rows at positions 300-811 from one Tq 512 call against the
+    same rows in chunks of 128 rows and at Tq 1 (positions 300, 427, 428,
+    811) as slot 0 of a 4-slot batch, under every block size of the
+    head_dim and every cluster size (plan=) and through shuffled pages of
+    16 rows; all torch.equal. Each Tq of ``verify_tq`` (a speculative
+    verify block) also runs as slot 0 of a 4-slot batch, contiguous and
+    paged, at positions straddling a segment's end. ``window``: the
+    sliding window every call takes."""
     import torch
-    from repro_torch.kernels.pfp_attention import (MAX_CLUSTER,
+    from repro_torch.kernels.pfp_attention import (MAX_CLUSTER, block_sizes,
                                                    pfp_attention_cache_cuda,
                                                    pfp_attention_paged_cuda)
     _, h, hkv, _, s, d = shape[:6]
@@ -1691,17 +1763,19 @@ def bit_contract_check(device, shape, verify_tq=()):
         kv = [c[:b] for c in caches]
         if ps is None:
             mu, var = pfp_attention_cache_cuda(q, *kv, *ints, scale=d ** -0.5,
-                                               plan=plan)
+                                               window=window, plan=plan)
         else:
             pools, table = paged_from_cache(kv, lens, ps, 801, device)
             mu, var = pfp_attention_paged_cuda(q, *pools, table, *ints,
-                                               scale=d ** -0.5, plan=plan)
+                                               scale=d ** -0.5,
+                                               window=window, plan=plan)
         return mu[0], var[0]
 
     whole = run(n0, n)
     runs = [(n0 + 128 * c, 128, 1, None, None) for c in range(n // 128)]
     for pos in (n0, n0 + 127, n0 + 128, n0 + n - 1):
-        runs += [(pos, 1, 4, None, (8, c)) for c in range(1, MAX_CLUSTER + 1)]
+        runs += [(pos, 1, 4, None, (bq, c)) for bq in block_sizes(d)
+                 for c in range(1, MAX_CLUSTER + 1)]
         runs.append((pos, 1, 4, PAGE_SIZE, None))
     for tq in verify_tq:
         for pos in (n0, n0 + 128 - tq // 2, n0 + n - tq):
@@ -1714,10 +1788,11 @@ def bit_contract_check(device, shape, verify_tq=()):
                  f"{tq}, B {b}, pages {ps}, plan {plan}) differ from the "
                  f"Tq {n} call's")
     torch.cuda.synchronize()
-    print(f"[kernels] bit contract ({h} / {hkv} heads of {d}): "
-          f"{len(runs) + 1} calls, every row of the slot bit for bit (Tq "
-          f"512 / 128 / 1{''.join(f' / {t}' for t in verify_tq)}, B 1 / 4, "
-          f"clusters 1-{MAX_CLUSTER}, pages of {PAGE_SIZE})")
+    print(f"[kernels] bit contract ({h} / {hkv} heads of {d}, window "
+          f"{window}): {len(runs) + 1} calls, every row of the slot bit for "
+          f"bit (Tq 512 / 128 / 1{''.join(f' / {t}' for t in verify_tq)}, "
+          f"B 1 / 4, blocks of {block_sizes(d)} rows, clusters "
+          f"1-{MAX_CLUSTER}, pages of {PAGE_SIZE})")
 
 
 def layernorm_offset_check(device):
@@ -2582,15 +2657,16 @@ def _engine_requests(cfg, seed, n, prompts, new, system=0, cold=0):
 
 def _make_engine(cfg, model, device, impl, formulation, tracer=None,
                  router=None, **config):
-    """An Engine at the phase's slots, cache rows, windows and budget;
-    ``router``: RouterConfig fields (default ENGINE_ROUTER)."""
+    """An Engine at the phase's slots, cache rows (DECODE_MAX_LEN unless
+    ``config`` sets max_len), windows and budget; ``router``: RouterConfig
+    fields (default ENGINE_ROUTER)."""
     from repro_torch.serving.engine import (Engine, EngineConfig,
                                             RequestScheduler, RouterConfig,
                                             SchedulerConfig,
                                             UncertaintyRouter)
+    config.setdefault("max_len", DECODE_MAX_LEN)
     return Engine(cfg, model, EngineConfig(
-        slots=DECODE_SLOTS, max_len=DECODE_MAX_LEN, impl=impl,
-        formulation=formulation, **config),
+        slots=DECODE_SLOTS, impl=impl, formulation=formulation, **config),
         router=UncertaintyRouter(cfg, RouterConfig(**(router or
                                                        ENGINE_ROUTER)),
                                  formulation=formulation, impl=impl),
@@ -3608,12 +3684,12 @@ def _model_errs(label, got, want):
     return errs, within
 
 
-def _audio_stages(model, cfg, frames, ctx):
-    """The forward's states, as lm.forward computes them: the frames plus
-    the sinusoid, each block's output, the logits."""
+def _forward_stages(model, cfg, inputs, ctx):
+    """The forward's states, as lm.forward computes them: the embedded
+    inputs (frames plus the sinusoid, or the token embedding), each block's
+    output, the logits."""
     from repro_torch.models import lm
-    x, positions, standard = lm._embed_inputs(
-        model, cfg, {"frame_embeddings": frames}, ctx)
+    x, positions, standard = lm._embed_inputs(model, cfg, inputs, ctx)
     stages = [x]
     for name, _, group in lm._layers(cfg):
         block = (getattr(model, name) if group is None
@@ -3625,10 +3701,11 @@ def _audio_stages(model, cfg, frames, ctx):
     return stages
 
 
-def _fp64_stage_check(cfg, model, frames, device, logits_within):
+def _fp64_stage_check(cfg, model, inputs, device, logits_within,
+                      tag="audio"):
     """The train phase's fp64 rule, stage by stage: the kernel impl's
     states no further from an fp64 eager forward (a float64 copy of the
-    same converted weights, the same frames) than FP64_FACTOR times the
+    same converted weights, the same inputs) than FP64_FACTOR times the
     fp32 eager impl's, at the embedding, after every block and at the logits.
     It is the gate only where the logits are outside MODEL_TOL of the eager
     impl; the errors are printed either way. Returns them by stage."""
@@ -3641,10 +3718,12 @@ def _fp64_stage_check(cfg, model, frames, device, logits_within):
     for impl in ("kernel", "eager"):
         ctx = Context(mode=Mode.PFP, impl=impl, device=device)
         runs[impl] = [(x.mean, x.var) for x in
-                      _audio_stages(model, cfg, frames, ctx)]
+                      _forward_stages(model, cfg, inputs, ctx)]
     exact = copy.deepcopy(model).double()
     ctx = Context(mode=Mode.PFP, impl="eager", device=device)
-    ref64 = _audio_stages(exact, cfg, frames.double(), ctx)
+    ref64 = _forward_stages(exact, cfg, {
+        k: v.double() if v.is_floating_point() else v
+        for k, v in inputs.items()}, ctx)
     del exact
     out, worst = [], (0.0, None)
     for i, x64 in enumerate(ref64):
@@ -3659,7 +3738,7 @@ def _fp64_stage_check(cfg, model, frames, device, logits_within):
                 worst = (ratio, (i, part))
             if (not logits_within and e["kernel"][j]
                     > FP64_FACTOR * max(e["eager"][j], 1e-12)):
-                fail(f"audio forward stage {i} {part}: kernel impl "
+                fail(f"{tag} forward stage {i} {part}: kernel impl "
                      f"{e['kernel'][j]:.3e} from fp64, the eager impl "
                      f"{e['eager'][j]:.3e} (> {FP64_FACTOR}x)")
     torch.cuda.synchronize()
@@ -3669,11 +3748,11 @@ def _fp64_stage_check(cfg, model, frames, device, logits_within):
         name = ("embedding" if i == 0 else "logits" if i == last
                 else f"after block {i}")
         k, e = out[i]["kernel"], out[i]["eager"]
-        print(f"[audio] vs fp64 at {name}: kernel mean {k[0]:.3e} var "
+        print(f"[{tag}] vs fp64 at {name}: kernel mean {k[0]:.3e} var "
               f"{k[1]:.3e}; eager mean {e[0]:.3e} var {e[1]:.3e}")
     gate = ("only printed: MODEL_TOL held" if logits_within
             else "held at every stage")
-    print(f"[audio] fp64 rule (kernel no further than {FP64_FACTOR}x eager "
+    print(f"[{tag}] fp64 rule (kernel no further than {FP64_FACTOR}x eager "
           f"at every stage): largest ratio {worst[0]:.2f} at stage "
           f"{worst[1]}; the gate {gate}")
     return out
@@ -3919,7 +3998,7 @@ def phase_audio(device):
           f"both pools in turn, the forwards)")
 
     # fp64 stage by stage (the gate where the logits missed MODEL_TOL).
-    stages = _fp64_stage_check(cfg, model, frames, device,
+    stages = _fp64_stage_check(cfg, model, inputs, device,
                                all(within.values()))
     del model
     torch.cuda.empty_cache()
@@ -3948,6 +4027,329 @@ def phase_audio(device):
              for k in AUDIO_DECODE_KERNELS}
     return ({"audio": launches, "audio_decode": total}, info, rows, fwd,
             profiles, cfg)
+
+
+# ---------------------------------------------------------------------------
+# The hybrid and SSM families: recurrentgemma-2b and mamba2-370m
+# ---------------------------------------------------------------------------
+def family_config(arch):
+    """The family phase's config of ``arch`` at full width: mamba2-370m
+    whole, recurrentgemma-2b cut to FAMILY_LAYERS[arch] layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), sigma_init=1e-3)
+    layers = FAMILY_LAYERS.get(arch)
+    return cfg if layers is None else dataclasses.replace(
+        cfg, num_layers=layers)
+
+
+def _family_block_calls(cfg, kind, b, t, cache=None):
+    """The kernel calls of one block of ``kind`` on b x t tokens; ``cache``:
+    the cache kernel's shape where the block attends through a KV cache
+    (a forward without one runs the windowed chunked core, no kernel).
+    Shapes as in lm_path_calls; the depthwise lift (R, B*T, 4, 1)."""
+    m, d, f = b * t, cfg.d_model, cfg.d_ff
+    if kind == "ssm":
+        din = cfg.ssm_expand * d
+        heads = din // cfg.ssm_head_dim
+        return [("rmsnorm", (m, d)),
+                ("dense", (m, d, 2 * din + 2 * cfg.ssm_state + heads)),
+                ("activation", ("silu", m, din)),
+                ("activation", ("silu", m, din)), ("glu_product", (m, din)),
+                ("rmsnorm", (m, din)), ("dense", (m, din, d))]
+    mlp = [("rmsnorm", (m, d)), ("dense", (m, d, f)), ("dense", (m, d, f)),
+           ("activation", (cfg.activation, m, f)), ("glu_product", (m, f)),
+           ("dense", (m, f, d))]
+    if kind == "rec":
+        r = cfg.d_rnn or d
+        return [("rmsnorm", (m, d)), ("dense", (m, d, r)),
+                ("dense", (m, d, r)), ("dense_batched", (r, m, 4, 1)),
+                ("activation", ("gelu", m, r)), ("glu_product", (m, r)),
+                ("dense", (m, r, d))] + mlp
+    kv = cfg.num_kv_heads * cfg.head_dim
+    return ([("rmsnorm", (m, d)), ("dense", (m, d, cfg.attn_dim)),
+             ("dense", (m, d, kv)), ("dense", (m, d, kv))]
+            + ([] if cache is None else [("attention_cache", cache)])
+            + [("dense", (m, cfg.attn_dim, d))] + mlp)
+
+
+def family_path_calls(cfg, b, t, cache=None):
+    """Every kernel call of one PFP pass (impl="kernel", srm) of ``cfg`` on
+    b x t tokens: its blocks in order, the final norm and the LM head."""
+    m = b * t
+    calls = []
+    for i in range(cfg.num_layers):
+        calls += _family_block_calls(cfg, cfg.layer_kind(i), b, t, cache)
+    return calls + [("rmsnorm", (m, cfg.d_model)),
+                    ("dense", (m, cfg.d_model, cfg.vocab_size))]
+
+
+def _counts(calls):
+    out = {}
+    for kernel, _ in calls:
+        out[kernel] = out.get(kernel, 0) + 1
+    return out
+
+
+def _family_model(device, cfg):
+    """Random variational weights drawn on the card from a seed (none can
+    be downloaded), converted to PFP."""
+    import torch
+    from repro_torch.bayes.convert import svi_to_pfp
+    from repro_torch.models import lm
+    variational = lm.init_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(0),
+        device=device)
+    model = svi_to_pfp(variational, calibration_factor=CALIBRATION)
+    del variational
+    return model
+
+
+def _weight_bytes(cfg):
+    """Bytes a pass reads of the weights, embedding excluded: mu and srm,
+    fp32, of every other weight once."""
+    return 8 * (cfg.param_count() - cfg.vocab_size * cfg.d_model)
+
+
+def _family_engine_requests(cfg, seed, tag):
+    """FAMILY_REQUESTS requests from ``seed``: prompts of ENGINE_PROMPTS
+    tokens, FAMILY_NEW new tokens, all arriving at step 0; a model with a
+    window also gets one prompt of FAMILY_LONG_PROMPT tokens, past the
+    window, so the window masks keys inside the cache kernel."""
+    reqs = _engine_requests(cfg, seed, FAMILY_REQUESTS, ENGINE_PROMPTS,
+                            FAMILY_NEW)
+    for r in reqs:
+        r.arrival = 0.0
+    if cfg.window:
+        import numpy as np
+        rng = np.random.default_rng(seed + 11)
+        reqs[0].prompt = rng.integers(0, cfg.vocab_size, FAMILY_LONG_PROMPT
+                                      ).astype(np.int32)
+    print(f"[{tag}] engine requests: prompts "
+          f"{[len(r.prompt) for r in reqs]}, {FAMILY_NEW} new tokens each")
+    return reqs
+
+
+def _decode_passes(model, cfg, tokens, fed, ctx, max_len):
+    """The last-position logits (mean, var) of a prefill of ``tokens`` and
+    of one decode step a dict of ``fed``, under ``ctx``."""
+    from repro_torch.models import lm
+    last, states = lm.prefill(model, cfg, {"tokens": tokens}, ctx, max_len)
+    out = [(last.mean[:, -1], last.var[:, -1])]
+    for inputs in fed:
+        logits, states = lm.decode_step(model, cfg, inputs, states, ctx)
+        out.append((logits.mean[:, -1], logits.var[:, -1]))
+    return out
+
+
+def _family_phase(device, arch, seed):
+    """One model of the family phase (see the docstring's phase 10b).
+    Returns (launches by path, info, timing rows)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.modes import Mode
+    from repro_torch.kernels._launch import LAUNCHES, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.nn.module import Context
+    from repro_torch.configs import get_config
+    tag = "hybrid" if arch == HYBRID_ARCH else "ssm"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = family_config(arch)
+    model = _family_model(device, cfg)
+    torch.cuda.synchronize()
+    full = get_config(arch).num_layers
+    cut_s = ("" if cfg.num_layers == full else f" (cut from {full}: "
+             f"stacked groups of {cfg.pattern} and a tail)")
+    print(f"[{tag}] {cfg.name}: family {cfg.family}, d_model {cfg.d_model}, "
+          f"{cfg.num_layers} layers{cut_s}, vocab {cfg.vocab_size}; "
+          f"{cfg.param_count() / 1e6:.1f} M "
+          f"weights drawn on the card and converted in "
+          f"{time.perf_counter() - t0:.2f} s ({_weight_bytes(cfg) / 1e9:.3f} "
+          f"GB of weights a pass reads, embedding excluded)")
+    ctx_k = Context(mode=Mode.PFP, impl="kernel", device=device)
+    ctx_e = Context(mode=Mode.PFP, impl="eager", device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                           generator=torch.Generator().manual_seed(
+                               seed + 31)).to(device)
+    launches, info, rows = {}, {"config": cfg.name,
+                                "layers": cfg.num_layers}, []
+
+    # The forward: launches, kernel against eager.
+    reset_launch_counts()
+    logits, _, _ = lm.forward(model, cfg, {"tokens": tokens}, ctx_k)
+    torch.cuda.synchronize()
+    launches[tag] = {k: v for k, v in LAUNCHES.items() if v}
+    want = _counts(family_path_calls(cfg, LM_BATCH, LM_SEQ))
+    if launches[tag] != want:
+        fail(f"{tag} forward launches {launches[tag]}, expected {want}")
+    eager, _, _ = lm.forward(model, cfg, {"tokens": tokens}, ctx_e)
+    errs, within = _model_errs(f"{tag} forward", (logits.mean, logits.var),
+                               (eager.mean, eager.var))
+    if float(logits.var.min()) <= 0:
+        fail(f"{tag}: non-positive logit variance")
+    print(f"[{tag}] forward of {LM_BATCH} x {LM_SEQ} tokens: launches "
+          f"{launches[tag]}; kernel vs eager max abs err mean "
+          f"{errs['mean']:.3e}, var {errs['var']:.3e} (max |mean| "
+          f"{float(eager.mean.abs().max()):.3e}, max var "
+          f"{float(eager.var.max()):.3e}); within MODEL_TOL {within}")
+    info["forward_errors"] = errs
+    del logits, eager
+    # Outside MODEL_TOL, the gate is the fp64 rule at every stage, as for
+    # musicgen-medium's 48 layers.
+    if not all(within.values()):
+        info["fp64_stages"] = _fp64_stage_check(
+            cfg, model, {"tokens": tokens}, device, False, tag)
+
+    # Prefill and a 4-slot contiguous decode, teacher-forced with the
+    # kernel run's greedy tokens; every pass held to eager (MODEL_TOL, else
+    # the fp64 rule on its logits).
+    max_len = FAMILY_MAX_LEN
+    reset_launch_counts()
+    last_k, st_k = lm.prefill(model, cfg, {"tokens": tokens}, ctx_k, max_len)
+    passes = [(last_k.mean[:, -1], last_k.var[:, -1])]
+    fed = []
+    tok = torch.argmax(last_k.mean[:, -1], dim=-1)
+    for i in range(FAMILY_STEPS):
+        fed.append({"tokens": tok[:, None],
+                    "positions": torch.full((LM_BATCH, 1), LM_SEQ + i,
+                                            device=device)})
+        out_k, st_k = lm.decode_step(model, cfg, fed[-1], st_k, ctx_k)
+        passes.append((out_k.mean[:, -1], out_k.var[:, -1]))
+        tok = torch.argmax(out_k.mean[:, -1], dim=-1)
+    torch.cuda.synchronize()
+    launches[f"{tag}_decode"] = {k: v for k, v in LAUNCHES.items() if v}
+    eager = _decode_passes(model, cfg, tokens, fed, ctx_e, max_len)
+    step_errs = [_model_errs(f"{tag} pass {i}", g, w)
+                 for i, (g, w) in enumerate(zip(passes, eager))]
+    bad = [i for i, (_, w) in enumerate(step_errs) if not all(w.values())]
+    worst = {p: max(e[p] for e, _ in step_errs) for p in ("mean", "var")}
+    print(f"[{tag}] prefill of {LM_BATCH} x {LM_SEQ} into {max_len} cache "
+          f"rows and {FAMILY_STEPS} lockstep decode steps, kernel vs eager: "
+          f"max abs err mean {worst['mean']:.3e}, var {worst['var']:.3e}; "
+          f"passes outside MODEL_TOL {bad} (0 = prefill); launches "
+          f"{launches[f'{tag}_decode']}")
+    if bad:
+        import copy
+        exact = copy.deepcopy(model).double()
+        ref64 = _decode_passes(exact, cfg, tokens, fed, ctx_e, max_len)
+        del exact
+        for i in bad:
+            for part, g, w, x in zip(("mean", "var"), passes[i], eager[i],
+                                     ref64[i]):
+                ek = float((g.double() - x).abs().max())
+                ee = float((w.double() - x).abs().max())
+                print(f"[{tag}] pass {i} {part} vs fp64: kernel {ek:.3e}, "
+                      f"eager {ee:.3e}")
+                if ek > FP64_FACTOR * max(ee, 1e-12):
+                    fail(f"{tag} pass {i} {part}: kernel impl {ek:.3e} from "
+                         f"fp64, the eager impl {ee:.3e} (> {FP64_FACTOR}x)")
+        print(f"[{tag}] fp64 rule held at passes {bad}")
+    del eager
+    if cfg.window and not launches[f"{tag}_decode"].get("attention_cache"):
+        fail(f"{tag}: the cache kernel did not launch at decode")
+    info["decode_errors"] = worst
+
+    # Paged state is refused, as in the reference.
+    for what, build in (
+            ("init_paged_decode_state",
+             lambda: lm.init_paged_decode_state(cfg, 8, PAGE_SIZE,
+                                                device=device)),
+            ("the paged Engine",
+             lambda: _make_engine(cfg, model, device, "kernel", "srm",
+                                  page_size=PAGE_SIZE))):
+        try:
+            build()
+        except ValueError as err:
+            print(f"[{tag}] {what} refused: {err}")
+        else:
+            fail(f"{tag}: {what} did not refuse the {cfg.family} family")
+
+    # Times: the forward and one decode step, eager and device busy, beside
+    # the weights' bytes bound.
+    bound = _weight_bytes(cfg) / PEAK_BYTES * 1e3
+    fwd_ms = time_ms(lambda: lm.forward(model, cfg, {"tokens": tokens},
+                                        ctx_k), 2, 1)
+    fwd_prof = _profile(f"{cfg.name} forward B={LM_BATCH} T={LM_SEQ}",
+                        lambda: lm.forward(model, cfg, {"tokens": tokens},
+                                           ctx_k), 2, 1)
+    inputs = {"tokens": tok[:, None],
+              "positions": torch.full((LM_BATCH, 1), LM_SEQ + FAMILY_STEPS,
+                                      device=device)}
+    step = lambda: lm.decode_step(model, cfg, inputs, st_k, ctx_k)  # noqa: E731
+    step_ms = time_ms(step, 5, 1)
+    step_prof = _profile(f"{cfg.name} decode step, {LM_BATCH} slots", step,
+                         3, 1)
+    busy = {k: None if p is None else p["busy_ms"]
+            for k, p in (("forward", fwd_prof), ("decode", step_prof))}
+    print(f"[times] {cfg.name} forward {LM_BATCH} x {LM_SEQ}: eager "
+          f"{fwd_ms:.3f} ms, device busy {busy['forward']} ms; decode step "
+          f"of {LM_BATCH} slots: eager {step_ms:.3f} ms, device busy "
+          f"{busy['decode']} ms; weights' bytes bound {bound:.3f} ms "
+          f"({_weight_bytes(cfg) / 1e9:.3f} GB at {PEAK_BYTES / 1e12:.2f} "
+          f"TB/s) ({CARD})")
+    info["times"] = {"forward_ms": fwd_ms, "forward_busy_ms": busy["forward"],
+                     "decode_ms": step_ms, "decode_busy_ms": busy["decode"],
+                     "bound_ms": bound, "weight_bytes": _weight_bytes(cfg),
+                     "forward_profile": fwd_prof, "decode_profile": step_prof}
+    del st_k, out_k, last_k, passes
+    torch.cuda.empty_cache()
+
+    # The contiguous Engine: every token continues, then a run in which
+    # tokens escalate to the sequential SVI second opinion.
+    requests = _family_engine_requests(cfg, seed, tag)
+    run = _engine_run(cfg, model, device, requests, seed=seed,
+                      max_len=max_len)
+    _engine_report(tag, "contiguous", run)
+    launches[f"{tag}_engine"] = run["launches"]
+    need = ("dense", "rmsnorm", "activation", "glu_product") + (
+        ("dense_batched", "attention_cache") if cfg.window else ())
+    missing = [k for k in need if not run["launches"].get(k)]
+    if missing:
+        fail(f"{tag} engine: {missing} did not launch")
+    mis = [m for _, mi, _ in run["results"].values() for m in mi]
+    if not mis or not np.isfinite(mis).all():
+        fail(f"{tag} engine: MI trace {mis[:8]}")
+    router = dict(mi_continue=float(np.percentile(mis, FAMILY_ESCALATE_PCT)),
+                  mi_abstain=1e9, escalate_samples=SVI_SAMPLES,
+                  svi_mi_abstain=1e9)
+    esc = _engine_run(cfg, model, device, requests, seed=seed,
+                      max_len=max_len, router=router)
+    _engine_report(tag, "escalate (sequential SVI)", esc)
+    launches[f"{tag}_engine_escalate"] = esc["launches"]
+    s = esc["summary"]
+    if not s["escalations"] or len(esc["escalate_events"]) != \
+            s["escalations"]:
+        fail(f"{tag}: the escalating run escalated {s['escalations']} "
+             f"tokens")
+    print(f"[{tag}] escalate: mi_continue {router['mi_continue']:.4e} (the "
+          f"{FAMILY_ESCALATE_PCT}th percentile of the contiguous run's MI), "
+          f"{s['escalations']} of {s['tokens_generated']} tokens took an "
+          f"{SVI_SAMPLES}-sample SVI second opinion")
+    info["engine"] = {k: run[k] for k in ("summary", "seconds", "steps",
+                                          "launches")}
+    info["engine_escalate"] = {k: esc[k] for k in ("summary", "seconds",
+                                                   "steps", "launches")}
+    info["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{tag}] peak device memory {info['peak_gb']:.2f} GB")
+    del model
+    torch.cuda.empty_cache()
+
+    # The kernels at this family's new shapes.
+    for label, kernel, shape in FAMILY_TIMES.get(arch, ()):
+        rows.append(_time_row(label, kernel, shape, device))
+    return launches, info, rows
+
+
+def phase_families(device, seed):
+    """mamba2-370m whole and recurrentgemma-2b cut to FAMILY_LAYERS layers,
+    one after the other. Returns (launches by path, info, timing rows)."""
+    launches, info, rows = {}, {}, []
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        got, info[arch], got_rows = _family_phase(device, arch, seed)
+        launches.update(got)
+        rows += got_rows
+    return launches, info, rows
 
 
 # ---------------------------------------------------------------------------
@@ -4632,7 +5034,8 @@ def moe_path_calls(cfg, shapes):
     return [shapes[0], shapes[0], shapes[1]] * moe_layers
 
 
-def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg):
+def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg,
+                   hybrid_cfg):
     """Per kernel: for the CNN path's kernels, its calls at batch 100,
     times and bounds summed over one LeNet-5 and one MLP forward (Eq. 12
     forwards; Eq. 7 for dense_var), with one LM forward's dense calls
@@ -4650,7 +5053,13 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg):
     tokens (dense_batched_first_layer, on no path: one call at the expert
     up shape), with one MoE decode step's calls beside; for the fused
     unit, its calls in one fused granite forward (gate shape), with one
-    fused decode step's calls beside. ``launches`` sums the paths' runs."""
+    fused decode step's calls beside. Beside too, for the cache kernels,
+    one recurrentgemma-2b decode step's calls at head_dim 256
+    (CACHE_DECODE_RG, a call an attention layer) and one call at
+    CACHE_CHUNK_RG; for the batched dense kernels (Eq. 12 and Eq. 7), the
+    depthwise lift's calls in one recurrentgemma-2b forward (DEPTHWISE, a
+    call a recurrent layer) and decode step (DEPTHWISE_DECODE). ``launches``
+    sums the paths' runs."""
     cnn = {(r["kernel"], tuple(r["shape"])): r for r in rows
            if r["batch"] == MAIN_BATCH}
     lmr = {(r["kernel"], tuple(r["shape"])): r for r in rows
@@ -4671,6 +5080,10 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg):
     fused = {tuple(r["shape"]): r for r in rows if r["batch"] == "fused"}
     aud = {(r["kernel"], tuple(r["shape"])): r for r in rows
            if r["batch"] in ("audio", "audio-decode")}
+    fam = {(r["kernel"], r["batch"]): r for r in rows
+           if r["batch"] in ("rg-decode", "rg-chunk", "depthwise",
+                             "depthwise-decode")}
+    kinds = [hybrid_cfg.layer_kind(i) for i in range(hybrid_cfg.num_layers)]
 
     def per_call(r):
         return {k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms",
@@ -4712,6 +5125,13 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg):
             extra["decode_step"] = summed(kernel, [
                 moer[(kernel, sh)] for sh in
                 moe_path_calls(moe_cfg, (MOE_DECODE_UP, MOE_DECODE_DOWN))])
+            if (kernel, "depthwise") in fam:
+                # The depthwise lift: one call a recurrent layer.
+                for label, batch in (("depthwise_forward", "depthwise"),
+                                     ("depthwise_decode_step",
+                                      "depthwise-decode")):
+                    extra[label] = summed(kernel, [fam[(kernel, batch)]]
+                                          * kinds.count("rec"))
             if occ:
                 # The same step at a real decode occupancy: one MoE call's
                 # kept rows, for every call of the step.
@@ -4735,6 +5155,11 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg):
                 kernel, [cache[(kernel, "verify")]] * lm_cfg.num_layers)
             extra["prefill_chunk_audio_per_call"] = per_call(
                 cache[(kernel, "chunk-audio")])
+            extra["decode_step_recurrentgemma"] = summed(
+                kernel, [fam[(kernel, "rg-decode")]] * kinds.count("attn"))
+            if (kernel, "rg-chunk") in fam:
+                extra["prefill_chunk_recurrentgemma_per_call"] = per_call(
+                    fam[(kernel, "rg-chunk")])
         elif kernel in CNN_KERNELS:
             formulation = "var" if kernel == "dense_var" else "srm"
             calls = [cnn[(k, s)] for k, s in
@@ -4805,9 +5230,16 @@ def main():
     OUT_DIR.mkdir(exist_ok=True)
     device = torch.device("cuda")
     t0 = time.perf_counter()
+    marks = [("start", t0)]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
     card = phase_card()
     build = phase_build()
+    mark("build")
     errs = phase_kernels(device)
+    mark("kernels")
     launches = {"cnn": phase_serving(device)}
     launches["lm"], lm_info, lm_cfg, lm_model = phase_lm(device)
     launches["decode"], decode_info = phase_decode(device, lm_cfg, lm_model,
@@ -4818,6 +5250,7 @@ def main():
         phase_engine_spec(device, lm_cfg, lm_model, paged_results, args.seed)
     rows, forwards = phase_times(device, lm_cfg, lm_model)
     profile = phase_profile(device, lm_cfg, lm_model)
+    mark("cnn to profile")
     del lm_model
     torch.cuda.empty_cache()
     moe_launches, moe_info, moe_cfg, moe_model = phase_moe(device)
@@ -4835,18 +5268,28 @@ def main():
     del moe_model
     torch.cuda.empty_cache()
     rows += moe_rows
+    mark("moe")
     audio_launches, audio_info, audio_rows, audio_forward, audio_profiles, \
         audio_cfg = phase_audio(device)
     launches.update(audio_launches)
     rows += audio_rows
     torch.cuda.empty_cache()
+    mark("audio")
+    family_launches, family_info, family_rows = phase_families(device,
+                                                               args.seed)
+    launches.update(family_launches)
+    rows += family_rows
+    torch.cuda.empty_cache()
+    mark("families")
     fused_launches, fused_info, fused_rows = phase_fused(device, args.seed,
                                                          errs)
     launches.update({k: v for k, v in fused_launches.items()
                      if k != "unfused"})
     rows += fused_rows
     torch.cuda.empty_cache()
+    mark("fused")
     launches["train"], train_info = phase_train(device)
+    mark("train")
     forwards += [moe_forward, audio_forward]
     if moe_profile is not None:
         profile.append({"model": moe_cfg.name, "batch": LM_BATCH,
@@ -4855,18 +5298,21 @@ def main():
         if row is not None:
             profile.append({"model": f"{audio_cfg.name} {name}", **row})
     kernels = kernel_summary(rows, launches, errs, lm_cfg, moe_cfg,
-                             audio_cfg)
+                             audio_cfg, family_config(HYBRID_ARCH))
+    phases = {name: end - start for (_, start), (name, end)
+              in zip(marks, marks[1:])}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build": build, "kernels": kernels, "times": rows,
          "forwards": forwards, "profile": profile, "lm": lm_info,
          "decode": decode_info, "engine": engine_info,
          "engine_spec": spec_info, "moe": moe_info,
          "moe_decode": moe_decode_info, "moe_engine": moe_engine_info,
-         "audio": audio_info,
+         "audio": audio_info, "families": family_info,
          "fused": fused_info,
-         "train": train_info,
+         "train": train_info, "phase_seconds": phases,
          "seconds": time.perf_counter() - t0}, indent=1))
-    print(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(f"[done] {time.perf_counter() - t0:.1f} s; by phase "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phases.items()))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,8 @@ _MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "musicgen-medium": "musicgen_medium",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "mamba2-370m": "mamba2_370m",
 }
 
 
@@ -23,7 +25,9 @@ def reduced_config(name: str) -> ModelConfig:
     """The same tiny same-family config as the reference's
     ``reduced_config``: d_model 64, 4 heads of 16, at most 2 KV heads (4 for
     an MHA model, which stays MHA), d_ff 128, vocab 97, at most 8 experts
-    and top-2, one layer per pattern entry times two."""
+    and top-2, d_rnn 64, SSM state 16 in heads of 32 and chunks of 8, one
+    layer per pattern entry times two; a hybrid keeps 5 layers (one
+    stacked group of its pattern and a 2-layer tail)."""
     cfg = get_config(name)
     updates = dict(
         num_layers=min(cfg.num_layers, 2 * len(cfg.pattern)),
@@ -32,9 +36,15 @@ def reduced_config(name: str) -> ModelConfig:
         num_kv_heads=min(cfg.num_kv_heads, 2) if cfg.num_kv_heads else 0,
         head_dim=16 if cfg.head_dim else 0,
         num_experts=min(cfg.num_experts, 8) if cfg.num_experts else 0,
-        top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
+        d_rnn=64 if cfg.d_rnn else 0,
         window=8 if cfg.window else 0,
+        ssm_state=16 if cfg.ssm_state else 0,
+        ssm_head_dim=32 if cfg.ssm_state else 64,
+        ssm_chunk=8,
+        top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
     )
+    if cfg.family == "hybrid":
+        updates["num_layers"] = 5
     if cfg.num_kv_heads and cfg.num_kv_heads == cfg.num_heads:
         updates["num_kv_heads"] = 4
     return dataclasses.replace(cfg, **updates)

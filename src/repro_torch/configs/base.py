@@ -1,10 +1,11 @@
 """Model configuration (counterpart of ``repro/configs/base.py``).
 
 What the port's decoder families need: the dense transformer (granite), the
-mixture-of-experts family (deepseek-moe, llama4-scout) and the audio decoder
-(musicgen, whose frame embeddings come in as input: ``embed_inputs``), whose
-``models/lm.py`` blocks are ported. Hybrid, SSM and VLM fields come with the
-slices that port those blocks.
+mixture-of-experts family (deepseek-moe, llama4-scout), the audio decoder
+(musicgen, whose frame embeddings come in as input: ``embed_inputs``), the
+hybrid of RG-LRU recurrent blocks and local attention (recurrentgemma) and
+the Mamba2 state-space model (mamba2), whose ``models/lm.py`` blocks are
+ported. The VLM fields come with the slice that ports its blocks.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | audio (ported yet)
+    family: str                      # dense | moe | audio | hybrid | ssm
     num_layers: int
     d_model: int
     num_heads: int = 0
@@ -39,11 +40,23 @@ class ModelConfig:
     # scatter dispatch, as the reference does without one (nn/moe.py).
     moe_dispatch: str = "scatter"
 
+    # Hybrid (RG-LRU): block_pattern tiles to num_layers, the rest is an
+    # unstacked tail.
+    block_pattern: Tuple[str, ...] = ("attn",)
     window: int = 0                  # local attention window (0 = global)
+    d_rnn: int = 0
+
+    # SSM (Mamba2 SSD)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
+
     # Modality frontend: False => the inputs are precomputed embeddings
     # (``frame_embeddings``, musicgen) and the model has no token table.
     embed_inputs: bool = True
     sigma_init: float = 1e-4
+    sub_quadratic: bool = False      # can run long_500k
 
     @property
     def attn_dim(self) -> int:
@@ -52,15 +65,26 @@ class ModelConfig:
     def _weights(self, experts: int) -> int:
         """Weights (means only) with ``experts`` routed experts counted per
         MoE block: embedding (where the model embeds tokens), blocks
-        (attention, MLP or router, routed and shared experts), lm head."""
+        (attention, MLP or router, routed and shared experts; the RG-LRU's
+        projections, gates and conv taps; Mamba2's in and out projections),
+        lm head."""
         d, kv = self.d_model, self.num_kv_heads * self.head_dim
         mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
         n = (2 if self.embed_inputs else 1) * self.vocab_size * d
         for i in range(self.num_layers):
-            n += 2 * d * self.attn_dim + 2 * d * kv
-            if self.layer_kind(i) == "moe":
+            kind = self.layer_kind(i)
+            if kind in ("attn", "moe"):
+                n += 2 * d * self.attn_dim + 2 * d * kv
+            if kind == "moe":
                 n += ((experts + self.num_shared_experts) * mlp
                       + d * self.num_experts)
+            elif kind == "rec":
+                r = self.d_rnn or d
+                n += 2 * d * r + r * d + 2 * r * r + 4 * r + mlp
+            elif kind == "ssm":
+                din = self.ssm_expand * d
+                heads = din // self.ssm_head_dim
+                n += d * (2 * din + 2 * self.ssm_state + heads) + din * d
             else:
                 n += mlp
         return n
@@ -75,12 +99,23 @@ class ModelConfig:
 
     def layer_kind(self, i: int) -> str:
         """Block kind of layer i: MoE models lead with
-        ``first_dense_layers`` dense-FFN layers."""
+        ``first_dense_layers`` dense-FFN layers; a hybrid tiles
+        ``block_pattern``."""
+        if self.family == "ssm":
+            return "ssm"
         if self.family == "moe":
             return "attn" if i < self.first_dense_layers else "moe"
+        if self.family == "hybrid":
+            return self.block_pattern[i % len(self.block_pattern)]
         return "attn"
 
     @property
     def pattern(self) -> Tuple[str, ...]:
         """Block kinds of one scanned layer group."""
-        return ("moe",) if self.family == "moe" else ("attn",)
+        if self.family == "ssm":
+            return ("ssm",)
+        if self.family == "moe":
+            return ("moe",)
+        if self.family == "hybrid":
+            return self.block_pattern
+        return ("attn",)

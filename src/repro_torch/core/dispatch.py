@@ -4,7 +4,8 @@ Counterpart of ``repro/core/dispatch.py``, limited to the ops of the
 paper's MLP and LeNet-5 (``dense``, ``conv2d_im2col``, ``activation``,
 ``maxpool2d``), of the transformer LM (``rmsnorm``, ``layernorm``,
 ``glu_product``, ``attention``, ``attention_cache``, ``attention_paged``,
-``embedding``, ``residual``) and of its MoE blocks (``dense_batched``).
+``embedding``, ``residual``), of its MoE blocks (``dense_batched``) and
+the general contraction ``einsum`` (the recurrent block's depthwise conv).
 Each op is registered with two impls:
 
   * ``eager``  : pure torch from ``core/pfp_layers.py`` (the JAX package's
@@ -23,8 +24,7 @@ norm -> bias-free SRM dense -> activation onto the fused ``norm_dense_act``
 kernel when the tuned-schedule cache (``repro_torch.tuning``) holds a
 schedule for its shape; anything else runs the exact unfused chain. It is
 the only op that consults the cache: no other kernel of the port takes a
-tile from it. The reference's general ``einsum`` op (with the depthwise
-lift onto ``dense_batched``) is not ported yet.
+tile from it.
 """
 from __future__ import annotations
 
@@ -186,6 +186,92 @@ def pfp_dense_batched(x, w: GaussianTensor, *, formulation: str = "srm",
     _check_formulation(formulation)
     return get_op("dense_batched", impl)(_to_compute_rep(x, formulation), w,
                                          formulation, rows)
+
+
+# ---------------------------------------------------------------------------
+# einsum — the general PFP contraction
+# ---------------------------------------------------------------------------
+# Specs the kernel impl has no kernel for run the eager impl; each such call
+# adds one to FALLBACKS under "einsum:<spec>:<formulation>", so a silent
+# fallback shows (the reference counts them in its op profiler).
+FALLBACKS: Dict[str, int] = {}
+_DENSE_SPECS = ("...k,kn->...n", "bk,kn->bn", "btk,kn->btn")
+
+
+def reset_fallbacks() -> None:
+    FALLBACKS.clear()
+
+
+@register("einsum", "eager")
+def _einsum_eager(subscripts, x, w, formulation):
+    return pfp_layers.pfp_einsum(subscripts, x, w, formulation=formulation)
+
+
+def _is_batched_mm(spec: str) -> bool:
+    """Whether ``spec`` is 'bmk,bkn->bmn'-shaped (the MoE 'ecd,edf->ecf'):
+    rank-3 operands sharing a leading batch letter and one contraction
+    letter, a batch of independent PFP dense contractions."""
+    if "->" not in spec or "." in spec:
+        return False
+    ins, out = spec.split("->")
+    if ins.count(",") != 1:
+        return False
+    lhs, rhs = ins.split(",")
+    if not len(lhs) == len(rhs) == len(out) == 3:
+        return False
+    return (lhs[0] == rhs[0] == out[0] and lhs[2] == rhs[1]
+            and out[1] == lhs[1] and out[2] == rhs[2])
+
+
+@register("einsum", "kernel")
+def _einsum_kernel(subscripts, x, w, formulation):
+    spec = subscripts.replace(" ", "")
+    if is_gaussian(w):
+        if spec in _DENSE_SPECS:
+            return _dense_kernel(x, w, formulation)
+        if _is_batched_mm(spec):
+            return _dense_batched_kernel(x, w, formulation, None)
+        if spec == "wbtr,wr->btr":
+            return _depthwise_kernel(x, w, formulation)
+    key = f"einsum:{spec}:{formulation}"
+    FALLBACKS[key] = FALLBACKS.get(key, 0) + 1
+    return _einsum_eager(subscripts, x, w, formulation)
+
+
+def _depthwise_kernel(x, w, formulation):
+    """'wbtr,wr->btr' on the batched dense kernel: out[b, t, r] =
+    sum_w x[w, b, t, r] w[w, r] is, per channel r, a (B*T, W) x (W, 1)
+    product, so the R channels are R "experts" of one launch."""
+    wd, b, t, r = (x.mean if is_gaussian(x) else x).shape
+
+    def to_tokens(a):   # (W, B, T, R) -> (R, B*T, W)
+        return a.permute(3, 1, 2, 0).reshape(r, b * t, wd)
+
+    def to_weights(a):  # (W, R) -> (R, W, 1)
+        return a.t().unsqueeze(-1)
+
+    xb = (GaussianTensor(to_tokens(x.mean), to_tokens(x.second), x.rep)
+          if is_gaussian(x) else to_tokens(x))
+    wb = GaussianTensor(to_weights(w.mean), to_weights(w.second), w.rep)
+    out = _dense_batched_kernel(xb, wb, formulation, None)  # (R, B*T, 1)
+
+    def back(a):
+        return a.reshape(r, b, t).permute(1, 2, 0)
+
+    return GaussianTensor(back(out.mean), back(out.var), VAR)
+
+
+def pfp_einsum(subscripts: str, x, w: GaussianTensor, *,
+               formulation: str = "srm",
+               impl: Optional[str] = None) -> GaussianTensor:
+    """General PFP contraction, for specs where each output is a sum of
+    products of distinct (x, w) pairs. Consumes SRM (VAR for Eq. 7), emits
+    VAR. The kernel impl runs dense-shaped specs on the dense kernel,
+    'bmk,bkn->bmn' and the depthwise taps 'wbtr,wr->btr' on the batched
+    dense kernel, and any other spec eagerly (counted in FALLBACKS)."""
+    _check_formulation(formulation)
+    return get_op("einsum", impl)(subscripts, _to_compute_rep(x, formulation),
+                                  w, formulation)
 
 
 # ---------------------------------------------------------------------------

@@ -56,7 +56,9 @@
 // position-major (block row r is query row r / G of head kvh * G + r % G),
 // so each K / V tile is read once per KV head, not once per query head: a
 // block of BQ = 8 rows at decode (G * Tq <= 8: 4 real rows for granite-8b,
-// 1 for deepseek-moe-16b), of 64 rows otherwise. What they guarantee: a
+// 1 for deepseek-moe-16b), of 64 rows otherwise (at head_dim 256, 16 rows
+// where G * Tq <= 16: recurrentgemma-2b's 10 at decode, else 32; see
+// PFP_ATTENTION_WIDE_BLOCKS). What they guarantee: a
 // query row's two outputs are a function of its query, the K, mu_v and var_v
 // rows of its valid keys, its position, kv_len, the window and the scale
 // only; not of Tq, B, the other rows or slots, the page size or order, the
@@ -64,8 +66,9 @@
 // so:
 //  * Segments: the keys are cut at fixed absolute positions into segments of
 //    kSegment keys. Within a segment a fresh online softmax runs over its
-//    32-key tiles in key order: each score one fmaf chain over d; the tile's
-//    max; p; the warp's xor-tree sum of p (lane l holds key k0 + l); then
+//    tiles of 32 keys (16 at head_dim 256) in key order: each score one
+//    fmaf chain over d; the tile's max; p; the warp's xor-tree sum of p
+//    (lane l holds key k0 + l, lanes past the tile 0); then
 //    P.mu_v and P^2.var_v as one fmaf chain over the keys in order, after
 //    the accumulators are rescaled by alpha and alpha^2. Every rounding is
 //    spelled out (__fmul_rn, __fmaf_rn, __fsub_rn), so nvcc contracts
@@ -492,9 +495,19 @@ pfp_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 constexpr int kSegment = 128;   // keys per segment: attention_plan's SEGMENT
 constexpr int kStages = 2;      // tiles in the cp.async ring
 constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr int kWideBK = 16;     // keys per tile at head_dim 256
 
-// The instantiated block sizes (rows): kernels/pfp_attention.py BLOCK_ROWS.
+// The instantiated block sizes (rows): kernels/pfp_attention.py BLOCK_ROWS
+// up to head_dim 128, WIDE_BLOCK_ROWS at 256. At head_dim 256 a tile of 32
+// keys alone takes 99 KB, so the ring of two and an 8-row block's Q come
+// to 202 KB and any larger block passes the SM's 228 KB. There every block
+// stages tiles of kWideBK keys instead (a ring of 99 KB), which leaves room
+// for 16 rows (146 KB) and 32 rows (195 KB), one block an SM. Each head_dim
+// keeps one tile size for all its blocks, and the segments stay kSegment
+// keys at fixed positions, so the bit contract holds at 256 as below: the
+// bits of a row depend on the tile size, which depends on D alone.
 #define PFP_ATTENTION_BLOCKS(X) X(8) X(64)
+#define PFP_ATTENTION_WIDE_BLOCKS(X) X(16) X(32)
 
 // The fold of a segment's partial (m_b, l_b, acc_b) into a running state
 // (m, l, acc) of one row: m' = max(m, m_b), alpha = exp(m - m'),
@@ -524,25 +537,28 @@ __device__ __forceinline__ float fold_acc(float acc, float acc_b, float a,
   return __fmaf_rn(acc_b, b, __fmul_rn(acc, a));
 }
 
-// A cache block of BQ rows (8 at decode, 64 otherwise). Warp w owns rows
-// srow = w * kRW .. (kRW = BQ / 8): it scores them (lane l on key k0 + l)
+// A cache block of BQ rows (8 at decode, 64 otherwise; 16 and 32 at head_dim
+// 256). Warp w owns rows srow = w * kRW .. (kRW = BQ / 8): it scores them
+// (lane l on key k0 + l; with tiles of 16 keys, lanes 16 .. 31 score none)
 // and accumulates them (lane l on columns l, l + 32, ... of both tensors),
 // so p, alpha and the fold coefficients never leave the warp, and one
 // barrier a tile (the ring's) is the only one. A warp with no real row
 // only helps copy the tiles. A thread's accumulator a = (i * kCPL + c) * 2
 // + t is row srow + i, column lane + 32 c, tensor t (0 mean, 1 variance).
-// Shared memory, in floats: Q (BQ x D); the ring of kStages tiles, each K
-// (kBK x kLd) then mu_v and var_v (kBK x D); p (BQ x kBK); the running
+// Shared memory, in floats: Q (BQ x D); the ring of kStages tiles of kKeys
+// keys, each K (kKeys x kLd) then mu_v and var_v (kKeys x D); p
+// (BQ x kKeys); the running
 // accumulators where they are many ([a][thread]). A segment's partial for
 // the cluster exchange (kAcc x kThreads accumulators, then m and l per
 // row) lies over the ring, which is idle between rounds.
 template <int D, int BQ>
 struct KvTile {
+  static constexpr int kKeys = D > 128 ? kWideBK : kBK;  // keys a tile
   static constexpr int kRW = BQ / kWarps;
   static constexpr int kCPL = D >= 32 ? D / 32 : 1;
   static constexpr int kAcc = kRW * kCPL * 2;
   static constexpr int kLd = D + 4;
-  static constexpr int kStage = kBK * kLd + 2 * kBK * D;
+  static constexpr int kStage = kKeys * kLd + 2 * kKeys * D;
   static constexpr int kPartM = kAcc * kThreads;  // offsets in a partial
   static constexpr int kPartL = kPartM + BQ;
   static constexpr int kRingFloats = kStages * kStage > kPartL + BQ
@@ -552,7 +568,7 @@ struct KvTile {
   static constexpr int kRing = kQ + BQ * D;
   static constexpr int kP = kRing + kRingFloats;
   static constexpr bool kRunShared = kAcc > 16;  // else 64 more registers
-  static constexpr int kRun = kP + BQ * kBK;
+  static constexpr int kRun = kP + BQ * kKeys;
   static constexpr int kFloats = kRun + (kRunShared ? kAcc * kThreads : 0);
   static constexpr int kBytes = kFloats * 4;
   static_assert(BQ % kWarps == 0, "BQ must be a multiple of the warp count");
@@ -580,6 +596,7 @@ pfp_attention_kv_kernel(const float* __restrict__ q,
   constexpr int RW = L::kRW;
   constexpr int CPL = L::kCPL;
   constexpr int NA = L::kAcc;
+  constexpr int BK = L::kKeys;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* s_q = smem + L::kQ;
@@ -644,14 +661,14 @@ pfp_attention_kv_kernel(const float* __restrict__ q,
     run(a) = 0.0f;
   }
 
-  // Stage tile t (keys t * kBK ..) into ring stage st; keys from hi on are
+  // Stage tile t (keys t * BK ..) into ring stage st; keys from hi on are
   // zero-filled (they are valid for no row of the block).
   auto load_tile = [&](int t, int st) {
     float* sk = ring + st * L::kStage;
-    float* svm = sk + kBK * L::kLd;
-    float* svv = svm + kBK * D;
-    const int k0 = t * kBK;
-    for (int e = tid; e < kBK * D4; e += kThreads) {
+    float* svm = sk + BK * L::kLd;
+    float* svv = svm + BK * D;
+    const int k0 = t * BK;
+    for (int e = tid; e < BK * D4; e += kThreads) {
       const int r = e / D4, c = e % D4, j = k0 + r;
       const bool ok = j < hi;
       long long row = 0;
@@ -679,8 +696,8 @@ pfp_attention_kv_kernel(const float* __restrict__ q,
     for (int i = 0; i < RW; ++i) s[i] = 0.0f;
 #pragma unroll 4
     for (int d4 = 0; d4 < D4; ++d4) {
-      const float4 kv =
-          *reinterpret_cast<const float4*>(sk + lane * L::kLd + 4 * d4);
+      const float4 kv = *reinterpret_cast<const float4*>(
+          sk + (lane % BK) * L::kLd + 4 * d4);
 #pragma unroll
       for (int i = 0; i < RW; ++i) {
         const float4 qv =
@@ -691,10 +708,10 @@ pfp_attention_kv_kernel(const float* __restrict__ q,
         s[i] = fmaf(qv.w, kv.w, s[i]);
       }
     }
-    const int key = t * kBK + lane;
+    const int key = t * BK + lane;
 #pragma unroll
     for (int i = 0; i < RW; ++i) {
-      const bool ok = srow + i < nrows && key < klim &&
+      const bool ok = lane < BK && srow + i < nrows && key < klim &&
                       (!causal || pos[i] >= key) &&
                       (window <= 0 || key > pos[i] - window);
       const float sc = ok ? __fmul_rn(s[i], scale) : kNegInf;
@@ -703,15 +720,15 @@ pfp_attention_kv_kernel(const float* __restrict__ q,
       const float p = ok ? expf(__fsub_rn(sc, m_next)) : 0.0f;
       l[i] = __fmaf_rn(l[i], alpha[i], warp_sum(p));
       m[i] = m_next;
-      s_p[(srow + i) * kBK + lane] = p;
+      if (lane < BK) s_p[(srow + i) * BK + lane] = p;
     }
   };
 
   // P.V of the staged tile: rescale by alpha (mean) and alpha^2
   // (variance), then one fmaf per key in key order on each accumulator.
   auto accumulate = [&](const float* sk) {
-    const float* svm = sk + kBK * L::kLd;
-    const float* svv = svm + kBK * D;
+    const float* svm = sk + BK * L::kLd;
+    const float* svv = svm + BK * D;
 #pragma unroll
     for (int i = 0; i < RW; ++i) {
       const float a2 = __fmul_rn(alpha[i], alpha[i]);
@@ -724,7 +741,7 @@ pfp_attention_kv_kernel(const float* __restrict__ q,
     }
     if (D < 32 && lane >= D) return;
 #pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
+    for (int j = 0; j < BK; ++j) {
       float vmj[CPL], vvj[CPL];
 #pragma unroll
       for (int c = 0; c < CPL; ++c) {
@@ -733,7 +750,7 @@ pfp_attention_kv_kernel(const float* __restrict__ q,
       }
 #pragma unroll
       for (int i = 0; i < RW; ++i) {
-        const float p = s_p[(srow + i) * kBK + j];
+        const float p = s_p[(srow + i) * BK + j];
         const float p2 = __fmul_rn(p, p);
 #pragma unroll
         for (int c = 0; c < CPL; ++c) {
@@ -795,7 +812,7 @@ pfp_attention_kv_kernel(const float* __restrict__ q,
       __syncwarp();
       accumulate(sk);
       if (fold_segments &&
-          (f + 1 == n || ((t + 1) * kBK) % kSegment == 0)) {
+          (f + 1 == n || ((t + 1) * BK) % kSegment == 0)) {
         fold([&](int i) { return m[i]; }, [&](int i) { return l[i]; },
              [&](int a) { return acc[a]; });
         restart();
@@ -805,7 +822,7 @@ pfp_attention_kv_kernel(const float* __restrict__ q,
   };
 
   if (cluster == 1) {
-    if (nsegs > 0) run_tiles(lo / kBK, (hi + kBK - 1) / kBK, true);
+    if (nsegs > 0) run_tiles(lo / BK, (hi + BK - 1) / BK, true);
   } else {
     cg::cluster_group cl = cg::this_cluster();
     float* part = ring;
@@ -814,8 +831,8 @@ pfp_attention_kv_kernel(const float* __restrict__ q,
       const int active = min(cluster, nsegs - k * cluster);
       if (rank < active) {
         const int s0 = (seg_first + k * cluster + rank) * kSegment;
-        run_tiles(max(lo, s0) / kBK,
-                  (min(hi, s0 + kSegment) + kBK - 1) / kBK, false);
+        run_tiles(max(lo, s0) / BK,
+                  (min(hi, s0 + kSegment) + BK - 1) / BK, false);
       }
       __syncthreads();  // the ring is drained and read: it takes the partial
       if (rank < active && scoring) {
@@ -937,7 +954,11 @@ template <int D, bool PAGED>
 int launch_kv_block(const KvArgs& a, int block_rows, cudaStream_t stream) {
 #define PFP_ATTENTION_CASE(BQ) \
   if (block_rows == BQ) return launch_kv<D, BQ, PAGED>(a, stream);
-  PFP_ATTENTION_BLOCKS(PFP_ATTENTION_CASE)
+  if constexpr (D > 128) {
+    PFP_ATTENTION_WIDE_BLOCKS(PFP_ATTENTION_CASE)
+  } else {
+    PFP_ATTENTION_BLOCKS(PFP_ATTENTION_CASE)
+  }
 #undef PFP_ATTENTION_CASE
   return static_cast<int>(cudaErrorInvalidValue);  // not instantiated
 }
@@ -958,7 +979,11 @@ template <int D, bool PAGED>
 int kv_block_rows(int block_rows, int* bytes, int* per_sm) {
 #define PFP_ATTENTION_CASE(BQ) \
   if (block_rows == BQ) return kv_block<D, BQ, PAGED>(bytes, per_sm);
-  PFP_ATTENTION_BLOCKS(PFP_ATTENTION_CASE)
+  if constexpr (D > 128) {
+    PFP_ATTENTION_WIDE_BLOCKS(PFP_ATTENTION_CASE)
+  } else {
+    PFP_ATTENTION_BLOCKS(PFP_ATTENTION_CASE)
+  }
 #undef PFP_ATTENTION_CASE
   return static_cast<int>(cudaErrorInvalidValue);  // not instantiated
 }
@@ -1004,10 +1029,11 @@ PFP_EXPORT int pfp_attention_launch(const void* q, const void* k,
 // (B, Hkv, S, D) and page_table unused; paged = 1: k, v_mu, v_var
 // (NP, Hkv, S, D) pools of pages of S rows, page_table (B, P) int32.
 // q_start, kv_len (B,) int32; window <= 0 means none. Outputs (B, H, Tq, D).
-// All pointers 16-byte aligned. head_dim D in {16, 64, 128}; H % Hkv == 0;
-// B * Hkv <= 65535. A table entry outside [0, NP) reads the trash page 0.
-// The plan (kernels/pfp_attention.py attention_plan): block_rows, one of
-// PFP_ATTENTION_BLOCKS; cluster, 1 .. 8 blocks sharing a row tile's keys.
+// All pointers 16-byte aligned. head_dim D in {16, 64, 128, 256};
+// H % Hkv == 0; B * Hkv <= 65535. A table entry outside [0, NP) reads the
+// trash page 0. The plan (kernels/pfp_attention.py attention_plan):
+// block_rows, one of PFP_ATTENTION_BLOCKS (PFP_ATTENTION_WIDE_BLOCKS at
+// D 256); cluster, 1 .. 8 blocks sharing a row tile's keys.
 // Any other plan is refused.
 PFP_EXPORT int pfp_attention_kv_launch(
     int paged, const void* q, const void* k, const void* v_mu,
@@ -1044,6 +1070,10 @@ PFP_EXPORT int pfp_attention_kv_launch(
       return launch_kv_block<128, false>(a, block_rows, s);
     case 128 * 2 + 1:
       return launch_kv_block<128, true>(a, block_rows, s);
+    case 256 * 2:
+      return launch_kv_block<256, false>(a, block_rows, s);
+    case 256 * 2 + 1:
+      return launch_kv_block<256, true>(a, block_rows, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1067,6 +1097,10 @@ PFP_EXPORT int pfp_attention_kv_block(int paged, int D, int block_rows,
       return kv_block_rows<128, false>(block_rows, smem_bytes, blocks_per_sm);
     case 128 * 2 + 1:
       return kv_block_rows<128, true>(block_rows, smem_bytes, blocks_per_sm);
+    case 256 * 2:
+      return kv_block_rows<256, false>(block_rows, smem_bytes, blocks_per_sm);
+    case 256 * 2 + 1:
+      return kv_block_rows<256, true>(block_rows, smem_bytes, blocks_per_sm);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -36,17 +36,21 @@ from repro_torch.kernels.ref import (pfp_attention_cache_ref,  # noqa: F401
                                      pfp_attention_paged_ref,
                                      pfp_attention_ref)
 
-# The reduced test config, musicgen-medium and granite-8b; 256 (gemma)
-# needs a smaller cache-kernel block (ROADMAP.md).
+# Row 9's widths: the reduced test config, musicgen-medium and granite-8b.
 HEAD_DIMS = (16, 64, 128)
+# Rows 10 and 11 also take recurrentgemma-2b's 256 (and gemma-7b's).
+CACHE_HEAD_DIMS = HEAD_DIMS + (256,)
 
 FLASH_ROWS = 128       # rows a block without a cache: Flash<D>::kRows
 SEGMENT = 128          # keys a segment: csrc/pfp_attention.cu kSegment
 BLOCK_ROWS = (8, 64)   # rows a block (decode, else): PFP_ATTENTION_BLOCKS
+# At head_dim 256 (tiles of WIDE_TILE_KEYS): PFP_ATTENTION_WIDE_BLOCKS.
+WIDE_BLOCK_ROWS = (16, 32)
 MAX_CLUSTER = 8        # the portable cluster size: its kMaxCluster
 # The cache kernel's threads, warps, keys a tile and tiles in its ring:
-# kThreads, kWarps, kBK and kStages.
+# kThreads, kWarps, kBK and kStages; kWideBK keys a tile at head_dim 256.
 THREADS, WARPS, TILE_KEYS, STAGES = 256, 8, 32, 2
+WIDE_TILE_KEYS = 16
 # The H100: SMs, and an SM's threads and shared memory, of which the
 # runtime keeps 1 KB a block, and its registers, handed out to a thread in
 # steps of 8.
@@ -59,7 +63,19 @@ SM_REGISTERS, REGISTER_STEP = 64 * 1024, 8
 # block at 16 to four; the gpu tests hold blocks_per_sm to the library's
 # occupancy, so a compiler that moves them shows there.
 KV_REGISTERS = {(16, 8): 64, (16, 64): 182, (64, 8): 64, (64, 64): 183,
-                (128, 8): 74, (128, 64): 247}
+                (128, 8): 74, (128, 64): 247, (256, 16): 125,
+                (256, 32): 211}
+
+
+def block_sizes(d: int):
+    """The block sizes (rows) instantiated at head_dim ``d``."""
+    return WIDE_BLOCK_ROWS if d > 128 else BLOCK_ROWS
+
+
+def tile_keys(d: int) -> int:
+    """Keys a staged tile at head_dim ``d``: one size for every block of a
+    width, so a row's bits do not depend on the block."""
+    return WIDE_TILE_KEYS if d > 128 else TILE_KEYS
 
 
 class AttentionPlan(NamedTuple):
@@ -82,18 +98,20 @@ def kv_block_bytes(d: int, block_rows: int) -> int:
     lays it out: Q, the ring of K / mu_v / var_v tiles (or a segment's
     partial laid over it), p, and the running accumulators where a thread
     has more than 16."""
+    keys = tile_keys(d)
     acc = block_rows // WARPS * max(d // 32, 1) * 2
-    stage = TILE_KEYS * (d + 4) + 2 * TILE_KEYS * d
+    stage = keys * (d + 4) + 2 * keys * d
     ring = max(STAGES * stage, acc * THREADS + 2 * block_rows)
     run = acc * THREADS if acc > 16 else 0
-    return 4 * (block_rows * d + ring + block_rows * TILE_KEYS + run)
+    return 4 * (block_rows * d + ring + block_rows * keys + run)
 
 
 def blocks_per_sm(d: int, block_rows: int) -> int:
     """Blocks an SM holds by shared memory, threads and registers
     (``KV_REGISTERS``): 2 decode blocks (102 KB) or 1 of 64 rows (201 KB)
     at head_dim 128, shared memory binding; at head_dim 64, 4 decode blocks
-    (52 KB, 64 registers) and 1 of 64 rows (105 KB, but 183 registers)."""
+    (52 KB, 64 registers) and 1 of 64 rows (105 KB, but 183 registers); at
+    256, 1 of 16 rows (146 KB) or of 32 (195 KB)."""
     regs = -(-KV_REGISTERS[(d, block_rows)] // REGISTER_STEP) * REGISTER_STEP
     return min(SM_SMEM // (kv_block_bytes(d, block_rows) + SMEM_RESERVED),
                SM_THREADS // THREADS, SM_REGISTERS // (regs * THREADS))
@@ -105,33 +123,51 @@ def attention_plan(b: int, h: int, hkv: int, tq: int, capacity: int,
     slot (S contiguous, P * page_size paged), never its ``kv_len``, which
     stays on the device.
 
-    The decode block (8 rows) where the G query heads of a KV head times
-    Tq fit it, else 64 rows. The cluster is the largest power of two (at
-    most 8 and the cache's segment count) whose blocks still run in one
-    wave at :func:`blocks_per_sm`, else 1: a second wave cost more than the
-    keys it split (PERF.md, the segment sweep). So 8 at a 4-slot decode of
-    granite-8b (256 blocks), 4 of deepseek-moe-16b (256) and of
-    musicgen-medium (384, four blocks an SM at head_dim 64), 2 at a 128-row
-    prefill chunk of one slot (128; musicgen's 96), 1 where the row tiles
-    fill the card."""
+    The smallest block of :func:`block_sizes` that holds the G query heads
+    of a KV head times Tq, else the largest: up to head_dim 128 the decode
+    block (8 rows) where they fit it, else 64 rows; at 256, 16 rows (the 10
+    of recurrentgemma-2b's decode step) or 32. The cluster is the largest
+    power of two (at most 8 and the cache's segment count) whose blocks
+    still run in one wave at :func:`blocks_per_sm`, else 1: a second wave
+    cost more than the keys it split (PERF.md, the segment sweep). So 8 at
+    a 4-slot decode of granite-8b (256 blocks), 4 of deepseek-moe-16b (256)
+    and of musicgen-medium (384, four blocks an SM at head_dim 64), 2 at a
+    128-row prefill chunk of one slot (128; musicgen's 96), 1 where the row
+    tiles fill the card. A block that no SM can hold is refused."""
+    if d not in CACHE_HEAD_DIMS:
+        raise ValueError(f"no cache attention kernel for head_dim {d}; "
+                         f"built for {CACHE_HEAD_DIMS}")
     rows = (h // hkv) * tq
-    bq = BLOCK_ROWS[0] if rows <= BLOCK_ROWS[0] else BLOCK_ROWS[1]
+    sizes = block_sizes(d)
+    bq = next((r for r in sizes if rows <= r), sizes[-1])
+    per_sm = blocks_per_sm(d, bq)
+    if per_sm < 1:
+        raise ValueError(f"a block of {bq} rows at head_dim {d} fits no SM")
     blocks = -(-rows // bq) * b * hkv
     limit = min(MAX_CLUSTER, segments(capacity))
     cluster = 1
     while (2 * cluster <= limit
-           and blocks * 2 * cluster <= SMS * blocks_per_sm(d, bq)):
+           and blocks * 2 * cluster <= SMS * per_sm):
         cluster *= 2
     return AttentionPlan(bq, cluster)
 
 
-def check_plan(plan) -> AttentionPlan:
-    """``plan`` as an AttentionPlan; raises if the kernel does not take it."""
+def check_plan(plan, d: int) -> AttentionPlan:
+    """``plan`` as an AttentionPlan; raises if the kernel does not take it
+    at head_dim ``d``, or no SM holds its block."""
     plan = AttentionPlan(*plan)
-    if (plan.block_rows not in BLOCK_ROWS
+    if d not in CACHE_HEAD_DIMS:
+        raise ValueError(f"attention plan {tuple(plan)}: no cache attention "
+                         f"kernel for head_dim {d}")
+    sizes = block_sizes(d)
+    if (plan.block_rows not in sizes
             or not 1 <= plan.cluster <= MAX_CLUSTER):
         raise ValueError(f"attention plan {tuple(plan)}: block_rows in "
-                         f"{BLOCK_ROWS}, cluster 1..{MAX_CLUSTER}")
+                         f"{sizes} at head_dim {d}, cluster "
+                         f"1..{MAX_CLUSTER}")
+    if blocks_per_sm(d, plan.block_rows) < 1:
+        raise ValueError(f"attention plan {tuple(plan)}: a block of "
+                         f"{plan.block_rows} rows at head_dim {d} fits no SM")
     return plan
 
 
@@ -208,9 +244,9 @@ def _kv_launch(paged, q_mu, k, v_mu, v_var, page_table, q_start, kv_len, *,
     if tuple(q_start.shape) != (b,) or tuple(kv_len.shape) != (b,):
         raise ValueError(f"q_start {tuple(q_start.shape)} and kv_len "
                          f"{tuple(kv_len.shape)} must be ({b},)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"no attention kernel for head_dim {d}; built for "
-                         f"{HEAD_DIMS}")
+    if d not in CACHE_HEAD_DIMS:
+        raise ValueError(f"no cache attention kernel for head_dim {d}; "
+                         f"built for {CACHE_HEAD_DIMS}")
     if b * hkv > 65535:
         raise ValueError(f"B * Hkv = {b * hkv} is above the grid's 65535")
     q_mu, k, v_mu, v_var = (aligned16(t) for t in (q_mu, k, v_mu, v_var))
@@ -244,7 +280,7 @@ def pfp_attention_cache_cuda(q_mu, k_mu, v_mu, v_var, q_start, kv_len, *,
     (read there: no host sync). Returns fp32 (mean, var) of q's shape.
     ``plan`` overrides :func:`attention_plan` (to time or test one plan
     against another); one the kernel does not take raises."""
-    plan = None if plan is None else check_plan(plan)
+    plan = None if plan is None else check_plan(plan, q_mu.shape[-1])
     q_mu, k_mu, v_mu, v_var = cuda_operands(q_mu, k_mu, v_mu, v_var)
     if k_mu.dim() != 4 or k_mu.shape[0] != q_mu.shape[0]:
         raise ValueError(f"cache {tuple(k_mu.shape)} does not match the "
@@ -263,7 +299,7 @@ def pfp_attention_paged_cuda(q_mu, k_pages, v_pages, vv_pages, page_table,
     (NP, Hkv, page_size, D) CUDA tensors read through ``page_table``
     (B, P); q_start / kv_len (B,). Returns fp32 (mean, var) of q's shape.
     ``plan`` as in :func:`pfp_attention_cache_cuda`."""
-    plan = None if plan is None else check_plan(plan)
+    plan = None if plan is None else check_plan(plan, q_mu.shape[-1])
     q_mu, k_pages, v_pages, vv_pages = cuda_operands(q_mu, k_pages, v_pages,
                                                      vv_pages)
     if page_table.dim() != 2 or page_table.shape[0] != q_mu.shape[0] \

@@ -1,15 +1,18 @@
 """Decoder LM: the dense transformer (granite, llama-style), the
-mixture-of-experts family (deepseek-moe, llama4-scout) and the audio decoder
-(musicgen: frame embeddings in, LayerNorm, sinusoidal positions, MHA).
+mixture-of-experts family (deepseek-moe, llama4-scout), the audio decoder
+(musicgen: frame embeddings in, LayerNorm, sinusoidal positions, MHA), the
+hybrid of RG-LRU recurrent blocks and local attention (recurrentgemma) and
+the Mamba2 state-space model (mamba2).
 
-Counterpart of ``repro/models/lm.py`` for ``attn`` and ``moe`` blocks:
-token embedding (or the ``frame_embeddings`` input where
+Counterpart of ``repro/models/lm.py`` for ``attn``, ``moe``, ``rec`` and
+``ssm`` blocks: token embedding (or the ``frame_embeddings`` input where
 ``cfg.embed_inputs`` is false), leading dense-FFN layers (``head{i}``,
 DeepSeekMoE's first layer), the stacked layer groups of ``cfg.pattern``,
 an unstacked tail (``tail{i}``) where the layers do not tile, the final
 norm and the LM head.
-Every block is pre-norm: norm -> attention -> residual, norm -> MLP (or
-MoE) -> residual. One set of Bayesian leaves serves DETERMINISTIC and PFP.
+Every block is pre-norm: norm -> attention (or the recurrent block) ->
+residual, norm -> MLP (or MoE) -> residual; a Mamba2 block is norm ->
+SSD -> residual. One set of Bayesian leaves serves DETERMINISTIC and PFP.
 
 The reference scans the stacked groups (``params['stack']``, leading axis =
 group); here they are an ``nn.ModuleList`` run by a Python loop, and
@@ -18,18 +21,19 @@ group); here they are an ``nn.ModuleList`` run by a Python loop, and
 The same definition serves three programs, as in the reference:
 
   forward()      full-sequence pass, optionally filling decode state
-  prefill()      full-sequence pass into a fresh contiguous KV cache
+  prefill()      full-sequence pass into fresh contiguous decode state
   decode_step()  a step against per-layer decode state (one token, or a
-                 chunk of tokens under a paged page table)
+                 chunk of tokens)
 
 plus ``draft_decode_step()``, the mean-only pass that drafts tokens for
 speculative decoding.
 
 Decode state keeps the reference's tree: ``{'head0': KVCache, 'stack':
-{'b0': KVCache}}``, stack leaves with a leading layer-group axis, so the
-slot helpers work along the same axes (``_state_batch_axis``). The
-recurrent, SSM and cross-attention blocks come with later slices
-(ROADMAP.md).
+{'b0': RecurrentState, 'b2': KVCache}, 'tail0': SSMState}``, one entry a
+layer (a KV cache, or the recurrent or SSM carry), stack leaves with a
+leading layer-group axis, so the slot helpers work along the same axes
+(``_state_batch_axis``). Only attention caches page. Cross-attention
+blocks come with the VLM slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -52,13 +56,19 @@ from repro_torch.nn.layers import (NORMS, dense_init, embedding_init,
 from repro_torch.nn.mlp import MLPBlock
 from repro_torch.nn.module import Context
 from repro_torch.nn.moe import MoE, moe_apply, zero_aux
+from repro_torch.nn.recurrent import (RGLRU, RecurrentState,
+                                      init_recurrent_state, rglru_block_apply)
+from repro_torch.nn.ssm import Mamba2, SSMState, init_ssm_state, mamba2_apply
 
-FAMILIES = ("dense", "moe", "audio")
+FAMILIES = ("dense", "moe", "audio", "hybrid", "ssm")
+_STATES = {cls.__name__: cls for cls in (KVCache, PagedKVCache,
+                                          RecurrentState, SSMState)}
 
 
 class Block(nn.Module):
-    """One block: ``ln1``, ``attn``, ``ln2``, then ``mlp`` (kind ``attn``)
-    or ``moe`` (kind ``moe``)."""
+    """One block: ``ln1``, then ``attn`` (kinds ``attn`` and ``moe``),
+    ``rec`` (the RG-LRU block) or ``ssm`` (Mamba2); all but ``ssm`` then
+    ``ln2`` and ``mlp`` (``moe`` for kind ``moe``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, *, generator, device):
         super().__init__()
@@ -66,8 +76,16 @@ class Block(nn.Module):
         kw = dict(sigma_init=cfg.sigma_init, generator=generator,
                   device=device)
         self.ln1 = NORMS[cfg.norm](cfg.d_model, device=device)
-        self.attn = Attention(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                              cfg.head_dim, **kw)
+        if kind == "ssm":
+            self.ssm = Mamba2(cfg.d_model, d_state=cfg.ssm_state,
+                              expand=cfg.ssm_expand,
+                              head_dim=cfg.ssm_head_dim, **kw)
+            return
+        if kind == "rec":
+            self.rec = RGLRU(cfg.d_model, cfg.d_rnn or cfg.d_model, **kw)
+        else:
+            self.attn = Attention(cfg.d_model, cfg.num_heads,
+                                  cfg.num_kv_heads, cfg.head_dim, **kw)
         self.ln2 = NORMS[cfg.norm](cfg.d_model, device=device)
         if kind == "moe":
             self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.num_experts,
@@ -148,17 +166,26 @@ def _block_apply(block: Block, x, ctx: Context, cfg: ModelConfig, *,
                  positions, standard_positions: bool, state=None,
                  cache_len=None, page_table=None, write_start=None,
                  moe_aux_loss: bool = True):
-    """Returns (x, new_state, aux): aux is the MoE aux dict, zero for an
-    ``attn`` block."""
+    """Returns (x, new_state, aux): aux is the MoE aux dict, zero for every
+    block but ``moe``."""
     h = block.ln1(x, ctx)
-    attn_out, new_state = attention_apply(
-        block.attn, h, ctx, num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-        positions=positions, causal=True, window=cfg.window or None,
-        rope_theta=cfg.rope_theta if cfg.positional == "rope" else None,
-        cache=state, cache_len=cache_len, page_table=page_table,
-        write_start=write_start, standard_positions=standard_positions)
-    x = residual_add(x, attn_out)
+    if block.kind == "ssm":
+        out, new_state = mamba2_apply(
+            block.ssm, h, ctx, d_state=cfg.ssm_state, expand=cfg.ssm_expand,
+            head_dim=cfg.ssm_head_dim, chunk=min(cfg.ssm_chunk, x.shape[1]),
+            state=state)
+        return residual_add(x, out), new_state, zero_aux(positions.device)
+    if block.kind == "rec":
+        out, new_state = rglru_block_apply(block.rec, h, ctx, state=state)
+    else:
+        out, new_state = attention_apply(
+            block.attn, h, ctx, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            positions=positions, causal=True, window=cfg.window or None,
+            rope_theta=cfg.rope_theta if cfg.positional == "rope" else None,
+            cache=state, cache_len=cache_len, page_table=page_table,
+            write_start=write_start, standard_positions=standard_positions)
+    x = residual_add(x, out)
     h = block.ln2(x, ctx)
     if block.kind == "moe":
         ffn_out, aux = moe_apply(
@@ -275,16 +302,16 @@ def forward(model: LM, cfg: ModelConfig, inputs: Mapping, ctx: Context, *,
 # Decode state
 # ---------------------------------------------------------------------------
 def _stacked(cfg: ModelConfig, make) -> dict:
-    """One cache per attention layer: ``head{i}`` / ``tail{i}`` entries
-    batch-first, ``{'stack': {'b0': cache}}`` with a leading layer-group
-    axis on every leaf."""
+    """One state per layer, ``make(kind)``: ``head{i}`` / ``tail{i}``
+    entries batch-first, ``{'stack': {'b0': state}}`` with a leading
+    layer-group axis on every leaf."""
     _, groups, _ = _group_counts(cfg)
     states = {}
-    for name, _, group in _layers(cfg):
+    for name, kind, group in _layers(cfg):
         if group is None:
-            states[name] = make()
+            states[name] = make(kind)
         elif group == 0:
-            proto = make()
+            proto = make(kind)
             states.setdefault("stack", {})[name] = type(proto)(*(
                 leaf.unsqueeze(0).repeat(groups, *([1] * leaf.dim()))
                 for leaf in proto))
@@ -293,11 +320,24 @@ def _stacked(cfg: ModelConfig, make) -> dict:
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       device: DeviceLike = None) -> dict:
-    """Zeroed contiguous KV caches: (B, Hkv, max_len, Dh) leaves, with a
-    leading layer-group axis under ``stack``."""
+    """Zeroed contiguous decode state: a KV cache of (B, Hkv, max_len, Dh)
+    leaves for each attention layer, a ``RecurrentState`` or ``SSMState``
+    carry for each recurrent or SSM layer; a leading layer-group axis
+    under ``stack``."""
     device = resolve_device(device)
-    return _stacked(cfg, lambda: init_kv_cache(
-        batch, cfg.num_kv_heads, max_len, cfg.head_dim, device=device))
+
+    def make(kind):
+        if kind == "rec":
+            return init_recurrent_state(batch, cfg.d_rnn or cfg.d_model,
+                                        device=device)
+        if kind == "ssm":
+            return init_ssm_state(batch, cfg.d_model, d_state=cfg.ssm_state,
+                                  expand=cfg.ssm_expand,
+                                  head_dim=cfg.ssm_head_dim, device=device)
+        return init_kv_cache(batch, cfg.num_kv_heads, max_len, cfg.head_dim,
+                             device=device)
+
+    return _stacked(cfg, make)
 
 
 def init_paged_decode_state(cfg: ModelConfig, num_pages: int,
@@ -307,24 +347,31 @@ def init_paged_decode_state(cfg: ModelConfig, num_pages: int,
     ``num_pages`` pages (page 0 the trash page), (NP, Hkv, page_size, Dh)
     leaves, with a leading layer-group axis under ``stack``. Which pages
     belong to which slot lives in the page tables of the decode inputs, so
-    the tree has no slot axis. Every block the port has (``attn``,
-    ``moe``) keeps an attention cache, so every model pages."""
+    the tree has no slot axis. Only attention-family models page: a
+    recurrent or SSM carry has no positional validity mask, so it cannot
+    share a lockstep-written global pool (such models keep the contiguous
+    layout)."""
+    bad = sorted({k for k in cfg.pattern if k not in ("attn", "moe",
+                                                       "cross")})
+    if bad:
+        raise ValueError(
+            f"paged decode state supports attention-family models only; "
+            f"{cfg.name} has block kinds {bad}")
     device = resolve_device(device)
-    return _stacked(cfg, lambda: init_paged_kv_cache(
+    return _stacked(cfg, lambda kind: init_paged_kv_cache(
         num_pages, cfg.num_kv_heads, page_size, cfg.head_dim, device=device))
 
 
 def load_numpy_decode_state(tree, device: DeviceLike = None):
     """A decode-state tree of numpy arrays (the reference's, after
     ``np.asarray`` on each leaf) as the port's tensors on ``device``:
-    dicts stay dicts, a ``KVCache`` or ``PagedKVCache`` becomes the port's
-    class of the same name."""
+    dicts stay dicts, a ``KVCache``, ``PagedKVCache``, ``RecurrentState``
+    or ``SSMState`` becomes the port's class of the same name."""
     device = resolve_device(device)
     if isinstance(tree, Mapping):
         return {k: load_numpy_decode_state(v, device) for k, v in tree.items()}
-    name = type(tree).__name__
-    if name in ("KVCache", "PagedKVCache"):
-        cls = KVCache if name == "KVCache" else PagedKVCache
+    cls = _STATES.get(type(tree).__name__)
+    if cls is not None:
         return cls(*(torch.tensor(np.asarray(a), device=device)
                      for a in tree))
     return torch.tensor(np.asarray(tree), device=device)
@@ -338,13 +385,13 @@ def _state_batch_axis(path) -> int:
 
 
 def _map_with_path(fn, tree, *rest, path=()):
-    """Apply ``fn(path, leaf, *other_leaves)`` over dicts and cache
-    tuples."""
+    """Apply ``fn(path, leaf, *other_leaves)`` over dicts and state tuples
+    (KV caches and the recurrent and SSM carries)."""
     if isinstance(tree, Mapping):
         return {k: _map_with_path(fn, v, *(r[k] for r in rest),
                                   path=path + (k,))
                 for k, v in tree.items()}
-    if isinstance(tree, (KVCache, PagedKVCache)):
+    if isinstance(tree, tuple(_STATES.values())):
         return type(tree)(*(_map_with_path(fn, v, *(r[i] for r in rest),
                                            path=path + (i,))
                             for i, v in enumerate(tree)))
@@ -454,8 +501,9 @@ def draft_decode_step(model: LM, cfg: ModelConfig, inputs: Mapping, states,
 
 def prefill(model: LM, cfg: ModelConfig, inputs: Mapping, ctx: Context,
             max_len: int):
-    """Full-sequence pass into a fresh contiguous KV cache of ``max_len``
-    rows. Returns (last-position logits (B, 1, V), states)."""
+    """Full-sequence pass into fresh contiguous decode state (KV caches of
+    ``max_len`` rows, recurrent and SSM carries). Returns (last-position
+    logits (B, 1, V), states)."""
     batch = len(inputs["tokens"] if cfg.embed_inputs
                 else inputs["frame_embeddings"])
     states = init_decode_state(cfg, batch, max_len, device=ctx.device)

@@ -212,6 +212,30 @@ def load_numpy_params(module: nn.Module, tree: Mapping) -> nn.Module:
     return module
 
 
+def numpy_params(module: nn.Module) -> dict:
+    """The inverse of :func:`load_numpy_params`: ``module``'s parameters as
+    the reference's tree of numpy arrays (a :class:`BayesParam` as its leaf
+    dict, a plain parameter by name, an ``nn.ModuleList`` child stacked
+    along a leading axis)."""
+    tree = {name: p.detach().cpu().numpy()
+            for name, p in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        if isinstance(child, BayesParam):
+            tree[name] = {k: getattr(child, k).detach().cpu().numpy()
+                          for k in child.keys()}
+        elif isinstance(child, nn.ModuleList):
+            tree[name] = _stacked_tree([numpy_params(m) for m in child])
+        else:
+            tree[name] = numpy_params(child)
+    return tree
+
+
+def _stacked_tree(trees):
+    if isinstance(trees[0], Mapping):
+        return {k: _stacked_tree([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
 def _layer_of(tree, i: int, n: int):
     """Entry ``i`` of a stacked tree whose arrays lead with an axis of n."""
     if isinstance(tree, Mapping):

@@ -42,10 +42,13 @@ depend only on its own tokens and keys on the card (the dense and norm
 kernels' rows do not depend on M, the cache kernels' rows not on Tq, B or
 the page layout): a request's tokens and MI are the same on both pools,
 with and without prefix sharing, preemption or speculation, and batched
-second opinions are the sequential ones. An SVI second opinion runs the
-plain torch ops, whose attention reads the gathered pages on one pool and
-the cache on the other, so across the two pools it need only agree at
-tolerance.
+second opinions are the sequential ones. Models with recurrent or SSM
+carries (recurrentgemma, mamba2) feed each prompt token once, in
+exact-length chunks, and serve on the contiguous pool only: the paged
+pool, prefix sharing and speculation refuse them, as in the reference.
+An SVI second opinion runs the plain torch ops, whose attention reads the
+gathered pages on one pool and the cache on the other, so across the two
+pools it need only agree at tolerance.
 """
 from __future__ import annotations
 
@@ -206,15 +209,15 @@ class Engine:
             self.scheduler.max_len = config.max_len
         if self.scheduler.config.prefill_chunk > config.max_len:
             raise ValueError("prefill_chunk must not exceed max_len")
-        # Every prefill chunk runs at ONE shape: a fixed-size window sliding
-        # to the chunk's end, re-feeding earlier tokens — exact, since PFP
-        # k/v rows are deterministic per (token, position). Recurrent/SSM
-        # carries would see re-fed tokens twice and have no positional
-        # validity mask for the paged pool; the port has no such family.
-        if not all(k in ("attn", "moe", "cross") for k in cfg.pattern):
-            raise ValueError(
-                "the engine serves attention-family models only "
-                f"(recurrent/SSM carries are not ported): {cfg.name}")
+        # Attention-family models run every prefill chunk at ONE shape: a
+        # fixed-size window sliding to the chunk's end, re-feeding earlier
+        # tokens — exact, since PFP k/v rows are deterministic per (token,
+        # position). Models with recurrent/SSM carries must see each token
+        # exactly once, so they take exact-length chunks; their carries
+        # have no positional validity mask, so they keep the contiguous
+        # pool.
+        self._static_chunks = all(k in ("attn", "moe", "cross")
+                                  for k in cfg.pattern)
         self.paged = config.page_size is not None
         if config.speculate_k and not self.paged:
             raise ValueError(
@@ -236,6 +239,12 @@ class Engine:
                                  f"the engine on {self.device}")
             self.pool = pool
         elif self.paged:
+            if not self._static_chunks:
+                raise ValueError(
+                    "paged KV-cache serving supports attention-family "
+                    "models only (recurrent/SSM carries have no positional "
+                    "validity mask); use the contiguous layout for "
+                    f"{cfg.name}")
             self.pool = PagedDecodeStatePool(
                 cfg, config.slots, config.max_len, config.page_size,
                 num_pages=config.page_budget, device=self.device)
@@ -602,20 +611,26 @@ class Engine:
         plan = self.scheduler.plan_prefill(self._prefill_pending())
         for slot, n in plan:
             sl = self._slots[slot]
-            end = sl.prefill_pos + n
+            start = sl.prefill_pos
+            end = start + n
             prompt = sl.prefill_tokens
-            # fixed-size window ending at `end`: one shape. Re-fed rows
-            # rewrite identical k/v; right-pad rows (only while end < chunk)
-            # sit beyond cache_len, so they stay masked until the decode
-            # loop overwrites them in the same step their position becomes
-            # valid.
-            c = self.scheduler.config.prefill_chunk
-            lo = max(0, end - c)
-            window = prompt[lo:end]
-            tokens = np.zeros(c, np.int32)
-            tokens[:len(window)] = window
-            positions = lo + np.arange(c, dtype=np.int32)
-            out_idx = len(window) - 1
+            if self._static_chunks:
+                # fixed-size window ending at `end`: one shape. Re-fed rows
+                # rewrite identical k/v; right-pad rows (only while end <
+                # chunk) sit beyond cache_len, so they stay masked until
+                # the decode loop overwrites them in the same step their
+                # position becomes valid.
+                c = self.scheduler.config.prefill_chunk
+                lo = max(0, end - c)
+                window = prompt[lo:end]
+                tokens = np.zeros(c, np.int32)
+                tokens[:len(window)] = window
+                positions = lo + np.arange(c, dtype=np.int32)
+                out_idx = len(window) - 1
+            else:
+                tokens = prompt[start:end]
+                positions = start + np.arange(n, dtype=np.int32)
+                out_idx = n - 1
             inputs = {"tokens": tokens[None], "positions": positions[None],
                       "cache_len": np.asarray([end], np.int32)}
             sub = self.pool.take_slot(slot)
@@ -1186,8 +1201,11 @@ class Engine:
         SAME shape as a stored prefill-chunk replay, so every replay of
         an attention model runs at one (1, C) shape. MoE models replay the
         one last token, as the reference does (their expert capacity
-        follows the pass's token count). Returns (tokens (1, w), positions
-        (1, w), cache_len (1,), out_idx)."""
+        follows the pass's token count), and so do models with recurrent
+        or SSM carries: re-fed tokens would advance a carry twice, so
+        they replay against the carries from before the step
+        (``_prev_states``). Returns (tokens (1, w), positions (1, w),
+        cache_len (1,), out_idx)."""
         pos = int(self.pool.positions[slot])
         c = (self.scheduler.config.prefill_chunk
              if all(k == "attn" for k in self.cfg.pattern) else 1)

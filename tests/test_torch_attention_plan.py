@@ -11,8 +11,9 @@ The tests marked ``gpu`` hold the bit contract on the card: a query row's
 two outputs are a function of its query, its valid keys, its position,
 ``kv_len``, the window and the scale only. The rows of one slot (G 4 query
 heads a KV head, as granite-8b, and G 1, as deepseek-moe-16b and
-musicgen-medium, at every head_dim of ``HEAD_DIMS``; a cache of 640 keys: 5
-segments) come out ``torch.equal`` to those of
+musicgen-medium, at every head_dim of ``HEAD_DIMS``, and G 10 at head_dim
+256, as recurrentgemma-2b; a cache of 640 keys: 5 segments) come out
+``torch.equal`` to those of
 one Tq 512 call when run in chunks of 128, at Tq 4, 3, 2 (a speculative
 verify block of 4 slots) and Tq 1; inside batches of 4 and 32 slots (one
 of them without keys, which gives 0); through pages of 1, 16 and 24
@@ -46,6 +47,8 @@ SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 HEADS = {"G4": (8, 2), "G1": (4, 4)}
 SLOTS = {(name if d == 128 else f"{name}-d{d}"): (*HEADS[name], d)
          for name in HEADS for d in HEAD_DIMS}
+# recurrentgemma-2b's layout: 10 query heads of 256 over one KV head.
+SLOTS["G10-d256"] = (10, 1, 256)
 S = 640
 N0, N = 88, 512
 WINDOWS = (None, 100)
@@ -59,10 +62,13 @@ DEEPSEEK_DECODE = (4, 16, 16, 1, 1024)
 # The plan (CPU)
 # ---------------------------------------------------------------------------
 def _source_plan_space():
-    text = SOURCE.read_text()
-    blocks = re.search(r"#define PFP_ATTENTION_BLOCKS\(X\) (.*)", text)
-    return (tuple(int(v) for v in re.findall(r"X\((\d+)\)", blocks.group(1))),
+    return (_source_blocks("PFP_ATTENTION_BLOCKS"),
             _source_constant("kSegment"), _source_constant("kMaxCluster"))
+
+
+def _source_blocks(macro):
+    blocks = re.search(rf"#define {macro}\(X\) (.*)", SOURCE.read_text())
+    return tuple(int(v) for v in re.findall(r"X\((\d+)\)", blocks.group(1)))
 
 
 def _source_constant(name):
@@ -119,6 +125,42 @@ def test_every_plan_is_instantiated():
                     assert (plan.block_rows == 8) == ((h // hkv) * tq <= 8)
 
 
+def test_wide_plans_are_instantiated():
+    """At head_dim 256 the plan takes only PFP_ATTENTION_WIDE_BLOCKS: 16
+    rows where G * Tq fits them (recurrentgemma-2b's decode step of 10),
+    else 32, with a cluster within the cache's segments; recurrentgemma's
+    4-slot decode step clusters 8 (32 blocks, each alone on an SM) and a
+    128-token chunk of one slot (1280 rows, 40 blocks) 2."""
+    from repro_torch.kernels.pfp_attention import (MAX_CLUSTER,
+                                                   WIDE_BLOCK_ROWS,
+                                                   attention_plan, segments)
+    assert _source_blocks("PFP_ATTENTION_WIDE_BLOCKS") == WIDE_BLOCK_ROWS
+    for b in (1, 4, 32):
+        for h, hkv in ((10, 1), (16, 16), (8, 2)):
+            for tq in (1, 2, 3, 4, 128, 512):
+                for capacity in (40, 640, 2048, 4096):
+                    plan = attention_plan(b, h, hkv, tq, capacity, 256)
+                    assert plan.block_rows in WIDE_BLOCK_ROWS
+                    assert 1 <= plan.cluster <= min(MAX_CLUSTER,
+                                                    segments(capacity))
+                    assert (plan.block_rows == 16) == ((h // hkv) * tq <= 16)
+    assert attention_plan(4, 10, 1, 1, 2048, 256) == (16, 8)
+    assert attention_plan(1, 10, 1, 128, 2048, 256) == (32, 2)
+
+
+def test_plan_refuses_a_block_no_sm_holds(monkeypatch):
+    """A 64-row block at head_dim 256 would take 393 KB, above an SM's 228:
+    neither the plan nor a forced plan takes it."""
+    from repro_torch.kernels import pfp_attention as pa
+    assert pa.kv_block_bytes(256, 64) > pa.SM_SMEM
+    monkeypatch.setattr(pa, "WIDE_BLOCK_ROWS", (64,))
+    monkeypatch.setitem(pa.KV_REGISTERS, (256, 64), 200)
+    with pytest.raises(ValueError, match="fits no SM"):
+        pa.attention_plan(4, 10, 1, 1, 2048, 256)
+    with pytest.raises(ValueError, match="fits no SM"):
+        pa.check_plan((64, 1), 256)
+
+
 def test_block_model_follows_the_source():
     """The plan's model of a block (kv_block_bytes, blocks_per_sm) is built
     on the source's thread, tile and ring counts: at head_dim 128 a decode
@@ -135,19 +177,27 @@ def test_block_model_follows_the_source():
     assert [blocks_per_sm(128, bq) for bq in (8, 64)] == [2, 1]
     assert [kv_block_bytes(64, bq) for bq in (8, 64)] == [53248, 107520]
     assert [blocks_per_sm(64, bq) for bq in (8, 64)] == [4, 1]
+    # head_dim 256: tiles of kWideBK keys; an 8-row block of 32-key tiles
+    # would take 202 KB, the 16- and 32-row blocks take 146 and 195 KB.
+    from repro_torch.kernels.pfp_attention import WIDE_TILE_KEYS, tile_keys
+    assert WIDE_TILE_KEYS == _source_constant("kWideBK") == tile_keys(256)
+    assert tile_keys(128) == TILE_KEYS
+    assert [kv_block_bytes(256, bq) for bq in (16, 32)] == [148992, 199168]
+    assert [blocks_per_sm(256, bq) for bq in (16, 32)] == [1, 1]
 
 
 def test_register_model_covers_every_instantiation():
     """KV_REGISTERS has one count for each (head_dim, block rows) the
     source instantiates, and at the 64-row block of head_dim 64 registers
     bind where shared memory would allow two blocks."""
-    from repro_torch.kernels.pfp_attention import (BLOCK_ROWS, HEAD_DIMS,
+    from repro_torch.kernels.pfp_attention import (CACHE_HEAD_DIMS,
                                                    KV_REGISTERS, SM_SMEM,
                                                    SMEM_RESERVED,
+                                                   block_sizes,
                                                    blocks_per_sm,
                                                    kv_block_bytes)
-    assert set(KV_REGISTERS) == {(d, bq) for d in HEAD_DIMS
-                                 for bq in BLOCK_ROWS}
+    assert set(KV_REGISTERS) == {(d, bq) for d in CACHE_HEAD_DIMS
+                                 for bq in block_sizes(d)}
     assert SM_SMEM // (kv_block_bytes(64, 64) + SMEM_RESERVED) == 2
     assert blocks_per_sm(64, 64) == 1
 
@@ -168,10 +218,21 @@ def test_plan_at_musicgen_decode_and_chunk():
 @pytest.mark.parametrize("plan", [(16, 1), (8, 0), (64, 9)],
                          ids=["block_rows", "cluster0", "cluster9"])
 def test_illegal_plan_raises_in_the_wrapper(plan):
+    _illegal_plan_raises(plan, 16)
+
+
+@pytest.mark.parametrize("plan", [(8, 1), (64, 1), (16, 9)],
+                         ids=["block_rows8", "block_rows64", "cluster9"])
+def test_illegal_wide_plan_raises_in_the_wrapper(plan):
+    """At head_dim 256 only the 16- and 32-row blocks are built."""
+    _illegal_plan_raises(plan, 256)
+
+
+def _illegal_plan_raises(plan, d):
     from repro_torch.kernels.pfp_attention import (pfp_attention_cache_cuda,
                                                    pfp_attention_paged_cuda)
-    q = torch.zeros((1, 4, 1, 16))
-    cache = torch.zeros((1, 2, 8, 16))
+    q = torch.zeros((1, 4, 1, d))
+    cache = torch.zeros((1, 2, 8, d))
     ints = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="attention plan"):
         pfp_attention_cache_cuda(q, cache, cache, cache, ints, ints,
@@ -198,13 +259,14 @@ def test_block_model_matches_the_library(cuda):
     kv_block_bytes, and the blocks an SM holds (its occupancy, registers
     included) equal blocks_per_sm."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.pfp_attention import (BLOCK_ROWS, HEAD_DIMS,
+    from repro_torch.kernels.pfp_attention import (CACHE_HEAD_DIMS,
+                                                   block_sizes,
                                                    blocks_per_sm,
                                                    kv_block_bytes)
     lib = _build.load()
     for paged in (0, 1):
-        for d in HEAD_DIMS:
-            for bq in BLOCK_ROWS:
+        for d in CACHE_HEAD_DIMS:
+            for bq in block_sizes(d):
                 nbytes, per_sm = ctypes.c_int(), ctypes.c_int()
                 _build.check(lib.pfp_attention_kv_block(
                     paged, d, bq, ctypes.byref(nbytes),
@@ -376,13 +438,16 @@ def test_paged_rows_bit_for_bit(cuda, slot, whole, ps, window):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("window", WINDOWS, ids=["full", "window"])
-@pytest.mark.parametrize("block_rows", [8, 64])
-def test_rows_bit_for_bit_under_every_plan(cuda, slot, whole, block_rows,
+@pytest.mark.parametrize("block", [0, 1], ids=["small", "large"])
+def test_rows_bit_for_bit_under_every_plan(cuda, slot, whole, block,
                                            window):
-    """Every cluster size 1 .. 8 at both block sizes: a whole Tq 512 call,
-    a 128-row chunk and a 4-slot decode step, contiguous and (the chunk)
-    paged. At 8 ranks, each of the 5 segments a rank's partial folded by
-    rank 0, the outputs are also held to the plain version."""
+    """Every cluster size 1 .. 8 at both block sizes of the head_dim (8 and
+    64 rows, 16 and 32 at 256): a whole Tq 512 call, a 128-row chunk and a
+    4-slot decode step, contiguous and (the chunk) paged. At 8 ranks, each
+    of the 5 segments a rank's partial folded by rank 0, the outputs are
+    also held to the plain version."""
+    from repro_torch.kernels.pfp_attention import block_sizes
+    block_rows = block_sizes(slot[0].shape[-1])[block]
     for cluster in range(1, 9):
         plan = (block_rows, cluster)
         for q_start, tq, b, at, ps in ((N0, N, 1, 0, None),
