@@ -33,11 +33,15 @@ Phases, each printing its own lines; any failure exits non-zero:
               block size, with and without a window); the cache kernels
               also at musicgen's decode step and prefill chunk and at
               recurrentgemma's (window 2048; pages of 1, 16 and 24 bit for
-              bit the contiguous kernel); the attention kernel without a cache (row 9)
-              at granite's and musicgen's forward shapes and at ragged ones
+              bit the contiguous kernel; gemma-7b's decode step at head_dim
+              256, G 1); the attention kernel without a cache (row 9)
+              at granite's, musicgen's and gemma-7b's forward shapes, at
+              llama-3.2-vision-90b's cross layer (not causal, 1024 image
+              keys, 512 rows and 1) and at ragged ones
               (Tq and Tk on no multiple of its block or tile, Tq below and
-              above Tk, G 4 and 1, head_dim 16, 64 and 128, causal and
-              not), each twice with the same bits; musicgen's LayerNorm,
+              above Tk, G 4 and 1, head_dim 16, 64, 128 and 256, causal and
+              not, rows without a key), each twice with the same bits;
+              musicgen's LayerNorm,
               gelu and dense shapes (forward and decode step); the
               activation (five kinds) and the max pool beyond the main-path
               shapes: stress inputs (point masses, |mu| / sd up to 40, var
@@ -204,6 +208,29 @@ Phases, each printing its own lines; any failure exits non-zero:
               recurrentgemma's cache kernels and depthwise lift timed at
               their shapes (B=rg-decode / rg-chunk / depthwise /
               depthwise-decode rows)
+ 10c. configs: gemma-7b, yi-6b and internlm2-20b (2 layers each) and
+              llama-3.2-vision-90b (5 of 100: one super-block of four
+              self-attention layers and a cross-attention layer, the
+              reference's reduced rule) at full width (CONFIG_LAYERS),
+              random weights drawn on the card from a seed (sigma_init
+              1e-3), converted leaf by leaf in place, each model freed before
+              the next; the VLM's 1024 stub image embeddings a row drawn on
+              the card from --seed. Each: a 4 x 512-token forward with
+              impl="kernel" launching exactly its path's kernels
+              (family_path_calls) and row 9 exactly once a layer (gemma at
+              head_dim 256, the cross layer not causal against the 1024
+              image keys), within MODEL_TOL of the eager impl or else the
+              fp64 rule at every stage (the float64 copy made a part at a
+              time); a prefill into CONFIG_MAX_LEN rows on DecodeStatePool's
+              contiguous layout and on pages of 16, then CONFIG_STEPS
+              lockstep steps (the images fed at each): paged == contiguous
+              bit for bit at every pass, every pass within MODEL_TOL of
+              eager (else the fp64 rule where a float64 copy fits);
+              forward and decode-step times, eager and device busy, beside
+              the weights' bytes bound, and peak memory. Then row 9 at
+              gemma's forward and the cross shapes and rows 10-11 at
+              gemma's decode step timed (B=gemma / cross / cross-decode /
+              gemma-decode rows)
  11. fused  : the fused norm -> dense -> activation kernel (row 8) against
               its plain version at ragged shapes (both norms, both input
               reps, the five activations, every tile) and, at granite's
@@ -392,6 +419,32 @@ FAMILY_TIMES = {HYBRID_ARCH: (
     ("depthwise", "dense_batched_var", DEPTHWISE),
     ("depthwise-decode", "dense_batched", DEPTHWISE_DECODE),
     ("depthwise-decode", "dense_batched_var", DEPTHWISE_DECODE))}
+# The configs phase: the last model configs at full width, cut in depth to
+# CONFIG_LAYERS layers: gemma-7b (16 / 16 heads of 256, GeGLU, vocab
+# 256000), yi-6b, internlm2-20b and llama-3.2-vision-90b (one super-block:
+# four self-attention layers and a cross-attention layer to its 1024 stub
+# image embeddings, the reference's own reduced rule). Each: a forward of
+# LM_BATCH x LM_SEQ tokens, a prefill of the same into CONFIG_MAX_LEN cache
+# rows on both pools (pages of PAGE_SIZE) and CONFIG_STEPS lockstep steps.
+VLM_ARCH = "llama-3.2-vision-90b"
+CONFIG_LAYERS = {"gemma-7b": 2, "yi-6b": 2, "internlm2-20b": 2,
+                 VLM_ARCH: 5}
+CONFIG_MAX_LEN, CONFIG_STEPS = 1024, 4
+# Row 9 at gemma-7b's forward (head_dim 256) and at the VLM's cross layer
+# (64 query heads over 8 KV heads of 128 against 1024 image keys, not
+# causal) at a prefill's 512 rows and a decode step's 1; rows 10 and 11 at
+# gemma's 4-slot decode step (G 1 at head_dim 256).
+ATTN_GEMMA = (LM_BATCH, 16, 16, LM_SEQ, LM_SEQ, 256, True)
+ATTN_CROSS = (LM_BATCH, 64, 8, LM_SEQ, 1024, 128, False)
+ATTN_CROSS_DECODE = (DECODE_SLOTS, 64, 8, 1, 1024, 128, False)
+CACHE_DECODE_GEMMA = (4, 16, 16, 1, CONFIG_MAX_LEN, 256, (0, 340, 681, 1023),
+                      (1, 341, 682, 1024), None)
+CONFIG_TIMES = (
+    ("gemma", "attention", ATTN_GEMMA),
+    ("cross", "attention", ATTN_CROSS),
+    ("cross-decode", "attention", ATTN_CROSS_DECODE),
+    ("gemma-decode", "attention_cache", CACHE_DECODE_GEMMA),
+    ("gemma-decode", "attention_paged", CACHE_DECODE_GEMMA + (PAGE_SIZE,)))
 # Cache attention shapes: (B, H, Hkv, Tq, S, D, q_start, kv_len, window);
 # a paged shape appends the page size. S is the cache length (the logical
 # one when paged).
@@ -426,6 +479,7 @@ CACHE_CHECKS = {
     "rg decode": CACHE_DECODE_RG,
     "rg decode, no window": CACHE_DECODE_RG[:8] + (None,),
     "rg chunk": CACHE_CHUNK_RG,
+    "gemma decode": CACHE_DECODE_GEMMA,
 }
 CHECK_PAGE_SIZES = (1, 16, 24)
 # The norms' checks: the 4-slot decode shapes of musicgen-medium,
@@ -1316,6 +1370,7 @@ def phase_kernels(device):
     m_independence_check(device)
     lm_kernel_checks(device, errs)
     audio_kernel_checks(device, errs)
+    config_attention_checks(device, errs)
     cache_kernel_checks(device, errs)
     bit_contract_check(device, CACHE_DECODE, verify_tq=(2, SPEC_K))
     bit_contract_check(device, CACHE_DECODE_AUDIO)
@@ -1688,6 +1743,43 @@ def audio_kernel_checks(device, errs):
             fail(f"attention{shape}: two calls gave different bits")
         print(f"[kernels] attention          {str(shape):44s} max_abs_err "
               f"{err:.3e}, twice the same bits")
+
+
+def config_attention_checks(device, errs):
+    """Row 9 at the configs phase's new shapes against its plain version:
+    head_dim 256 at gemma-7b's forward (ATTN_GEMMA) and at ragged shapes
+    (Tq and Tk on no multiple of the 64-row block or the 16-key tile,
+    Tq below and above Tk, G 1 and 4, causal and not, rows without a key),
+    and the VLM's cross layer (ATTN_CROSS, ATTN_CROSS_DECODE: not causal,
+    1024 keys); each twice with the same bits; updates ``errs``."""
+    import torch
+    for seed, shape in enumerate((
+            ATTN_GEMMA,
+            (2, 4, 4, 77, 77, 256, True),       # G 1, ragged
+            (2, 4, 4, 77, 77, 256, False),
+            (2, 8, 2, 45, 203, 256, True),      # G 4, Tq < Tk
+            (2, 8, 2, 45, 203, 256, False),
+            (2, 4, 4, 130, 161, 256, True),     # G 1, Tq < Tk
+            (2, 4, 2, 37, 16, 256, True),       # rows without a key
+            (2, 4, 4, 1, 40, 256, False),       # one row, a tile and more
+            ATTN_CROSS, ATTN_CROSS_DECODE), start=650):
+        args = operands("attention", shape, seed, device)
+        got = run_kernel("attention", args)
+        torch.cuda.synchronize()
+        want = run_plain("attention", args)
+        _check_close(f"attention{shape}", got, want, NORM_TOL)
+        err = _max_err(got, want)
+        errs["attention"] = max(errs["attention"], err)
+        tq, tk, causal = shape[3], shape[4], shape[6]
+        if causal and tq > tk and float(got[0][:, :, :tq - tk].abs().max()
+                                        + got[1][:, :, :tq - tk].abs().max()):
+            fail(f"attention{shape}: rows without a valid key are not 0")
+        again = run_kernel("attention", args)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"attention{shape}: two calls gave different bits")
+        print(f"[kernels] attention          {str(shape):44s} max_abs_err "
+              f"{err:.3e}, twice the same bits")
+        del args, got, want, again
 
 
 def cache_kernel_checks(device, errs):
@@ -3684,20 +3776,38 @@ def _model_errs(label, got, want):
     return errs, within
 
 
-def _forward_stages(model, cfg, inputs, ctx):
+def _forward_stages(model, cfg, inputs, ctx, exact=False):
     """The forward's states, as lm.forward computes them: the embedded
     inputs (frames plus the sinusoid, or the token embedding), each block's
-    output, the logits."""
+    output, the logits; a VLM's cross blocks read ``image_embeddings``.
+    ``exact``: each part of the model runs as a float64 copy made just
+    before it runs and dropped after, so no whole float64 model is ever
+    held."""
+    import copy
+    import types
+
+    from repro_torch.core.gaussian import GaussianTensor
+    from repro_torch.core.modes import Mode
     from repro_torch.models import lm
-    x, positions, standard = lm._embed_inputs(model, cfg, inputs, ctx)
+    part = ((lambda m: copy.deepcopy(m).double()) if exact
+            else (lambda m: m))
+    embed = (types.SimpleNamespace(embed=part(model.embed))
+             if cfg.embed_inputs else model)
+    x, positions, standard = lm._embed_inputs(embed, cfg, inputs, ctx)
+    del embed
+    image = inputs.get("image_embeddings")
+    if image is not None and ctx.mode == Mode.PFP:
+        image = GaussianTensor.deterministic(image)
     stages = [x]
     for name, _, group in lm._layers(cfg):
-        block = (getattr(model, name) if group is None
-                 else model.stack[group][name])
+        block = part(getattr(model, name) if group is None
+                     else model.stack[group][name])
         x, _, _ = lm._block_apply(block, x, ctx, cfg, positions=positions,
-                                  standard_positions=standard)
+                                  standard_positions=standard,
+                                  image_emb=image)
+        del block
         stages.append(x)
-    stages.append(model.lm_head(model.ln_f(x, ctx), ctx))
+    stages.append(part(model.lm_head)(part(model.ln_f)(x, ctx), ctx))
     return stages
 
 
@@ -3709,8 +3819,6 @@ def _fp64_stage_check(cfg, model, inputs, device, logits_within,
     fp32 eager impl's, at the embedding, after every block and at the logits.
     It is the gate only where the logits are outside MODEL_TOL of the eager
     impl; the errors are printed either way. Returns them by stage."""
-    import copy
-
     import torch
     from repro_torch.core.modes import Mode
     from repro_torch.nn.module import Context
@@ -3719,12 +3827,10 @@ def _fp64_stage_check(cfg, model, inputs, device, logits_within,
         ctx = Context(mode=Mode.PFP, impl=impl, device=device)
         runs[impl] = [(x.mean, x.var) for x in
                       _forward_stages(model, cfg, inputs, ctx)]
-    exact = copy.deepcopy(model).double()
     ctx = Context(mode=Mode.PFP, impl="eager", device=device)
-    ref64 = _forward_stages(exact, cfg, {
+    ref64 = _forward_stages(model, cfg, {
         k: v.double() if v.is_floating_point() else v
-        for k, v in inputs.items()}, ctx)
-    del exact
+        for k, v in inputs.items()}, ctx, exact=True)
     out, worst = [], (0.0, None)
     for i, x64 in enumerate(ref64):
         e = {}
@@ -4043,11 +4149,13 @@ def family_config(arch):
         cfg, num_layers=layers)
 
 
-def _family_block_calls(cfg, kind, b, t, cache=None):
-    """The kernel calls of one block of ``kind`` on b x t tokens; ``cache``:
-    the cache kernel's shape where the block attends through a KV cache
-    (a forward without one runs the windowed chunked core, no kernel).
-    Shapes as in lm_path_calls; the depthwise lift (R, B*T, 4, 1)."""
+def _family_block_calls(cfg, kind, b, t, attention=None, image_tokens=0):
+    """The kernel calls of one block of ``kind`` on b x t tokens.
+    ``attention``: the attention kernel's call in a self-attention block
+    (None where it runs none: recurrentgemma's windowed forward takes the
+    chunked core); a cross block projects K and V from ``image_tokens``
+    embeddings a row and runs row 9 against them, not causally. Shapes as
+    in lm_path_calls; the depthwise lift (R, B*T, 4, 1)."""
     m, d, f = b * t, cfg.d_model, cfg.d_ff
     if kind == "ssm":
         din = cfg.ssm_expand * d
@@ -4067,19 +4175,27 @@ def _family_block_calls(cfg, kind, b, t, cache=None):
                 ("activation", ("gelu", m, r)), ("glu_product", (m, r)),
                 ("dense", (m, r, d))] + mlp
     kv = cfg.num_kv_heads * cfg.head_dim
-    return ([("rmsnorm", (m, d)), ("dense", (m, d, cfg.attn_dim)),
-             ("dense", (m, d, kv)), ("dense", (m, d, kv))]
-            + ([] if cache is None else [("attention_cache", cache)])
-            + [("dense", (m, cfg.attn_dim, d))] + mlp)
+    if kind == "cross":
+        mk = b * image_tokens
+        kv_calls = [("dense", (mk, d, kv)), ("dense", (mk, d, kv)),
+                    ("attention", (b, cfg.num_heads, cfg.num_kv_heads, t,
+                                   image_tokens, cfg.head_dim, False))]
+    else:
+        kv_calls = ([("dense", (m, d, kv)), ("dense", (m, d, kv))]
+                    + ([] if attention is None else [attention]))
+    return ([("rmsnorm", (m, d)), ("dense", (m, d, cfg.attn_dim))]
+            + kv_calls + [("dense", (m, cfg.attn_dim, d))] + mlp)
 
 
-def family_path_calls(cfg, b, t, cache=None):
+def family_path_calls(cfg, b, t, attention=None, image_tokens=0):
     """Every kernel call of one PFP pass (impl="kernel", srm) of ``cfg`` on
-    b x t tokens: its blocks in order, the final norm and the LM head."""
+    b x t tokens: its blocks in order (``attention`` and ``image_tokens``
+    as in _family_block_calls), the final norm and the LM head."""
     m = b * t
     calls = []
     for i in range(cfg.num_layers):
-        calls += _family_block_calls(cfg, cfg.layer_kind(i), b, t, cache)
+        calls += _family_block_calls(cfg, cfg.layer_kind(i), b, t, attention,
+                                     image_tokens)
     return calls + [("rmsnorm", (m, cfg.d_model)),
                     ("dense", (m, cfg.d_model, cfg.vocab_size))]
 
@@ -4130,16 +4246,52 @@ def _family_engine_requests(cfg, seed, tag):
     return reqs
 
 
-def _decode_passes(model, cfg, tokens, fed, ctx, max_len):
-    """The last-position logits (mean, var) of a prefill of ``tokens`` and
-    of one decode step a dict of ``fed``, under ``ctx``."""
+def _decode_passes(model, cfg, tokens, fed, ctx, max_len, extra=None):
+    """The last-position logits (mean, var) of a prefill of ``tokens`` (and
+    the inputs of ``extra``) and of one decode step a dict of ``fed``,
+    under ``ctx``. The prefill is lm.prefill's, with the decode state in
+    the model's dtype, so a float64 copy decodes in float64."""
     from repro_torch.models import lm
-    last, states = lm.prefill(model, cfg, {"tokens": tokens}, ctx, max_len)
-    out = [(last.mean[:, -1], last.var[:, -1])]
+    dtype = next(model.parameters()).dtype
+    states = lm._map_with_path(
+        lambda _, a: a.to(dtype),
+        lm.init_decode_state(cfg, len(tokens), max_len,
+                             device=tokens.device))
+    logits, _, states = lm.forward(model, cfg,
+                                   {"tokens": tokens, **(extra or {})}, ctx,
+                                   states=states, collect_states=True,
+                                   moe_aux_loss=False)
+    out = [(logits.mean[:, -1], logits.var[:, -1])]
     for inputs in fed:
         logits, states = lm.decode_step(model, cfg, inputs, states, ctx)
         out.append((logits.mean[:, -1], logits.var[:, -1]))
     return out
+
+
+def _fp64_pass_check(tag, model, cfg, tokens, fed, ctx, max_len, bad,
+                     passes, eager, extra=None):
+    """The fp64 rule at the decode passes ``bad`` (outside MODEL_TOL of
+    eager): the kernel impl's logits ``passes[i]`` no further from those
+    of a float64 copy of the model (the same prefill and steps) than
+    FP64_FACTOR times the eager impl's ``eager[i]``."""
+    import copy
+    exact = copy.deepcopy(model).double()
+    as64 = lambda d: {k: v.double() if v.is_floating_point() else v  # noqa: E731
+                      for k, v in d.items()}
+    ref64 = _decode_passes(exact, cfg, tokens, [as64(f) for f in fed], ctx,
+                           max_len, as64(extra or {}))
+    del exact
+    for i in bad:
+        for part, g, w, x in zip(("mean", "var"), passes[i], eager[i],
+                                 ref64[i]):
+            ek = float((g.double() - x).abs().max())
+            ee = float((w.double() - x).abs().max())
+            print(f"[{tag}] pass {i} {part} vs fp64: kernel {ek:.3e}, "
+                  f"eager {ee:.3e}")
+            if ek > FP64_FACTOR * max(ee, 1e-12):
+                fail(f"{tag} pass {i} {part}: kernel impl {ek:.3e} from "
+                     f"fp64, the eager impl {ee:.3e} (> {FP64_FACTOR}x)")
+    print(f"[{tag}] fp64 rule held at passes {bad}")
 
 
 def _family_phase(device, arch, seed):
@@ -4230,21 +4382,8 @@ def _family_phase(device, arch, seed):
           f"passes outside MODEL_TOL {bad} (0 = prefill); launches "
           f"{launches[f'{tag}_decode']}")
     if bad:
-        import copy
-        exact = copy.deepcopy(model).double()
-        ref64 = _decode_passes(exact, cfg, tokens, fed, ctx_e, max_len)
-        del exact
-        for i in bad:
-            for part, g, w, x in zip(("mean", "var"), passes[i], eager[i],
-                                     ref64[i]):
-                ek = float((g.double() - x).abs().max())
-                ee = float((w.double() - x).abs().max())
-                print(f"[{tag}] pass {i} {part} vs fp64: kernel {ek:.3e}, "
-                      f"eager {ee:.3e}")
-                if ek > FP64_FACTOR * max(ee, 1e-12):
-                    fail(f"{tag} pass {i} {part}: kernel impl {ek:.3e} from "
-                         f"fp64, the eager impl {ee:.3e} (> {FP64_FACTOR}x)")
-        print(f"[{tag}] fp64 rule held at passes {bad}")
+        _fp64_pass_check(tag, model, cfg, tokens, fed, ctx_e, max_len, bad,
+                         passes, eager)
     del eager
     if cfg.window and not launches[f"{tag}_decode"].get("attention_cache"):
         fail(f"{tag}: the cache kernel did not launch at decode")
@@ -4349,6 +4488,267 @@ def phase_families(device, seed):
         got, info[arch], got_rows = _family_phase(device, arch, seed)
         launches.update(got)
         rows += got_rows
+    return launches, info, rows
+
+
+def config_of(arch):
+    """The configs phase's config of ``arch``: full width, CONFIG_LAYERS
+    layers, sigma_init 1e-3."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), sigma_init=1e-3,
+                               num_layers=CONFIG_LAYERS[arch])
+
+
+def _config_model(device, cfg):
+    """Random variational weights drawn on the card from a seed, converted
+    to PFP leaf by leaf in place, with svi_to_pfp's arithmetic (srm =
+    exp(2 rho) CALIBRATION + mu^2 over the rho leaf's own storage): a
+    converted copy of llama-3.2-vision-90b's 5 layers (51 GB as (mu, rho))
+    would not fit beside them."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.nn.module import BayesParam
+    model = lm.init_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(0),
+        device=device).requires_grad_(False)
+    for name, leaf in list(model.named_modules()):
+        if isinstance(leaf, BayesParam) and "rho" in leaf.keys():
+            mu, srm = leaf.mu.detach(), leaf.rho.detach()
+            srm.mul_(2.0).exp_().mul_(CALIBRATION).add_(torch.square(mu))
+            parent, _, attr = name.rpartition(".")
+            setattr(model.get_submodule(parent), attr,
+                    BayesParam(mu=mu, srm=srm))
+    return model
+
+
+def _row9_recorder():
+    """(calls, restore): every row 9 launch through ops.pfp_attention
+    appends (q shape, Tk, causal) to ``calls`` until ``restore()``."""
+    from repro_torch.kernels import ops
+    calls, launch = [], ops.pfp_attention_cuda
+
+    def record(q, k, vm, vv, *, scale, causal=True):
+        calls.append((tuple(q.shape), int(k.shape[2]), bool(causal)))
+        return launch(q, k, vm, vv, scale=scale, causal=causal)
+
+    ops.pfp_attention_cuda = record
+
+    def restore():
+        ops.pfp_attention_cuda = launch
+    return calls, restore
+
+
+def _paged_table(device):
+    """A 4-slot page table: slot b owns pages 1 + b P .. of CONFIG_MAX_LEN
+    keys in pages of PAGE_SIZE; (table, pages in the pool)."""
+    import torch
+    pages = CONFIG_MAX_LEN // PAGE_SIZE
+    table = (1 + torch.arange(LM_BATCH * pages, device=device,
+                              dtype=torch.int32)).reshape(LM_BATCH, pages)
+    return table, 1 + LM_BATCH * pages
+
+
+def _config_phase(device, arch, seed):
+    """One model of the configs phase (see the docstring's phase 10c).
+    Returns (launches by path, info)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.modes import Mode
+    from repro_torch.kernels._launch import LAUNCHES, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.nn.module import Context
+    tag = f"config {arch}"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = config_of(arch)
+    model = _config_model(device, cfg)
+    torch.cuda.synchronize()
+    full = get_config(arch)
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    gb = 8 * cfg.param_count() / 1e9
+    print(f"[{tag}] {cfg.family}, d_model {cfg.d_model}, {cfg.num_heads} / "
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff} "
+          f"{cfg.activation}, vocab {cfg.vocab_size}; {cfg.num_layers} of "
+          f"{full.num_layers} layers {kinds}; "
+          f"{cfg.param_count() / 1e9:.3f} B weights ({gb:.2f} GB as (mu, "
+          f"srm)) drawn on the card and converted in "
+          f"{time.perf_counter() - t0:.2f} s")
+    ctx_k = Context(mode=Mode.PFP, impl="kernel", device=device)
+    ctx_e = Context(mode=Mode.PFP, impl="eager", device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 41)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                           generator=gen, device=device)
+    s_img = cfg.num_image_tokens
+    extra = {}
+    if s_img:
+        # The stub frontend's patch embeddings, drawn from the seed.
+        extra["image_embeddings"] = torch.randn(
+            (LM_BATCH, s_img, cfg.d_model), generator=gen, device=device)
+    inputs = {"tokens": tokens, **extra}
+    launches, info = {}, {"config": cfg.name, "layers": cfg.num_layers,
+                          "weights_gb": gb}
+
+    # The forward: exactly the path's launches, row 9's calls, and the
+    # kernel impl against eager.
+    calls, restore = _row9_recorder()
+    reset_launch_counts()
+    try:
+        logits, _, _ = lm.forward(model, cfg, inputs, ctx_k)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches[arch] = {k: v for k, v in LAUNCHES.items() if v}
+    want = _counts(family_path_calls(
+        cfg, LM_BATCH, LM_SEQ, ("attention", (LM_BATCH, cfg.num_heads,
+                                              cfg.num_kv_heads, LM_SEQ,
+                                              LM_SEQ, cfg.head_dim, True)),
+        s_img))
+    if launches[arch] != want:
+        fail(f"{tag} forward launches {launches[arch]}, expected {want}")
+    want_row9 = [((LM_BATCH, cfg.num_heads, LM_SEQ, cfg.head_dim),
+                  s_img if cfg.layer_kind(i) == "cross" else LM_SEQ,
+                  cfg.layer_kind(i) != "cross")
+                 for i in range(cfg.num_layers)]
+    if calls != want_row9:
+        fail(f"{tag}: row 9 calls {calls}, expected {want_row9}")
+    print(f"[{tag}] forward row 9 calls (q shape, Tk, causal): {calls}")
+    eager, _, _ = lm.forward(model, cfg, inputs, ctx_e)
+    errs, within = _model_errs(f"{tag} forward", (logits.mean, logits.var),
+                               (eager.mean, eager.var))
+    if float(logits.var.min()) <= 0:
+        fail(f"{tag}: non-positive logit variance")
+    print(f"[{tag}] forward of {LM_BATCH} x {LM_SEQ} tokens: launches "
+          f"{launches[arch]}; kernel vs eager max abs err mean "
+          f"{errs['mean']:.3e}, var {errs['var']:.3e} (max |mean| "
+          f"{float(eager.mean.abs().max()):.3e}, max var "
+          f"{float(eager.var.max()):.3e}); within MODEL_TOL {within}")
+    info["forward_errors"], info["row9_calls"] = errs, calls
+    del logits, eager
+    if not all(within.values()):
+        info["fp64_stages"] = _fp64_stage_check(cfg, model, inputs, device,
+                                                False, tag)
+
+    # Prefill into both pools, then CONFIG_STEPS lockstep steps fed the
+    # contiguous kernel run's greedy tokens, the images at every step.
+    table, num_pages = _paged_table(device)
+    reset_launch_counts()
+    last, st = lm.prefill(model, cfg, inputs, ctx_k, CONFIG_MAX_LEN)
+    passes = {"contiguous": [(last.mean[:, -1].clone(),
+                              last.var[:, -1].clone())]}
+    fed, tok = [], torch.argmax(last.mean[:, -1], dim=-1)
+    for i in range(CONFIG_STEPS):
+        fed.append({"tokens": tok[:, None],
+                    "positions": torch.full((LM_BATCH, 1), LM_SEQ + i,
+                                            device=device), **extra})
+        out, st = lm.decode_step(model, cfg, fed[-1], st, ctx_k)
+        passes["contiguous"].append((out.mean[:, -1], out.var[:, -1]))
+        tok = torch.argmax(out.mean[:, -1], dim=-1)
+    torch.cuda.synchronize()
+    launches[f"{arch}_contiguous"] = {k: v for k, v in LAUNCHES.items() if v}
+    st_k, tok_k = st, tok
+    del st, out, last
+    reset_launch_counts()
+    pst = lm.init_paged_decode_state(cfg, num_pages, PAGE_SIZE,
+                                     device=device)
+    pos = torch.arange(LM_SEQ, device=device).expand(LM_BATCH, LM_SEQ)
+    paged_fed = [{**inputs, "positions": pos}] + fed
+    passes["paged"] = []
+    for step in paged_fed:
+        n = int(step["positions"][0, -1]) + 1
+        out, pst = lm.decode_step(
+            model, cfg, {**step, "page_table": table,
+                         "cache_len": torch.full((LM_BATCH,), n,
+                                                 device=device)}, pst, ctx_k)
+        passes["paged"].append((out.mean[:, -1].clone(),
+                                out.var[:, -1].clone()))
+    torch.cuda.synchronize()
+    launches[f"{arch}_paged"] = {k: v for k, v in LAUNCHES.items() if v}
+    del out, pst
+    for pool, kernel in (("contiguous", "attention_cache"),
+                         ("paged", "attention_paged")):
+        # (A call's shape does not enter the counts.)
+        cache = (kernel, None)
+        want = _counts(family_path_calls(cfg, LM_BATCH, LM_SEQ, cache, s_img)
+                       + family_path_calls(cfg, LM_BATCH, 1, cache, s_img)
+                       * CONFIG_STEPS)
+        if launches[f"{arch}_{pool}"] != want:
+            fail(f"{tag} {pool} prefill and steps launches "
+                 f"{launches[f'{arch}_{pool}']}, expected {want}")
+    same = all(torch.equal(a, b) for pa, pb in zip(passes["contiguous"],
+                                                   passes["paged"])
+               for a, b in zip(pa, pb))
+    if not same:
+        fail(f"{tag}: paged and contiguous logits differ")
+    eager = _decode_passes(model, cfg, tokens, fed, ctx_e, CONFIG_MAX_LEN,
+                           extra)
+    step_errs = [_model_errs(f"{tag} pass {i}", g, w)
+                 for i, (g, w) in enumerate(zip(passes["contiguous"],
+                                                eager))]
+    bad = [i for i, (_, w) in enumerate(step_errs) if not all(w.values())]
+    worst = {p: max(e[p] for e, _ in step_errs) for p in ("mean", "var")}
+    print(f"[{tag}] prefill of {LM_BATCH} x {LM_SEQ} into {CONFIG_MAX_LEN} "
+          f"cache rows and {CONFIG_STEPS} lockstep steps on both pools: "
+          f"paged == contiguous bit for bit at every pass; kernel vs eager "
+          f"max abs err mean {worst['mean']:.3e}, var {worst['var']:.3e}; "
+          f"passes outside MODEL_TOL {bad} (0 = prefill); launches "
+          f"contiguous {launches[f'{arch}_contiguous']}, paged "
+          f"{launches[f'{arch}_paged']}")
+    if bad:
+        # A float64 copy of the VLM's 51 GB does not fit beside it.
+        if 3 * gb > 70:
+            fail(f"{tag}: passes {bad} outside MODEL_TOL, and a float64 "
+                 f"copy of {2 * gb:.1f} GB does not fit beside the model")
+        _fp64_pass_check(tag, model, cfg, tokens, fed, ctx_e, CONFIG_MAX_LEN,
+                         bad, passes["contiguous"], eager, extra)
+    info["decode_errors"] = worst
+    del eager, passes
+
+    # Times: the forward and one decode step, eager and device busy, beside
+    # the weights' bytes bound.
+    bound = _weight_bytes(cfg) / PEAK_BYTES * 1e3
+    fwd_ms = time_ms(lambda: lm.forward(model, cfg, inputs, ctx_k), 2, 1)
+    fwd_prof = _profile(f"{cfg.name} forward B={LM_BATCH} T={LM_SEQ}",
+                        lambda: lm.forward(model, cfg, inputs, ctx_k), 2, 1)
+    step_in = {"tokens": tok_k[:, None],
+               "positions": torch.full((LM_BATCH, 1), LM_SEQ + CONFIG_STEPS,
+                                       device=device), **extra}
+    step = lambda: lm.decode_step(model, cfg, step_in, st_k, ctx_k)  # noqa: E731
+    step_ms = time_ms(step, 5, 1)
+    step_prof = _profile(f"{cfg.name} decode step, {LM_BATCH} slots", step,
+                         3, 1)
+    busy = {k: None if p is None else p["busy_ms"]
+            for k, p in (("forward", fwd_prof), ("decode", step_prof))}
+    info["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[times] {cfg.name} ({cfg.num_layers} layers) forward {LM_BATCH} "
+          f"x {LM_SEQ}: eager {fwd_ms:.3f} ms, device busy "
+          f"{busy['forward']} ms; decode step of {LM_BATCH} slots: eager "
+          f"{step_ms:.3f} ms, device busy {busy['decode']} ms; weights' "
+          f"bytes bound {bound:.3f} ms ({_weight_bytes(cfg) / 1e9:.3f} GB "
+          f"at {PEAK_BYTES / 1e12:.2f} TB/s); peak device memory "
+          f"{info['peak_gb']:.2f} GB ({CARD})")
+    info["times"] = {"forward_ms": fwd_ms, "forward_busy_ms": busy["forward"],
+                     "decode_ms": step_ms, "decode_busy_ms": busy["decode"],
+                     "bound_ms": bound, "weight_bytes": _weight_bytes(cfg),
+                     "forward_profile": fwd_prof, "decode_profile": step_prof}
+    del model, st_k
+    torch.cuda.empty_cache()
+    return launches, info
+
+
+def phase_configs(device, seed):
+    """gemma-7b, yi-6b, internlm2-20b and llama-3.2-vision-90b one after
+    the other, each freed before the next; then row 9 and rows 10-11 timed
+    at their new shapes (CONFIG_TIMES). Returns (launches by path, info,
+    timing rows)."""
+    import torch
+    launches, info = {}, {}
+    for arch in CONFIG_LAYERS:
+        got, info[arch] = _config_phase(device, arch, seed)
+        launches.update(got)
+        torch.cuda.empty_cache()
+    rows = [_time_row(label, kernel, shape, device)
+            for label, kernel, shape in CONFIG_TIMES]
     return launches, info, rows
 
 
@@ -5035,7 +5435,7 @@ def moe_path_calls(cfg, shapes):
 
 
 def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg,
-                   hybrid_cfg):
+                   hybrid_cfg, gemma_cfg):
     """Per kernel: for the CNN path's kernels, its calls at batch 100,
     times and bounds summed over one LeNet-5 and one MLP forward (Eq. 12
     forwards; Eq. 7 for dense_var), with one LM forward's dense calls
@@ -5058,8 +5458,12 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg,
     (CACHE_DECODE_RG, a call an attention layer) and one call at
     CACHE_CHUNK_RG; for the batched dense kernels (Eq. 12 and Eq. 7), the
     depthwise lift's calls in one recurrentgemma-2b forward (DEPTHWISE, a
-    call a recurrent layer) and decode step (DEPTHWISE_DECODE). ``launches``
-    sums the paths' runs."""
+    call a recurrent layer) and decode step (DEPTHWISE_DECODE). For row 9,
+    one call at gemma-7b's forward shape (head_dim 256, ATTN_GEMMA) and at
+    the VLM's cross layer in a prefill (ATTN_CROSS) and a decode step
+    (ATTN_CROSS_DECODE); for rows 10 and 11, one gemma-7b decode step's
+    calls (CACHE_DECODE_GEMMA, a call a layer). ``launches`` sums the
+    paths' runs."""
     cnn = {(r["kernel"], tuple(r["shape"])): r for r in rows
            if r["batch"] == MAIN_BATCH}
     lmr = {(r["kernel"], tuple(r["shape"])): r for r in rows
@@ -5084,6 +5488,9 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg,
            if r["batch"] in ("rg-decode", "rg-chunk", "depthwise",
                              "depthwise-decode")}
     kinds = [hybrid_cfg.layer_kind(i) for i in range(hybrid_cfg.num_layers)]
+    conf = {(r["kernel"], r["batch"]): r for r in rows
+            if r["batch"] in ("gemma", "cross", "cross-decode",
+                              "gemma-decode")}
 
     def per_call(r):
         return {k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms",
@@ -5160,6 +5567,9 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg,
             if (kernel, "rg-chunk") in fam:
                 extra["prefill_chunk_recurrentgemma_per_call"] = per_call(
                     fam[(kernel, "rg-chunk")])
+            extra["decode_step_gemma"] = summed(
+                kernel, [conf[(kernel, "gemma-decode")]]
+                * gemma_cfg.num_layers)
         elif kernel in CNN_KERNELS:
             formulation = "var" if kernel == "dense_var" else "srm"
             calls = [cnn[(k, s)] for k, s in
@@ -5193,6 +5603,12 @@ def kernel_summary(rows, launches, errs, lm_cfg, moe_cfg, audio_cfg,
                                        moe_cfg)):
                 extra[label] = summed(kernel, [
                     normdec[(batch, s)] for s in norm_decode_calls(cfg)])
+        if kernel == "attention":
+            # Beside: row 9 at head_dim 256 and at the VLM's cross layer.
+            for label, batch in (("gemma_forward_per_call", "gemma"),
+                                 ("cross_prefill_per_call", "cross"),
+                                 ("cross_decode_per_call", "cross-decode")):
+                extra[label] = per_call(conf[(kernel, batch)])
         if kernel in AUDIO_KERNELS:
             # Beside: musicgen's forward (layernorm's own line) and step.
             for label, decode in (("audio_forward", False),
@@ -5281,6 +5697,12 @@ def main():
     rows += family_rows
     torch.cuda.empty_cache()
     mark("families")
+    config_launches, config_info, config_rows = phase_configs(device,
+                                                              args.seed)
+    launches.update(config_launches)
+    rows += config_rows
+    torch.cuda.empty_cache()
+    mark("configs")
     fused_launches, fused_info, fused_rows = phase_fused(device, args.seed,
                                                          errs)
     launches.update({k: v for k, v in fused_launches.items()
@@ -5298,7 +5720,8 @@ def main():
         if row is not None:
             profile.append({"model": f"{audio_cfg.name} {name}", **row})
     kernels = kernel_summary(rows, launches, errs, lm_cfg, moe_cfg,
-                             audio_cfg, family_config(HYBRID_ARCH))
+                             audio_cfg, family_config(HYBRID_ARCH),
+                             config_of("gemma-7b"))
     phases = {name: end - start for (_, start), (name, end)
               in zip(marks, marks[1:])}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
@@ -5308,6 +5731,7 @@ def main():
          "engine_spec": spec_info, "moe": moe_info,
          "moe_decode": moe_decode_info, "moe_engine": moe_engine_info,
          "audio": audio_info, "families": family_info,
+         "configs": config_info,
          "fused": fused_info,
          "train": train_info, "phase_seconds": phases,
          "seconds": time.perf_counter() - t0}, indent=1))

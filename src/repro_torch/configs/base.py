@@ -4,8 +4,10 @@ What the port's decoder families need: the dense transformer (granite), the
 mixture-of-experts family (deepseek-moe, llama4-scout), the audio decoder
 (musicgen, whose frame embeddings come in as input: ``embed_inputs``), the
 hybrid of RG-LRU recurrent blocks and local attention (recurrentgemma) and
-the Mamba2 state-space model (mamba2), whose ``models/lm.py`` blocks are
-ported. The VLM fields come with the slice that ports its blocks.
+the Mamba2 state-space model (mamba2) and the VLM backbone
+(llama-3.2-vision: every ``cross_attn_every``-th layer cross-attends to
+``num_image_tokens`` image embeddings from a stub frontend), whose
+``models/lm.py`` blocks are ported.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | audio | hybrid | ssm
+    family: str                      # dense | moe | vlm | audio | hybrid | ssm
     num_layers: int
     d_model: int
     num_heads: int = 0
@@ -39,6 +41,11 @@ class ModelConfig:
     # 'scatter' | 'a2a'. The port has no mesh yet, so 'a2a' runs the
     # scatter dispatch, as the reference does without one (nn/moe.py).
     moe_dispatch: str = "scatter"
+
+    # VLM (backbone only; the vision frontend is a stub whose embeddings
+    # come in as ``image_embeddings``)
+    cross_attn_every: int = 0        # every Nth layer is a cross-attn layer
+    num_image_tokens: int = 0
 
     # Hybrid (RG-LRU): block_pattern tiles to num_layers, the rest is an
     # unstacked tail.
@@ -65,7 +72,8 @@ class ModelConfig:
     def _weights(self, experts: int) -> int:
         """Weights (means only) with ``experts`` routed experts counted per
         MoE block: embedding (where the model embeds tokens), blocks
-        (attention, MLP or router, routed and shared experts; the RG-LRU's
+        (attention, MLP or router, routed and shared experts, a
+        cross-attention block counted as a self-attention one; the RG-LRU's
         projections, gates and conv taps; Mamba2's in and out projections),
         lm head."""
         d, kv = self.d_model, self.num_kv_heads * self.head_dim
@@ -73,7 +81,7 @@ class ModelConfig:
         n = (2 if self.embed_inputs else 1) * self.vocab_size * d
         for i in range(self.num_layers):
             kind = self.layer_kind(i)
-            if kind in ("attn", "moe"):
+            if kind in ("attn", "cross", "moe"):
                 n += 2 * d * self.attn_dim + 2 * d * kv
             if kind == "moe":
                 n += ((experts + self.num_shared_experts) * mlp
@@ -99,12 +107,15 @@ class ModelConfig:
 
     def layer_kind(self, i: int) -> str:
         """Block kind of layer i: MoE models lead with
-        ``first_dense_layers`` dense-FFN layers; a hybrid tiles
+        ``first_dense_layers`` dense-FFN layers; a VLM makes every
+        ``cross_attn_every``-th layer ``cross``; a hybrid tiles
         ``block_pattern``."""
         if self.family == "ssm":
             return "ssm"
         if self.family == "moe":
             return "attn" if i < self.first_dense_layers else "moe"
+        if self.family == "vlm" and self.cross_attn_every:
+            return "cross" if (i + 1) % self.cross_attn_every == 0 else "attn"
         if self.family == "hybrid":
             return self.block_pattern[i % len(self.block_pattern)]
         return "attn"
@@ -116,6 +127,8 @@ class ModelConfig:
             return ("ssm",)
         if self.family == "moe":
             return ("moe",)
+        if self.family == "vlm" and self.cross_attn_every:
+            return ("attn",) * (self.cross_attn_every - 1) + ("cross",)
         if self.family == "hybrid":
             return self.block_pattern
         return ("attn",)

@@ -40,7 +40,8 @@
 //    ~6 operations per byte read. At prefill (Tq = 512) operations again.
 //
 // Design of the kernel without a cache (Flash, below): a block owns 128
-// rows of one KV head's query heads and walks the key tiles itself, so
+// rows of one KV head's query heads (64 at head_dim 256) and walks the key
+// tiles itself, so
 // nothing crosses blocks (the TPU carries m, l and both accumulators across
 // sequential K grid steps instead). To keep the SIMT cores' FMAs fed from
 // shared memory, both products are register-blocked as the dense wide tile
@@ -152,7 +153,8 @@ using pfp::cp_async_wait;
 // ---------------------------------------------------------------------------
 // The kernel without a cache (row 9): register-blocked products on a ring
 // ---------------------------------------------------------------------------
-// A block owns kRows = 128 rows of one (batch, KV head): the G query heads
+// A block owns kRows = 128 rows (64 at head_dim 256, FlashShape) of one
+// (batch, KV head): the G query heads
 // of the KV head packed position-major (block row R is query row R / G of
 // head kvh * G + R % G), so each K / V tile is staged once for G heads and
 // a block's rows span 128 / G positions, which keeps the causal diagonal's
@@ -171,18 +173,48 @@ using pfp::cp_async_wait;
 //    and 64 + 4 vy .. and columns 4 vx + 64 g .. (column vx at D 16): per
 //    key 8 values of p, 8 of p^2 and D / 8 of V for D / 2 FMAs, 4 a value
 //    at D 128, and no other arithmetic.
+// At head_dim 256 128 rows and a ring of 32-key tiles would take about
+// 356 KB of shared memory, past the SM's 227 KB. There a block holds 64
+// rows and stages tiles of 16 keys (170 KB, one block an SM), and the maps
+// widen to keep every thread busy: S thread (sx, sy) of 16 x 16 takes rows
+// 4 sy .. 4 sy + 3 and key sx (5 float4 loads a d4 for 16 FMAs; the
+// softmax of a row runs in its 16 lanes), P.V thread (vx, vy) of 32 x 8
+// rows 4 vy .. and 32 + 4 vy .. and columns 4 vx + 128 g .. (8 x 8 of
+// each output, 4 FMAs a value loaded, as at D 128). The arithmetic, and
+// the order of every sum, is the same as at the other widths.
 // K, mu_v and var_v come through a 2-deep cp.async ring (zero-filled past
 // the block's last key), Q with the first tile; two block barriers a tile
 // (the ring's, and S before P.V). Causal blocks start heaviest first (the
 // row tile is gridDim.y - 1 - blockIdx.y and y varies slowest), so the
 // last wave is the lightest.
+// The block's rows (kernels/pfp_attention.py flash_rows), keys a tile, and
+// the widths of the S map (lanes a row) and of the P.V map (threads across
+// the columns).
+template <int D>
+struct FlashShape {
+  static constexpr int kRows = 128;
+  static constexpr int kTileKeys = 32;
+  static constexpr int SX = 8;
+  static constexpr int VX = 16;
+};
+template <>
+struct FlashShape<256> {
+  static constexpr int kRows = 64;
+  static constexpr int kTileKeys = 16;
+  static constexpr int SX = 16;
+  static constexpr int VX = 32;
+};
+
 template <int D>
 struct Flash {
-  static constexpr int kRows = 128;  // kernels/pfp_attention.py FLASH_ROWS
+  using Shape = FlashShape<D>;
+  static constexpr int kRows = Shape::kRows;
+  static constexpr int kBK = Shape::kTileKeys;
   static constexpr int kDepth = 2;   // tiles in the ring
-  static constexpr int SX = 8, SY = kThreads / SX;  // the S map
-  static constexpr int VX = 16, VY = kThreads / VX;  // the P.V map
-  static constexpr int SR = kRows / SY, SK = kBK / SX;  // 4 rows x 4 keys
+  static constexpr int SX = Shape::SX, SY = kThreads / SX;  // the S map
+  static constexpr int VX = Shape::VX, VY = kThreads / VX;  // the P.V map
+  static constexpr int SR = kRows / SY;  // 4 rows
+  static constexpr int SK = kBK / SX;    // x 4 keys (1 at head_dim 256)
   static constexpr int VR = kRows / VY;  // 8 rows
   static constexpr int CT = D / VX;      // columns a thread
   static constexpr int VEC = CT >= 4 ? 4 : 1;  // neighbouring columns
@@ -195,7 +227,9 @@ struct Flash {
   static constexpr int kRing = kAlpha + kRows;
   static constexpr int kFloats = kRing + kDepth * kStage;
   static constexpr int kBytes = kFloats * 4;
-  static_assert(SR == 4 && SK == 4 && VR == 8, "the thread patches");
+  static_assert(SR == 4 && VR == 8 && SK >= 1 && SX * SK == kBK &&
+                    8 * VY == kRows && 32 % VX == 0,
+                "the thread patches");
   static_assert(D % 16 == 0 && CT % VEC == 0, "head_dim");
   static_assert(kBytes <= 227 * 1024, "shared memory of a block");
 
@@ -242,12 +276,15 @@ pfp_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // Keys any row of the block can see.
   const int hi = causal ? max(0, min(Tk, (r0 + nrows - 1) / G + qoff + 1))
                         : Tk;
-  const int tiles = (hi + kBK - 1) / kBK;
+  const int tiles = (hi + F::kBK - 1) / F::kBK;
   const long long kv0 = (static_cast<long long>(b) * Hkv + kvh) * Tk * D;
   // The last position among the P.V map's rows of this warp (a bound: the
-  // warp's last row below the block's end).
+  // warp's last row below the block's end); the warp holds 32 / VX rows
+  // of the map.
   const int last_pos =
-      (r0 + min(nrows - 1, F::vrow(2 * (tid / 32) + 1, VR - 1))) / G + qoff;
+      (r0 + min(nrows - 1,
+                F::vrow((tid / 32 + 1) * (32 / F::VX) - 1, VR - 1))) / G +
+      qoff;
 
   // Q, zero past the rows, with the first tile's group.
   for (int e = tid; e < F::kRows * D4; e += kThreads) {
@@ -260,10 +297,10 @@ pfp_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   auto load = [&](int t, int st) {
     float* sk = ring + st * F::kStage;
-    float* svm = sk + kBK * LD;
-    float* svv = svm + kBK * D;
-    for (int e = tid; e < kBK * D4; e += kThreads) {
-      const int r = e / D4, c = e % D4, j = t * kBK + r;
+    float* svm = sk + F::kBK * LD;
+    float* svv = svm + F::kBK * D;
+    for (int e = tid; e < F::kBK * D4; e += kThreads) {
+      const int r = e / D4, c = e % D4, j = t * F::kBK + r;
       const bool ok = j < hi;
       const long long off = ok ? kv0 + static_cast<long long>(j) * D + 4 * c
                                : 0;
@@ -308,8 +345,8 @@ pfp_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (t + 1 < tiles) load(t + 1, (t + 1) % F::kDepth);
     cp_async_commit();
     const float* sk = ring + (t % F::kDepth) * F::kStage;
-    const float* svm = sk + kBK * LD;
-    const float* svv = svm + kBK * D;
+    const float* svm = sk + F::kBK * LD;
+    const float* svv = svm + F::kBK * D;
 
     // S: one fmaf chain over d for each of the thread's rows and keys.
     float s[SR][SK];
@@ -348,7 +385,7 @@ pfp_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       bool ok[SK];
 #pragma unroll
       for (int jj = 0; jj < SK; ++jj) {
-        const int key = t * kBK + sx + F::SX * jj;
+        const int key = t * F::kBK + sx + F::SX * jj;
         ok[jj] = live[i] && key < Tk && (!causal || key <= pos[i]);
         sc[jj] = ok[jj] ? s[i][jj] * scale2 : kNegInf;
         mx = fmaxf(mx, sc[jj]);
@@ -410,7 +447,8 @@ pfp_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // Keys past the last one any of the warp's rows sees have p = 0 for
     // all of them (the causal diagonal, the end of the keys): the warp
     // stops there.
-    const int jend = min(kBK, min(Tk, causal ? last_pos + 1 : Tk) - t * kBK);
+    const int jend =
+        min(F::kBK, min(Tk, causal ? last_pos + 1 : Tk) - t * F::kBK);
 #pragma unroll 2
     for (int j = 0; j < jend; ++j) {
       float pj[VR], p2j[VR];
@@ -991,10 +1029,10 @@ int kv_block_rows(int block_rows, int* bytes, int* per_sm) {
 }  // namespace
 
 // q (B, H, Tq, D); k, v_mu, v_var (B, Hkv, Tk, D); outputs (B, H, Tq, D).
-// head_dim D in {16, 64, 128} (the reduced test config, musicgen-medium,
-// granite-8b; kernels/pfp_attention.py HEAD_DIMS); H % Hkv == 0;
-// B * Hkv <= 2^31 - 1; (H / Hkv) * Tq / 64 row tiles <= 65535. All
-// pointers 16-byte aligned.
+// head_dim D in {16, 64, 128, 256} (the reduced test config,
+// musicgen-medium, granite-8b, gemma-7b; kernels/pfp_attention.py
+// HEAD_DIMS); H % Hkv == 0; B * Hkv <= 2^31 - 1; (H / Hkv) * Tq / kRows
+// row tiles <= 65535. All pointers 16-byte aligned.
 PFP_EXPORT int pfp_attention_launch(const void* q, const void* k,
                                     const void* v_mu, const void* v_var,
                                     void* out_mu, void* out_var, int B, int H,
@@ -1019,6 +1057,9 @@ PFP_EXPORT int pfp_attention_launch(const void* q, const void* k,
                         causal, s);
     case 128:
       return launch<128>(pq, pk, pvm, pvv, om, ov, B, H, Hkv, Tq, Tk, scale,
+                         causal, s);
+    case 256:
+      return launch<256>(pq, pk, pvm, pvv, om, ov, B, H, Hkv, Tq, Tk, scale,
                          causal, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

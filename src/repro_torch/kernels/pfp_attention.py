@@ -4,9 +4,9 @@ out_var = P^2.var_v from one online softmax.
 Replaces the three entry points of ``repro/kernels/pfp_attention.py``:
 
   * ``pfp_attention_pallas``, without a KV cache: ``pfp_attention_cuda``,
-    one block per (batch x KV head, 128 rows of its query heads), both
-    products register-blocked on a ``cp.async`` ring, bound by fp32
-    operations;
+    one block per (batch x KV head, :func:`flash_rows` rows of its query
+    heads), both products register-blocked on a ``cp.async`` ring, bound
+    by fp32 operations;
   * ``pfp_attention_cache_pallas``, the KV cache with per-batch
     ``q_start`` / ``kv_len``: ``pfp_attention_cache_cuda``;
   * ``pfp_attention_paged_pallas``, the paged cache read through a page
@@ -36,12 +36,15 @@ from repro_torch.kernels.ref import (pfp_attention_cache_ref,  # noqa: F401
                                      pfp_attention_paged_ref,
                                      pfp_attention_ref)
 
-# Row 9's widths: the reduced test config, musicgen-medium and granite-8b.
-HEAD_DIMS = (16, 64, 128)
-# Rows 10 and 11 also take recurrentgemma-2b's 256 (and gemma-7b's).
-CACHE_HEAD_DIMS = HEAD_DIMS + (256,)
+# Row 9's widths: the reduced test config, musicgen-medium, granite-8b (and
+# the other llama-style configs) and gemma-7b.
+HEAD_DIMS = (16, 64, 128, 256)
+# Rows 10 and 11 take the same, 256 also for recurrentgemma-2b.
+CACHE_HEAD_DIMS = HEAD_DIMS
 
-FLASH_ROWS = 128       # rows a block without a cache: Flash<D>::kRows
+# Rows a block without a cache (FlashShape<D>::kRows): 128, and 64 at
+# head_dim 256, where 128 rows and their tiles pass an SM's shared memory.
+FLASH_ROWS, WIDE_FLASH_ROWS = 128, 64
 SEGMENT = 128          # keys a segment: csrc/pfp_attention.cu kSegment
 BLOCK_ROWS = (8, 64)   # rows a block (decode, else): PFP_ATTENTION_BLOCKS
 # At head_dim 256 (tiles of WIDE_TILE_KEYS): PFP_ATTENTION_WIDE_BLOCKS.
@@ -65,6 +68,11 @@ SM_REGISTERS, REGISTER_STEP = 64 * 1024, 8
 KV_REGISTERS = {(16, 8): 64, (16, 64): 182, (64, 8): 64, (64, 64): 183,
                 (128, 8): 74, (128, 64): 247, (256, 16): 125,
                 (256, 32): 211}
+
+
+def flash_rows(d: int) -> int:
+    """Rows a block of the kernel without a cache holds at head_dim ``d``."""
+    return WIDE_FLASH_ROWS if d > 128 else FLASH_ROWS
 
 
 def block_sizes(d: int):
@@ -197,10 +205,10 @@ def pfp_attention_cuda(q_mu, k_mu, v_mu, v_var, *, scale: float,
     if d not in HEAD_DIMS:
         raise ValueError(f"no attention kernel for head_dim {d}; built for "
                          f"{HEAD_DIMS}")
-    row_tiles = -(-(h // hkv) * tq // FLASH_ROWS)
+    row_tiles = -(-(h // hkv) * tq // flash_rows(d))
     if row_tiles > 65535:
-        raise ValueError(f"{row_tiles} row tiles of {FLASH_ROWS} are above "
-                         f"the grid's 65535")
+        raise ValueError(f"{row_tiles} row tiles of {flash_rows(d)} are "
+                         f"above the grid's 65535")
     q_mu, k_mu, v_mu, v_var = (aligned16(t) for t in (q_mu, k_mu, v_mu,
                                                        v_var))
     out_mu = torch.empty_like(q_mu)

@@ -1,18 +1,22 @@
-"""Decoder LM: the dense transformer (granite, llama-style), the
-mixture-of-experts family (deepseek-moe, llama4-scout), the audio decoder
-(musicgen: frame embeddings in, LayerNorm, sinusoidal positions, MHA), the
-hybrid of RG-LRU recurrent blocks and local attention (recurrentgemma) and
-the Mamba2 state-space model (mamba2).
+"""Decoder LM: the dense transformer (granite, yi, gemma, internlm2), the
+mixture-of-experts family (deepseek-moe, llama4-scout), the VLM backbone
+(llama-3.2-vision: cross-attention to stub image embeddings every
+``cross_attn_every``-th layer), the audio decoder (musicgen: frame
+embeddings in, LayerNorm, sinusoidal positions, MHA), the hybrid of RG-LRU
+recurrent blocks and local attention (recurrentgemma) and the Mamba2
+state-space model (mamba2).
 
-Counterpart of ``repro/models/lm.py`` for ``attn``, ``moe``, ``rec`` and
-``ssm`` blocks: token embedding (or the ``frame_embeddings`` input where
-``cfg.embed_inputs`` is false), leading dense-FFN layers (``head{i}``,
-DeepSeekMoE's first layer), the stacked layer groups of ``cfg.pattern``,
-an unstacked tail (``tail{i}``) where the layers do not tile, the final
-norm and the LM head.
+Counterpart of ``repro/models/lm.py`` for every block kind (``attn``,
+``cross``, ``moe``, ``rec``, ``ssm``): token embedding (or the
+``frame_embeddings`` input where ``cfg.embed_inputs`` is false), leading
+dense-FFN layers (``head{i}``, DeepSeekMoE's first layer), the stacked
+layer groups of ``cfg.pattern``, an unstacked tail (``tail{i}``) where the
+layers do not tile, the final norm and the LM head.
 Every block is pre-norm: norm -> attention (or the recurrent block) ->
 residual, norm -> MLP (or MoE) -> residual; a Mamba2 block is norm ->
-SSD -> residual. One set of Bayesian leaves serves DETERMINISTIC and PFP.
+SSD -> residual. A ``cross`` block attends, without rotary embedding or
+causality, to the ``image_embeddings`` input (B, S, d_model), a point mass
+under PFP. One set of Bayesian leaves serves DETERMINISTIC and PFP.
 
 The reference scans the stacked groups (``params['stack']``, leading axis =
 group); here they are an ``nn.ModuleList`` run by a Python loop, and
@@ -32,8 +36,9 @@ Decode state keeps the reference's tree: ``{'head0': KVCache, 'stack':
 {'b0': RecurrentState, 'b2': KVCache}, 'tail0': SSMState}``, one entry a
 layer (a KV cache, or the recurrent or SSM carry), stack leaves with a
 leading layer-group axis, so the slot helpers work along the same axes
-(``_state_batch_axis``). Only attention caches page. Cross-attention
-blocks come with the VLM slice (ROADMAP.md).
+(``_state_batch_axis``). Only attention caches page. A ``cross`` block
+holds no decode state on either pool: as in the reference, its K/V are
+projected from the image embeddings again at every step.
 """
 from __future__ import annotations
 
@@ -60,15 +65,15 @@ from repro_torch.nn.recurrent import (RGLRU, RecurrentState,
                                       init_recurrent_state, rglru_block_apply)
 from repro_torch.nn.ssm import Mamba2, SSMState, init_ssm_state, mamba2_apply
 
-FAMILIES = ("dense", "moe", "audio", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
 _STATES = {cls.__name__: cls for cls in (KVCache, PagedKVCache,
                                           RecurrentState, SSMState)}
 
 
 class Block(nn.Module):
-    """One block: ``ln1``, then ``attn`` (kinds ``attn`` and ``moe``),
-    ``rec`` (the RG-LRU block) or ``ssm`` (Mamba2); all but ``ssm`` then
-    ``ln2`` and ``mlp`` (``moe`` for kind ``moe``)."""
+    """One block: ``ln1``, then ``attn`` (kinds ``attn``, ``cross`` and
+    ``moe``), ``rec`` (the RG-LRU block) or ``ssm`` (Mamba2); all but
+    ``ssm`` then ``ln2`` and ``mlp`` (``moe`` for kind ``moe``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, *, generator, device):
         super().__init__()
@@ -163,11 +168,12 @@ def init_params(cfg: ModelConfig, *,
 
 
 def _block_apply(block: Block, x, ctx: Context, cfg: ModelConfig, *,
-                 positions, standard_positions: bool, state=None,
-                 cache_len=None, page_table=None, write_start=None,
-                 moe_aux_loss: bool = True):
+                 positions, standard_positions: bool, image_emb=None,
+                 state=None, cache_len=None, page_table=None,
+                 write_start=None, moe_aux_loss: bool = True):
     """Returns (x, new_state, aux): aux is the MoE aux dict, zero for every
-    block but ``moe``."""
+    block but ``moe``. A ``cross`` block attends to ``image_emb`` and
+    returns no state."""
     h = block.ln1(x, ctx)
     if block.kind == "ssm":
         out, new_state = mamba2_apply(
@@ -177,6 +183,12 @@ def _block_apply(block: Block, x, ctx: Context, cfg: ModelConfig, *,
         return residual_add(x, out), new_state, zero_aux(positions.device)
     if block.kind == "rec":
         out, new_state = rglru_block_apply(block.rec, h, ctx, state=state)
+    elif block.kind == "cross":
+        out, new_state = attention_apply(
+            block.attn, h, ctx, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            positions=positions, causal=False, rope_theta=None,
+            cross_kv=image_emb, standard_positions=standard_positions)
     else:
         out, new_state = attention_apply(
             block.attn, h, ctx, num_heads=cfg.num_heads,
@@ -208,6 +220,14 @@ def _as_device(value, device, dtype=torch.long):
     return value.to(device=device, dtype=dtype)
 
 
+def _embeddings(value, device):
+    """A stub frontend's embeddings (tensor or numpy array) as a tensor on
+    ``device``, in their own dtype."""
+    if not isinstance(value, torch.Tensor):
+        value = torch.from_numpy(np.asarray(value))
+    return value.to(device)
+
+
 def _embed_inputs(model: LM, cfg: ModelConfig, inputs: Mapping,
                   ctx: Context):
     """Token embedding, or the stub frontend's frame embeddings (a point
@@ -220,10 +240,7 @@ def _embed_inputs(model: LM, cfg: ModelConfig, inputs: Mapping,
         b, t = tokens.shape
         x = model.embed(tokens, ctx)
     else:
-        x = inputs["frame_embeddings"]
-        if not isinstance(x, torch.Tensor):
-            x = torch.from_numpy(np.asarray(x))
-        x = x.to(device)
+        x = _embeddings(inputs["frame_embeddings"], device)
         b, t = x.shape[:2]
         if ctx.mode == Mode.PFP:
             x = GaussianTensor.deterministic(x)
@@ -247,15 +264,21 @@ def forward(model: LM, cfg: ModelConfig, inputs: Mapping, ctx: Context, *,
             moe_aux_loss: bool = True):
     """Full-sequence pass. ``inputs``: ``tokens`` (B, T), or
     ``frame_embeddings`` (B, T, d_model) where ``cfg.embed_inputs`` is
-    false, and optionally ``positions`` (B, T); with decode ``states``,
-    also ``cache_len`` (B,), and for paged states ``page_table`` (B, P)
-    and ``write_start`` (B,). Returns ``(logits, aux, new_states)``: ``aux`` is the MoE aux dict
-    summed over the blocks (``loss``, ``moe_dropped``,
+    false, and optionally ``positions`` (B, T); for a VLM,
+    ``image_embeddings`` (B, S, d_model); with decode ``states``, also
+    ``cache_len`` (B,), and for paged states ``page_table`` (B, P) and
+    ``write_start`` (B,). Returns ``(logits, aux, new_states)``: ``aux`` is
+    the MoE aux dict summed over the blocks (``loss``, ``moe_dropped``,
     ``moe_assignments``); ``new_states`` is None unless ``collect_states``
     and ``states`` are given. ``moe_aux_loss=False`` is the inference path:
     the router's load-balance loss is never built."""
     x, positions, standard_positions = _embed_inputs(model, cfg, inputs, ctx)
     device = positions.device
+    image_emb = inputs.get("image_embeddings")
+    if image_emb is not None:
+        image_emb = _embeddings(image_emb, device)
+        if ctx.mode == Mode.PFP:
+            image_emb = GaussianTensor.deterministic(image_emb)
     cache_len = _as_device(inputs.get("cache_len"), device)
     page_table = _as_device(inputs.get("page_table"), device)
     write_start = _as_device(inputs.get("write_start"), device)
@@ -264,15 +287,17 @@ def forward(model: LM, cfg: ModelConfig, inputs: Mapping, ctx: Context, *,
     for name, _, group in _layers(cfg):
         if group is None:
             block = getattr(model, name)
-            st = None if states is None else states[name]
+            st = None if states is None else states.get(name)
         else:
             block = model.stack[group][name]
-            st = (None if states is None else type(states["stack"][name])(
-                *(leaf[group] for leaf in states["stack"][name])))
+            stacked = (None if states is None
+                       else states["stack"].get(name))
+            st = (None if stacked is None else type(stacked)(
+                *(leaf[group] for leaf in stacked)))
         x, new_st, aux = _block_apply(
             block, x, ctx, cfg, positions=positions,
-            standard_positions=standard_positions, state=st,
-            cache_len=cache_len, page_table=page_table,
+            standard_positions=standard_positions, image_emb=image_emb,
+            state=st, cache_len=cache_len, page_table=page_table,
             write_start=write_start, moe_aux_loss=moe_aux_loss)
         aux_total = {k: aux_total[k] + aux[k] for k in aux_total}
         if st is not None and group is None:
@@ -304,10 +329,12 @@ def forward(model: LM, cfg: ModelConfig, inputs: Mapping, ctx: Context, *,
 def _stacked(cfg: ModelConfig, make) -> dict:
     """One state per layer, ``make(kind)``: ``head{i}`` / ``tail{i}``
     entries batch-first, ``{'stack': {'b0': state}}`` with a leading
-    layer-group axis on every leaf."""
+    layer-group axis on every leaf. A ``cross`` layer has none."""
     _, groups, _ = _group_counts(cfg)
     states = {}
     for name, kind, group in _layers(cfg):
+        if kind == "cross":
+            continue
         if group is None:
             states[name] = make(kind)
         elif group == 0:
@@ -322,8 +349,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       device: DeviceLike = None) -> dict:
     """Zeroed contiguous decode state: a KV cache of (B, Hkv, max_len, Dh)
     leaves for each attention layer, a ``RecurrentState`` or ``SSMState``
-    carry for each recurrent or SSM layer; a leading layer-group axis
-    under ``stack``."""
+    carry for each recurrent or SSM layer, nothing for a cross-attention
+    layer; a leading layer-group axis under ``stack``."""
     device = resolve_device(device)
 
     def make(kind):
@@ -345,12 +372,12 @@ def init_paged_decode_state(cfg: ModelConfig, num_pages: int,
                             device: DeviceLike = None) -> dict:
     """Paged decode state: each attention layer's cache is a pool of
     ``num_pages`` pages (page 0 the trash page), (NP, Hkv, page_size, Dh)
-    leaves, with a leading layer-group axis under ``stack``. Which pages
-    belong to which slot lives in the page tables of the decode inputs, so
-    the tree has no slot axis. Only attention-family models page: a
-    recurrent or SSM carry has no positional validity mask, so it cannot
-    share a lockstep-written global pool (such models keep the contiguous
-    layout)."""
+    leaves, with a leading layer-group axis under ``stack`` (none for a
+    cross-attention layer). Which pages belong to which slot lives in the
+    page tables of the decode inputs, so the tree has no slot axis. Only
+    attention-family models page: a recurrent or SSM carry has no
+    positional validity mask, so it cannot share a lockstep-written global
+    pool (such models keep the contiguous layout)."""
     bad = sorted({k for k in cfg.pattern if k not in ("attn", "moe",
                                                        "cross")})
     if bad:
@@ -467,7 +494,8 @@ def decode_step(model: LM, cfg: ModelConfig, inputs: Mapping, states,
     tokens (entries at or past it are masked, and the paged
     insert sends their writes to the trash page); ``page_table`` (B, P)
     for states from :func:`init_paged_decode_state`; ``write_start`` (B,),
-    the first position each row may write. Returns (logits, new_states)."""
+    the first position each row may write; for a VLM, ``image_embeddings``
+    (B, S, d_model) at every step. Returns (logits, new_states)."""
     logits, _, new_states = decode_step_with_aux(model, cfg, inputs, states,
                                                  ctx)
     return logits, new_states

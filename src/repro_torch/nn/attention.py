@@ -1,7 +1,8 @@
-"""Multi-head attention with grouped queries, with and without a KV cache.
+"""Multi-head attention with grouped queries, with and without a KV cache,
+and cross-attention to a stub frontend's embeddings (the VLM's image
+tokens).
 
-Counterpart of ``repro/nn/attention.py`` (self-attention; cross-attention
-comes with the VLM slice).
+Counterpart of ``repro/nn/attention.py``.
 
   DETERMINISTIC : softmax attention on the weight means.
   PFP           : mean-field attention: probabilities from the score means
@@ -134,11 +135,15 @@ def _insert_pages(buf, new, dest_page, dest_row):
 def attention_apply(layer: Attention, x, ctx: Context, *, num_heads: int,
                     num_kv_heads: int, head_dim: int, positions,
                     causal: bool = True, window: Optional[int] = None,
-                    rope_theta: Optional[float] = 1e4, cache=None,
-                    cache_len=None, page_table=None, write_start=None,
-                    standard_positions: bool = False):
+                    rope_theta: Optional[float] = 1e4, cross_kv=None,
+                    cache=None, cache_len=None, page_table=None,
+                    write_start=None, standard_positions: bool = False):
     """x (B, Tq, d_model), plain or Gaussian; positions (B, Tq) absolute.
 
+    ``rope_theta`` None: no rotary embedding. ``cross_kv`` (B, S, d_model),
+    plain or Gaussian: K and V are projected from it instead of ``x``, the
+    keys sit at positions 0..S-1, nothing is causal and k is never rotated
+    (a cross layer takes no cache).
     ``cache``: a :class:`KVCache` or :class:`PagedKVCache` to append the
     new K/V rows to at ``positions``; ``cache_len`` (B,): valid entries
     including this call's (for a contiguous cache it defaults to
@@ -153,14 +158,16 @@ def attention_apply(layer: Attention, x, ctx: Context, *, num_heads: int,
     scale = head_dim ** -0.5
     group = num_heads // num_kv_heads
 
+    kv_src = x if cross_kv is None else cross_kv
     q = _split_heads(layer.wq(x, ctx), num_heads, head_dim)
-    k = _split_heads(layer.wk(x, ctx), num_kv_heads, head_dim)
-    v = _split_heads(layer.wv(x, ctx), num_kv_heads, head_dim)
+    k = _split_heads(layer.wk(kv_src, ctx), num_kv_heads, head_dim)
+    v = _split_heads(layer.wv(kv_src, ctx), num_kv_heads, head_dim)
     if rope_theta is not None:
         cos, sin = rope_angles(positions, head_dim, rope_theta)  # (B, T, Dh/2)
         cos, sin = cos[:, None], sin[:, None]
         q = rope_apply(q, cos, sin)
-        k = rope_apply(k, cos, sin)
+        if cross_kv is None:
+            k = rope_apply(k, cos, sin)
 
     pfp = is_gaussian(q)
     k_mu = k.mean if pfp else k
@@ -203,6 +210,11 @@ def attention_apply(layer: Attention, x, ctx: Context, *, num_heads: int,
         k_pos = torch.arange(s, device=k_mu.device).expand(positions.shape[0],
                                                            s)
         k_valid = k_pos < kv_len[:, None]
+    elif cross_kv is not None:
+        s = k_mu.shape[2]
+        k_pos = torch.arange(s, device=k_mu.device).expand(positions.shape[0],
+                                                           s)
+        causal = False
 
     def _group(arr):  # (B, H, T, D) -> (B, Hkv, G, T, D)
         b, _, t, d = arr.shape

@@ -4,11 +4,12 @@ On the CPU: the block's row count in the wrapper is the source's, and the
 op runs the plain version. The tests marked ``gpu`` hold
 ``csrc/pfp_attention.cu`` ``pfp_attention_kernel`` against its plain
 version (``kernels/ref.py`` ``pfp_attention_ref``) at ``ATT_TOL``: head_dim
-16, 64 and 128, one and four query heads a KV head, Tq below Tk, causal and
-not, Tq and Tk on no multiple of the block's 64 rows or the tile's 32
-keys, and rows without a valid key (Tq above Tk, causal), which give 0; and
-two calls give the same bits. No JAX: ``python -m pytest -m gpu
-tests/test_torch_flash.py`` on the card.
+16, 64, 128 and 256, one and four query heads a KV head, Tq below Tk,
+causal and not, Tq and Tk on no multiple of the block's rows or the tile's
+keys, and rows without a valid key (Tq above Tk, causal), which give 0;
+the VLM's cross-attention shape scaled down (non-causal, text rows against
+more image keys, and one decode row); and two calls give the same bits. No
+JAX: ``python -m pytest -m gpu tests/test_torch_flash.py`` on the card.
 """
 import re
 from pathlib import Path
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.pfp_attention import FLASH_ROWS
+from repro_torch.kernels.pfp_attention import HEAD_DIMS, flash_rows
 from repro_torch.kernels.ref import pfp_attention_ref
 
 SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
@@ -53,7 +54,9 @@ def cuda():
 def test_block_rows_are_the_sources():
     text = SOURCE.read_text()
     rows = re.findall(r"static constexpr int kRows = (\d+);", text)
-    assert rows == [str(FLASH_ROWS)]
+    assert rows == [str(flash_rows(d)) for d in (128, 256)]
+    assert {flash_rows(d) for d in HEAD_DIMS} == {128, 64}
+    assert flash_rows(256) == 64 and flash_rows(128) == 128
 
 
 def test_op_on_the_cpu_is_the_plain_version():
@@ -67,7 +70,7 @@ def test_op_on_the_cpu_is_the_plain_version():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", (16, 64, 128))
+@pytest.mark.parametrize("d", (16, 64, 128, 256))
 @pytest.mark.parametrize("heads", sorted(HEADS))
 @pytest.mark.parametrize("causal", (True, False))
 def test_kernel_matches_plain_version(cuda, d, heads, causal):
@@ -83,7 +86,7 @@ def test_kernel_matches_plain_version(cuda, d, heads, causal):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", (16, 64, 128))
+@pytest.mark.parametrize("d", (16, 64, 128, 256))
 def test_rows_without_a_key_give_zero(cuda, d):
     """Causal with Tq above Tk: the first Tq - Tk rows see no key."""
     h, hkv = HEADS["G4"]
@@ -118,3 +121,29 @@ def test_musicgen_forward_shape(cuda):
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), **ATT_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tq", (1, 72))
+def test_cross_attention_shape(cuda, tq):
+    """llama-3.2-vision-90b's cross layer scaled down: 16 query heads of
+    128 over 2 KV heads (G 8), Tq text rows (a prefill, a decode step)
+    against 136 image keys, not causal; two calls give the same bits."""
+    args = _operands(2, 16, 2, tq, 136, 128, seed=13 + tq, device=cuda)
+    got = ops.pfp_attention(*args, scale=128 ** -0.5, causal=False)
+    again = ops.pfp_attention(*args, scale=128 ** -0.5, causal=False)
+    torch.cuda.synchronize()
+    want = pfp_attention_ref(*(a.cpu() for a in args), 128 ** -0.5, False)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), **ATT_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", (32, 512))
+def test_unbuilt_head_dim_raises(cuda, d):
+    """A head_dim that is not built raises on a CUDA tensor: no fallback to
+    the plain version."""
+    args = _operands(1, 2, 1, 4, 4, d, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.pfp_attention(*args, scale=d ** -0.5, causal=True)

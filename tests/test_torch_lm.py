@@ -189,5 +189,5 @@ def test_unported_modes_raise(trees):
         model(_inputs(False), Context(mode=Mode.PFP, attention_mode="exact",
                                       device="cpu"))
     with pytest.raises(NotImplementedError, match="family"):
-        lm.init_params(dataclasses.replace(reduced_config(ARCH), family="vlm"),
+        lm.init_params(dataclasses.replace(reduced_config(ARCH), family="cnn"),
                        device="cpu")
