@@ -124,6 +124,24 @@ Phases, each printing its own lines; any failure exits non-zero:
               SPEC_K tokens gives SPEC_K plain decode steps' logits, bit for
               bit. The verify pass, a decode step, a draft step and an SVI
               second opinion are timed and profiled
+  6d. fleet : the serving front door (serving/fleet/, launch/serve.py,
+              obs/) on the same model: FLEET_REQUESTS requests opening
+              with one FLEET_SYSTEM-token system prompt (tails of
+              FLEET_TAILS tokens, FLEET_NEW new tokens each) through a
+              2-replica fleet of paged, prefix-sharing engines of
+              DECODE_SLOTS slots (replicated, then prefill/decode
+              disaggregated) and a contiguous 2-replica fleet, each bit for
+              bit its single engine (tokens, MI, finish reasons); route
+              hits above 0, a handoff and one decode-engine prefill token
+              a request, every pool drained with page_ref equal to the
+              index's holds; a replicated run that escalates at most
+              FLEET_MAX_ESCALATIONS tokens equals its escalating single
+              engine; the serve CLI in-process at full width (2 layers,
+              --replicas 2 --disaggregate --profile-ops, three exports
+              under chiprun_out/) exits 0 and its exports pass
+              repro_torch.obs.validate; one profiled decode pass gives the
+              bits of an unprofiled one. Wall, tokens/s, route hit rate and
+              p50 / p99 handoff steps are printed beside the card
   7. times  : device times (CUDA graph replays between CUDA events) of
               each kernel at batch 10, 100 and 1024 and at the LM's shapes
               (the dense kernel also at a 4-slot decode step's and a
@@ -382,6 +400,18 @@ SPEC_K, SVI_SAMPLES, SPEC_CONTINUE_PCT = 4, 8, 70
 MI_ATOL = 2e-5
 SPEC_KERNELS = ("dense", "activation", "rmsnorm", "glu_product",
                 "attention_paged")
+# The fleet phase: FLEET_REQUESTS requests of FLEET_NEW new tokens, each
+# prompt one FLEET_SYSTEM-token system prompt and a tail of FLEET_TAILS
+# tokens, arriving as the engine phase's do (DECODE_SLOTS at step 0, then
+# 8 steps apart), through 2-replica fleets of the engine phase's engines
+# with prefix sharing; the escalating run's mi_continue leaves at most
+# FLEET_MAX_ESCALATIONS - 2 tokens of the plain paged run above it.
+FLEET_REPLICAS, FLEET_REQUESTS, FLEET_SYSTEM = 2, 10, 256
+FLEET_TAILS, FLEET_NEW, FLEET_MAX_ESCALATIONS = (32, 250), 16, 4
+FLEET_KERNELS = ("dense", "activation", "rmsnorm", "glu_product",
+                 "attention_cache", "attention_paged")
+SERVE_KERNELS = ("dense", "activation", "rmsnorm", "glu_product",
+                 "attention_paged")
 # deepseek-moe-16b under the engine: paged, a few short requests, Eq. 12
 # and Eq. 7, each against the eager impl's tokens.
 ENGINE_MOE_REQUESTS, ENGINE_MOE_PROMPTS, ENGINE_MOE_NEW = 4, (129, 256), 8
@@ -3278,6 +3308,293 @@ def phase_engine_spec(device, lm_cfg, lm_model, paged, seed=0):
     return esc_launches, spec_launches, info
 
 
+def _fleet_run(cfg, model, device, requests, *, disaggregate, router=None,
+               **config):
+    """Drive ``requests`` through a FLEET_REPLICAS-replica Fleet of the
+    engine phase's engines (``_make_engine``'s slots, cache rows, windows
+    and budget) as run_load does, one CUDA sync after every fleet step.
+    Checks every replica's drain (no slot live, pool and index
+    invariants, each page's references exactly the index's holds) and
+    that every request finished by length; returns the run's record."""
+    import copy
+
+    import torch
+    from repro_torch.kernels._launch import LAUNCHES, reset_launch_counts
+    from repro_torch.obs import Tracer
+    from repro_torch.serving.engine import (EngineConfig, RouterConfig,
+                                            SchedulerConfig,
+                                            UncertaintyRouter)
+    from repro_torch.serving.fleet import Fleet, FleetConfig
+    config.setdefault("max_len", DECODE_MAX_LEN)
+    tracer = Tracer()
+    fleet = Fleet(
+        cfg, model, EngineConfig(slots=DECODE_SLOTS, impl="kernel",
+                                 formulation="srm", **config),
+        FleetConfig(replicas=FLEET_REPLICAS, disaggregate=disaggregate),
+        router=UncertaintyRouter(cfg, RouterConfig(**(router or
+                                                      ENGINE_ROUTER)),
+                                 formulation="srm", impl="kernel"),
+        scheduler_config=SchedulerConfig(prefill_chunk=PREFILL_CHUNK,
+                                         prefill_budget=ENGINE_BUDGET),
+        device=device, tracer=tracer)
+    pending = sorted(copy.deepcopy(requests), key=lambda r: r.arrival)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    i = 0
+    while i < len(pending) or not fleet.idle:
+        while i < len(pending) and pending[i].arrival <= fleet.now:
+            if not fleet.submit(pending[i]):
+                fail(f"fleet: request {pending[i].uid} rejected")
+            i += 1
+        if fleet.now >= 20_000:
+            fail("fleet: not drained after 20000 steps")
+        fleet.step()
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    for idx, rep in enumerate(fleet.replicas):
+        pool = rep.pool
+        pool.check_invariants()
+        if getattr(rep, "prefix", None) is not None:
+            rep.prefix.check_invariants(pool)
+        if rep.active_slots or pool.live:
+            fail(f"fleet: replica {idx} holds {pool.live} live slots after "
+                 f"the drain")
+        if config.get("page_size") is not None:
+            leaked = [p for p in range(1, pool.num_pages)
+                      if pool.page_ref[p] != pool.external_holds[p]]
+            if leaked:
+                fail(f"fleet: replica {idx} pages {leaked[:8]} hold "
+                     f"references beyond the index's after the drain")
+    if len(fleet.finished) != len(requests) or any(
+            r.finish_reason != "length" for r in fleet.finished):
+        fail(f"fleet: finish reasons "
+             f"{sorted((r.uid, r.finish_reason) for r in fleet.finished)}")
+    summary = fleet.metrics.summary()
+    summary["decode_engine_prefill_tokens"] = sum(
+        rep.decode_engine.metrics.summary()["prefill_tokens"]
+        for rep in fleet.replicas if disaggregate)
+    return {"results": {r.uid: (list(r.generated), list(r.mi_trace),
+                                r.finish_reason) for r in fleet.finished},
+            "launches": launches, "summary": summary, "seconds": seconds,
+            "steps": fleet.now, "trace_events": len(tracer.events)}
+
+
+def _fleet_report(name, run):
+    s = run["summary"]
+    print(f"[fleet] {name}: {len(run['results'])} requests, "
+          f"{s['tokens_generated']} tokens in {run['steps']} fleet steps, "
+          f"{run['seconds']:.3f} s wall, "
+          f"{s['tokens_generated'] / run['seconds']:.2f} tokens/s; route "
+          f"hits {s['route_prefix_hits']}, fallbacks {s['route_fallbacks']} "
+          f"(hit rate {s['route_hit_rate']:.3f}, "
+          f"{s['route_tokens_matched']} tokens matched); per replica tokens "
+          f"{s['per_replica_tokens']}; prefill tokens {s['prefill_tokens']}"
+          f", saved {s['prefill_tokens_saved']}; handoffs "
+          f"{s.get('handoffs', 0)}, p50 / p99 handoff steps "
+          f"{s.get('p50_handoff_steps', float('nan')):g} / "
+          f"{s.get('p99_handoff_steps', float('nan')):g}, decode-engine "
+          f"prefill tokens {s['decode_engine_prefill_tokens']}; escalations "
+          f"{s['escalations']}; launches {run['launches']} ({CARD})")
+
+
+def _same_results(label, got, want):
+    """Fail unless two runs served the same tokens, MI traces and finish
+    reasons, bit for bit."""
+    if got != want:
+        bad = sorted(u for u in set(got) | set(want)
+                     if got.get(u) != want.get(u))
+        fail(f"fleet: {label} differs from its single engine (tokens, MI "
+             f"or finish reasons) for uids {bad}")
+
+
+def _profiled_pass_check(cfg, model, device, seed):
+    """One lockstep decode pass of a paged engine (every slot active at
+    position 0 of a page of its own), run plainly and under the op
+    profiler: the logit moments must be equal bit for bit. Returns the
+    two passes' CUDA-synced walls and the profile's rows."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.obs import profile_ops
+    eng = _make_engine(cfg, model, device, "kernel", "srm",
+                       page_size=PAGE_SIZE, seed=seed)
+    for uid in range(DECODE_SLOTS):
+        if not eng.pool.ensure_capacity(eng.pool.alloc(uid), 1):
+            fail("fleet: no page for the profiled pass")
+    args = list(serve.decode_pass_inputs(eng))
+    rng = np.random.default_rng(seed + 11)
+    args[0] = rng.integers(0, cfg.vocab_size, (DECODE_SLOTS, 1))
+    args[2] = np.ones(DECODE_SLOTS, np.int64)
+    args[3] = torch.ones(DECODE_SLOTS, dtype=torch.bool, device=device)
+    eng.decode_fn(*args)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = eng.decode_fn(*args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with profile_ops() as prof:
+        got = eng.decode_fn(*args)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for part, a, b in (("mean", got[0], plain[0]), ("var", got[1], plain[1])):
+        if not torch.equal(a, b):
+            fail(f"fleet: the profiled decode pass's logit {part} differs "
+                 f"from the plain pass's (max abs "
+                 f"{float((a - b).abs().max()):.3e})")
+    return {"plain_ms": (t1 - t0) * 1e3, "profiled_ms": (t2 - t1) * 1e3,
+            "rows": prof.table()}
+
+
+def phase_fleet(device, lm_cfg, lm_model, seed=0):
+    """The serving front door on granite-8b at full width: 2-replica
+    fleets (replicated, disaggregated, contiguous) against single engines,
+    an escalating replicated run, the serve CLI and a profiled decode pass
+    (see the module docstring, 6d). Returns (the fleet runs' launches, the
+    serve CLI's launches, info)."""
+    import torch
+    from repro_torch.kernels._launch import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.obs import validate
+    t0 = time.perf_counter()
+    n = FLEET_REQUESTS
+    requests = _engine_requests(
+        lm_cfg, seed, n, (FLEET_SYSTEM + FLEET_TAILS[0],
+                          FLEET_SYSTEM + FLEET_TAILS[1]),
+        FLEET_NEW, system=FLEET_SYSTEM)
+    print(f"[fleet] {lm_cfg.name}, {lm_cfg.num_layers} layers, kernel "
+          f"impl: {n} requests, prompts {[len(r.prompt) for r in requests]}"
+          f" (one {FLEET_SYSTEM}-token system prompt), {FLEET_NEW} new "
+          f"tokens each, arrivals {[r.arrival for r in requests]}; "
+          f"{FLEET_REPLICAS} replicas of {DECODE_SLOTS} slots of "
+          f"{DECODE_MAX_LEN} rows, pages of {PAGE_SIZE}, prefill windows of "
+          f"{PREFILL_CHUNK}, {ENGINE_BUDGET} prompt tokens a step")
+    paged = dict(page_size=PAGE_SIZE, prefix_sharing=True, seed=seed)
+    runs, singles = {}, {}
+    singles["paged"] = _engine_run(lm_cfg, lm_model, device, requests,
+                                   **paged)
+    _engine_report("fleet", "single paged engine", singles["paged"])
+    for name, dis in (("replicated", False), ("disaggregated", True)):
+        runs[name] = _fleet_run(lm_cfg, lm_model, device, requests,
+                                disaggregate=dis, **paged)
+        _fleet_report(name, runs[name])
+        _same_results(name, runs[name]["results"],
+                      singles["paged"]["results"])
+    for name in ("replicated", "disaggregated"):
+        s = runs[name]["summary"]
+        if not s["route_prefix_hits"] > 0:
+            fail(f"fleet {name}: no request routed to a cached prefix")
+        if min(s["per_replica_tokens"]) == 0:
+            fail(f"fleet {name}: a replica served nothing "
+                 f"({s['per_replica_tokens']})")
+    s = runs["disaggregated"]["summary"]
+    if s["handoffs"] != n or s["decode_engine_prefill_tokens"] != n:
+        fail(f"fleet disaggregated: {s['handoffs']} handoffs and "
+             f"{s['decode_engine_prefill_tokens']} decode-engine prefill "
+             f"tokens for {n} requests")
+    singles["contiguous"] = _engine_run(lm_cfg, lm_model, device, requests,
+                                        seed=seed)
+    runs["contiguous"] = _fleet_run(lm_cfg, lm_model, device, requests,
+                                    disaggregate=False, seed=seed)
+    _fleet_report("contiguous", runs["contiguous"])
+    _same_results("contiguous", runs["contiguous"]["results"],
+                  singles["contiguous"]["results"])
+    # mi_continue: the lowest MI level of the plain run with at most
+    # FLEET_MAX_ESCALATIONS - 2 tokens above it (and at least one), so
+    # that a token whose SVI answer changes the later stream leaves room.
+    mis = [m for r in singles["paged"]["results"].values() for m in r[1]]
+    levels = sorted(set(mis))
+    if len(levels) < 2:
+        fail(f"fleet: every token of the paged run has MI {levels}")
+    mi_continue = levels[-2]
+    for level in reversed(levels[:-2]):
+        if sum(m > level for m in mis) > FLEET_MAX_ESCALATIONS - 2:
+            break
+        mi_continue = level
+    router = dict(mi_continue=mi_continue, mi_abstain=2.0 * levels[-1],
+                  escalate_samples=SVI_SAMPLES, svi_mi_abstain=float("inf"))
+    singles["escalate"] = _engine_run(lm_cfg, lm_model, device, requests,
+                                      router=router, **paged)
+    runs["escalate"] = _fleet_run(lm_cfg, lm_model, device, requests,
+                                  disaggregate=False, router=router, **paged)
+    _fleet_report("replicated, escalating", runs["escalate"])
+    _same_results("escalate", runs["escalate"]["results"],
+                  singles["escalate"]["results"])
+    esc = runs["escalate"]["summary"]["escalations"]
+    if not 1 <= esc <= FLEET_MAX_ESCALATIONS or \
+            esc != singles["escalate"]["summary"]["escalations"]:
+        fail(f"fleet escalate: {esc} escalations (single engine "
+             f"{singles['escalate']['summary']['escalations']}), want 1 to "
+             f"{FLEET_MAX_ESCALATIONS}")
+    fleet_launches = {}
+    for run in runs.values():
+        for k, v in run["launches"].items():
+            fleet_launches[k] = fleet_launches.get(k, 0) + v
+    missing = [k for k in FLEET_KERNELS if not fleet_launches.get(k)]
+    if missing:
+        fail(f"fleet: kernels never launched: {missing}")
+    print(f"[fleet] replicated, disaggregated and contiguous fleets, and "
+          f"the escalating replicated fleet ({esc} escalations, SVI "
+          f"{SVI_SAMPLES} samples, mi_continue {router['mi_continue']!r}),"
+          f" each equal their single engine bit for bit; launches "
+          f"{fleet_launches}")
+
+    exports = {k: str(OUT_DIR / f"fleet_{k}") for k in
+               ("trace.jsonl", "metrics.json", "metrics.prom")}
+    argv = ["--full-size", "--layers", str(LM_LAYERS), "--impl", "kernel",
+            "--replicas", str(FLEET_REPLICAS), "--disaggregate",
+            "--page-size", str(PAGE_SIZE), "--prefix-sharing",
+            "--common-prefix", "8", "--expect-route-hits", "--requests", "6",
+            "--tokens", "4", "--prompt-len", "12", "--profile-ops",
+            "--seed", str(seed),
+            "--trace-out", exports["trace.jsonl"],
+            "--metrics-out", exports["metrics.json"],
+            "--prom-out", exports["metrics.prom"]]
+    print(f"[fleet] serve CLI: python -m repro_torch.launch.serve "
+          f"{' '.join(argv)}")
+    reset_launch_counts()
+    t_cli = time.perf_counter()
+    rc = serve.main(argv)
+    torch.cuda.synchronize()
+    cli_seconds = time.perf_counter() - t_cli
+    serve_launches = {k: v for k, v in LAUNCHES.items() if v}
+    if rc != 0:
+        fail(f"fleet: the serve CLI exited {rc}")
+    vrc = validate.main(["--trace", exports["trace.jsonl"],
+                         "--metrics", exports["metrics.json"],
+                         "--prom", exports["metrics.prom"]])
+    if vrc != 0:
+        fail(f"fleet: repro_torch.obs.validate exited {vrc} on the CLI's "
+             f"exports")
+    missing = [k for k in SERVE_KERNELS if not serve_launches.get(k)]
+    if missing:
+        fail(f"fleet: the serve CLI never launched {missing}")
+    print(f"[fleet] serve CLI exit 0 in {cli_seconds:.1f} s (model build, "
+          f"the fleet, its single-engine check, one profiled pass); its "
+          f"exports validate; launches {serve_launches} ({CARD})")
+    profile = _profiled_pass_check(lm_cfg, lm_model, device, seed)
+    top = ", ".join(f"{r['op']} {r['calls']} x {r['mean_us']:.1f} us"
+                    for r in profile["rows"][:5])
+    print(f"[fleet] a profiled decode pass ({DECODE_SLOTS} slots) equals "
+          f"the plain pass bit for bit; wall {profile['profiled_ms']:.3f} "
+          f"ms profiled (one torch.cuda.synchronize a side of each op) "
+          f"against {profile['plain_ms']:.3f} ms plain; by op: {top} "
+          f"({CARD})")
+    seconds = time.perf_counter() - t0
+    print(f"[fleet] phase {seconds:.1f} s")
+    strip = ("results",)
+    info = {name: {k: v for k, v in run.items() if k not in strip}
+            for name, run in runs.items()}
+    info["single"] = {name: {k: v for k, v in run.items() if k not in strip}
+                      for name, run in singles.items()}
+    info.update(escalate_router=router, cli_seconds=cli_seconds,
+                cli_argv=argv, profile=profile, seconds=seconds,
+                tokens={uid: r[0] for uid, r in
+                        runs["disaggregated"]["results"].items()})
+    return fleet_launches, serve_launches, info
+
+
 def phase_engine_moe(device, cfg, model, seed=0):
     """deepseek-moe-16b under the paged engine, Eq. 12 and Eq. 7: the
     batched expert kernel of each formulation (rows 12 and 13) must launch,
@@ -5664,9 +5981,12 @@ def main():
         device, lm_cfg, lm_model, args.seed)
     launches["engine_escalate"], launches["engine_spec"], spec_info = \
         phase_engine_spec(device, lm_cfg, lm_model, paged_results, args.seed)
+    launches["fleet"], launches["serve"], fleet_info = phase_fleet(
+        device, lm_cfg, lm_model, args.seed)
+    mark("cnn to fleet")
     rows, forwards = phase_times(device, lm_cfg, lm_model)
     profile = phase_profile(device, lm_cfg, lm_model)
-    mark("cnn to profile")
+    mark("times and profile")
     del lm_model
     torch.cuda.empty_cache()
     moe_launches, moe_info, moe_cfg, moe_model = phase_moe(device)
@@ -5728,7 +6048,7 @@ def main():
         {"card": card, "build": build, "kernels": kernels, "times": rows,
          "forwards": forwards, "profile": profile, "lm": lm_info,
          "decode": decode_info, "engine": engine_info,
-         "engine_spec": spec_info, "moe": moe_info,
+         "engine_spec": spec_info, "fleet": fleet_info, "moe": moe_info,
          "moe_decode": moe_decode_info, "moe_engine": moe_engine_info,
          "audio": audio_info, "families": family_info,
          "configs": config_info,

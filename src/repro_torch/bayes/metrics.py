@@ -21,10 +21,16 @@ def _entropy(p, dim=-1):
 
 def predictive_metrics_from_samples(logits_samples: torch.Tensor) -> dict:
     """logits_samples: (N, B, K) -> dict of (B,) metric tensors."""
-    probs = torch.softmax(logits_samples, dim=-1)            # (N, B, K)
-    mean_probs = torch.mean(probs, dim=0)                    # (B, K)
+    # The sample means run over a (B, N, K) copy. Reduced over dim 0 of
+    # the (N, B, K) layout, a row's sums on the CPU depend on where the
+    # row falls in the vectorised sweep over B (and B * K), so a request's
+    # MI would change with its slot; over (B, N, K) every row's sums have
+    # one shape.
+    probs = torch.softmax(logits_samples, dim=-1).transpose(
+        0, 1).contiguous()                                   # (B, N, K)
+    mean_probs = torch.mean(probs, dim=1)                    # (B, K)
     total = _entropy(mean_probs)                             # Eq. 1
-    aleatoric = torch.mean(_entropy(probs), dim=0)           # Eq. 2
+    aleatoric = torch.mean(_entropy(probs), dim=1)           # Eq. 2
     mi = total - aleatoric                                   # Eq. 3
     pred = torch.argmax(mean_probs, dim=-1)
     return {"total": total, "aleatoric": aleatoric, "mi": mi, "pred": pred,

@@ -46,6 +46,25 @@ DEFAULT_IMPL = "kernel"   # what ``Context.impl=None`` runs
 # op name -> {'eager': fn, 'kernel': fn}
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}
 
+# Active per-op profiler (repro_torch.obs.profiler.OpProfiler) or None.
+# When set, get_op returns a fenced, timed wrapper around the resolved impl,
+# _schedule_for reports each tuning-cache consult and the einsum fallback
+# reports itself. The None check is the only cost the unprofiled path pays.
+_PROFILER = None
+
+
+def set_profiler(profiler):
+    """Install (or clear, with None) the dispatch-level op profiler.
+    Returns the previous profiler so scopes nest."""
+    global _PROFILER
+    prev = _PROFILER
+    _PROFILER = profiler
+    return prev
+
+
+def get_profiler():
+    return _PROFILER
+
 
 def resolve_impl(impl: Optional[str]) -> str:
     """None -> the default impl; otherwise validate and pass through."""
@@ -66,7 +85,11 @@ def register(name: str, impl: str):
 
 
 def get_op(name: str, impl: Optional[str] = None) -> Callable:
-    return _REGISTRY[name][resolve_impl(impl)]
+    impl = resolve_impl(impl)
+    fn = _REGISTRY[name][impl]
+    if _PROFILER is not None:
+        return _PROFILER.wrap(name, impl, fn)
+    return fn
 
 
 def _check_formulation(formulation: str) -> None:
@@ -77,9 +100,12 @@ def _check_formulation(formulation: str) -> None:
 def _schedule_for(op: str, shape_key, dtype, device):
     """Consult the tuned-schedule cache for a kernel-impl call on
     ``device``: the Schedule, or None on a miss."""
-    return schedule_cache.lookup(op, shape_key,
-                                 str(dtype).replace("torch.", ""),
-                                 schedule_cache.default_backend(device))
+    sched = schedule_cache.lookup(op, shape_key,
+                                  str(dtype).replace("torch.", ""),
+                                  schedule_cache.default_backend(device))
+    if _PROFILER is not None:
+        _PROFILER.on_cache_consult(op, sched is not None)
+    return sched
 
 
 def _rows(shape) -> int:
@@ -193,7 +219,7 @@ def pfp_dense_batched(x, w: GaussianTensor, *, formulation: str = "srm",
 # ---------------------------------------------------------------------------
 # Specs the kernel impl has no kernel for run the eager impl; each such call
 # adds one to FALLBACKS under "einsum:<spec>:<formulation>", so a silent
-# fallback shows (the reference counts them in its op profiler).
+# fallback shows; an active op profiler counts it too (``on_fallback``).
 FALLBACKS: Dict[str, int] = {}
 _DENSE_SPECS = ("...k,kn->...n", "bk,kn->bn", "btk,kn->btn")
 
@@ -235,6 +261,8 @@ def _einsum_kernel(subscripts, x, w, formulation):
             return _depthwise_kernel(x, w, formulation)
     key = f"einsum:{spec}:{formulation}"
     FALLBACKS[key] = FALLBACKS.get(key, 0) + 1
+    if _PROFILER is not None:
+        _PROFILER.on_fallback(key)
     return _einsum_eager(subscripts, x, w, formulation)
 
 
