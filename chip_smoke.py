@@ -300,12 +300,30 @@ Phases, each printing its own lines; any failure exits non-zero:
               every loss and gradient norm finite, every parameter changed
               by step 1, step 1 run again from the same state and seed
               gives the same loss; step ms and peak memory printed
+ 13. train cli: the training CLI (repro_torch.launch.train) in-process on
+              granite-8b at full width (2 layers, 1 x 256 tokens a step, 12
+              steps, a checkpoint of about 20 GB at step 10 under
+              build/train_cli, after a check of free disk and host memory),
+              then resumed from that checkpoint: the two final train
+              states equal leaf for leaf, bit for bit; the step median and
+              p90 and the save's and restore's seconds and GB printed. The
+              step-10 parameters restored onto the card, converted, one
+              4 x 512 forward through the kernels against the eager impl
+              (MODEL_TOL; its launches are the path ``train_cli``). The
+              paper MLP (get_config("paper-mlp")) SVI-trained on
+              Dirty-MNIST under TrainSupervisor with a CheckpointManager,
+              failing once after an update: restarts 1 and the state of an
+              uninterrupted run bit for bit. compress_with_feedback over
+              the CLI's first 5 steps of gradients: every block's error
+              within scale / 2 (+ fp32 rounding) and the reconstructions
+              plus the final error the sum of the gradients (1e-4)
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and a last JSON line ``{"ok": true, "device": {...}}``. Full numbers go to
 chiprun_out/chip_smoke.json.
 """
 import argparse
+import itertools
 import json
 import re
 import subprocess
@@ -565,6 +583,18 @@ TABLE1_SAMPLES = 30
 TABLE1_CANDIDATES = (0.1, 0.2, 0.3, 0.4, 0.5, 0.7, 1.0, 1.5, 2.0)
 FP64_FACTOR = 4   # kernel impl's error from fp64 against the eager impl's
 LM_TRAIN_SEQ, LM_TRAIN_STEPS = 256, 3
+# The training CLI phase: granite-8b at LM_LAYERS layers, 1 x LM_TRAIN_SEQ
+# tokens a step; 12 steps save once (at step 10), under build/ (ignored).
+TRAIN_CLI_STEPS = 12
+TRAIN_CLI_ARGS = ("--layers", str(LM_LAYERS), "--batch", "1", "--seq",
+                  str(LM_TRAIN_SEQ), "--steps", str(TRAIN_CLI_STEPS))
+TRAIN_CLI_DIR = ROOT / "build" / "train_cli"
+TRAIN_CLI_COMPRESSED = 5   # steps of gradients through compress_with_feedback
+COMPRESS_TOL = dict(rtol=1e-4, atol=1e-4)   # tests/test_property_invariants.py
+# An int8 block's error is at most scale / 2, plus the fp32 roundings of
+# the division (at |x / scale| <= 127), the product and the difference.
+COMPRESS_SLACK = 2.0 ** -16
+SUPERVISED = dict(steps=60, batch=128, save_every=20, fail_at=47)
 # K on both sides of the dense kernel's split boundaries (kernels/pfp_dense.py
 # split_k at N 100: 1 to K 64, 2 to 96, 3 from 97, 7 at 784, 8 from 785).
 SPLIT_CHECK_K = (1, 17, 64, 65, 96, 97, 127, 129, 783, 784, 785)
@@ -5744,6 +5774,367 @@ def phase_train(device):
     return launches, info
 
 
+# ---------------------------------------------------------------------------
+# The training CLI: python -m repro_torch.launch.train on the card
+# ---------------------------------------------------------------------------
+class _Tee:
+    """A text stream that writes to several (the CLI's lines go to the
+    console and to a buffer the phase reads)."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self):
+        for stream in self.streams:
+            stream.flush()
+
+
+def _cli_run(argv, **hooks):
+    """``repro_torch.launch.train.run`` on ``argv`` in this process.
+    Returns (final TrainState, what it printed, wall seconds)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        state = train.run(train._parser().parse_args(list(argv)), **hooks)
+    return state, buf.getvalue(), time.perf_counter() - t0
+
+
+def _cli_number(pattern, text, what):
+    found = re.search(pattern, text)
+    if found is None:
+        fail(f"train CLI: no {what} line in its output")
+    return [float(g) for g in found.groups()]
+
+
+def _mem_available_bytes():
+    """MemAvailable of /proc/meminfo (read only)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    return 0
+
+
+def _state_tensors(state):
+    """Every tensor of a port ``TrainState`` by name: the parameters and
+    Adam's ``m`` and ``v``."""
+    out = {f"params/{n}": p for n, p in state.model.named_parameters()}
+    for part in ("m", "v"):
+        out.update({f"opt_state/{part}/{n}": t for n, t in
+                    getattr(state.opt_state, part).items()})
+    return out
+
+
+def _state_diffs(got, want):
+    """The tensors of two port ``TrainState``s that differ, with their max
+    abs difference; fails unless both hold the same tensors and steps."""
+    import torch
+    g, w = _state_tensors(got), _state_tensors(want)
+    if set(g) != set(w):
+        fail(f"train states hold different tensors: {set(g) ^ set(w)}")
+    steps = [(s.step, s.opt_state.step) for s in (got, want)]
+    if steps[0] != steps[1]:
+        fail(f"train states at steps (state, Adam) {steps}")
+    return {k: float((g[k] - w[k]).abs().max()) for k in w
+            if not torch.equal(g[k], w[k])}
+
+
+def _cli_resume(device, cfg):
+    """(a): the CLI uninterrupted (saving at step 10), then resumed from
+    that checkpoint; the two final states compared leaf for leaf on the
+    card (the first is kept there: about 20 GB)."""
+    import numpy as np
+    import torch
+    argv = TRAIN_CLI_ARGS + ("--ckpt-dir", str(TRAIN_CLI_DIR))
+    step_s = []
+    whole, out, whole_s = _cli_run(
+        argv, on_step=lambda i, metrics, dt: step_s.append(dt))
+    gb, copy_s, write_s = _cli_number(
+        r"checkpoint step 10: ([\d.]+) GB, host copy ([\d.]+) s, write "
+        r"([\d.]+) s", out, "checkpoint")
+    resumed, out, resume_s = _cli_run(argv + ("--resume",))
+    read_gb, read_s = _cli_number(
+        r"resumed from step 10 onto \w+: ([\d.]+) GB read in ([\d.]+) s",
+        out, "resume")
+    if resumed.step != TRAIN_CLI_STEPS:
+        fail(f"the resumed run ended at step {resumed.step}")
+    diffs = _state_diffs(resumed, whole)
+    n_bytes = sum(t.nbytes for t in _state_tensors(whole).values())
+    del whole, resumed
+    torch.cuda.empty_cache()
+    ms = np.asarray(step_s[1:]) * 1e3
+    info = {"step_ms_first": step_s[0] * 1e3,
+            "step_ms_median": float(np.median(ms)),
+            "step_ms_p90": float(np.percentile(ms, 90)),
+            "checkpoint_gb": gb, "save_copy_s": copy_s,
+            "save_write_s": write_s, "restore_gb": read_gb,
+            "restore_s": read_s, "run_s": whole_s, "resumed_run_s": resume_s,
+            "differing_leaves": diffs}
+    print(f"[train cli] {cfg.name} ({cfg.num_layers} layers, full width): "
+          f"{TRAIN_CLI_STEPS} steps of 1 x {LM_TRAIN_SEQ} tokens; step "
+          f"{info['step_ms_median']:.2f} ms median, {info['step_ms_p90']:.2f}"
+          f" p90 (steps 2-{TRAIN_CLI_STEPS}, host clock after the loss "
+          f"reached the host; step 1 {info['step_ms_first']:.2f} ms)")
+    print(f"[train cli] checkpoint at step 10: {gb:.3f} GB, the loop paused "
+          f"{copy_s:.3f} s for the host copy, written in {write_s:.3f} s on "
+          f"the writer thread; resume read {read_gb:.3f} GB in {read_s:.3f} "
+          f"s; runs {whole_s:.2f} s and {resume_s:.2f} s (inits and "
+          "checkpoint included)")
+    if diffs:
+        fail(f"resumed state differs from the uninterrupted one in "
+             f"{len(diffs)} tensors, e.g. {sorted(diffs.items())[:4]}")
+    print(f"[train cli] resumed == uninterrupted bit for bit: all "
+          f"{n_bytes / 1e9:.3f} GB of the "
+          f"step-{TRAIN_CLI_STEPS} state (parameters, Adam m and v; both "
+          "steps equal)")
+    return info
+
+
+def _checkpoint_to_serving(device, cfg):
+    """(b): the step-10 checkpoint restored onto the card, converted, one
+    PFP forward through the kernels against the eager impl. Returns its
+    launches and info."""
+    import torch
+    from repro_torch.bayes.convert import svi_to_pfp
+    from repro_torch.core.modes import Mode
+    from repro_torch.kernels._launch import LAUNCHES, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.nn.module import Context, load_numpy_params, param_layout
+    from repro_torch.training.checkpoint import CheckpointManager
+    model = lm.init_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(1),
+        device=device)
+    mgr = CheckpointManager(str(TRAIN_CLI_DIR))
+    tree, _ = mgr.restore({"params": param_layout(model)}, step=10,
+                          device=device)
+    load_numpy_params(model, tree["params"])
+    del tree
+    converted = svi_to_pfp(model)
+    del model
+    tokens = _lm_requests(cfg, device)[0]
+    reset_launch_counts()
+    got, _, _ = lm.forward(converted, cfg, {"tokens": tokens}, Context(
+        mode=Mode.PFP, impl="kernel", formulation="srm", device=device))
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES[k] for k in LM_KERNELS}
+    want_launches = {}
+    for kernel, _ in lm_path_calls(cfg):
+        want_launches[kernel] = want_launches.get(kernel, 0) + 1
+    if launches != want_launches:
+        fail(f"checkpoint forward launches {launches}, expected "
+             f"{want_launches}")
+    want, _, _ = lm.forward(converted, cfg, {"tokens": tokens}, Context(
+        mode=Mode.PFP, impl="eager", formulation="srm", device=device))
+    errs = {}
+    for part in ("mean", "var"):
+        g, w = getattr(got, part), getattr(want, part)
+        if tuple(g.shape) != (LM_BATCH, LM_SEQ, cfg.vocab_size) or \
+                not torch.isfinite(g).all():
+            fail(f"checkpoint forward {part}: bad logits")
+        rtol, atol = MODEL_TOL[part]
+        errs[part] = float((g - w).abs().max())
+        if not torch.allclose(g, w, rtol=rtol, atol=atol):
+            fail(f"checkpoint forward {part} kernel vs eager: max abs err "
+                 f"{errs[part]:.3e}")
+    if float(got.var.min()) <= 0:
+        fail("checkpoint forward: non-positive logit variance")
+    read = mgr.restores[-1]
+    print(f"[train cli] step-10 parameters restored onto the card "
+          f"({read['bytes'] / 1e9:.3f} GB in {read['seconds']:.3f} s), "
+          f"converted, one {LM_BATCH} x {LM_SEQ} forward: kernel vs eager "
+          f"max abs err mean {errs['mean']:.3e}, var {errs['var']:.3e} "
+          f"(MODEL_TOL); launches {launches}")
+    return launches, {"errors": errs, "params_restore_gb": read["bytes"] / 1e9,
+                      "params_restore_s": read["seconds"]}
+
+
+def _supervised_mlp(device, x, y, rows, fail_at, directory):
+    """The paper MLP SVI-trained on Dirty-MNIST under TrainSupervisor with
+    a CheckpointManager; step ``fail_at`` raises once after its update.
+    Returns (the final TrainState, restarts)."""
+    import torch
+    from repro_torch.bayes.variational import KLSchedule
+    from repro_torch.configs import get_config
+    from repro_torch.models.simple import MLP
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.fault_tolerance import TrainSupervisor
+    from repro_torch.training.optimizer import Adam
+    from repro_torch.training.train_loop import (TrainState, init_train_state,
+                                                 load_train_state_tree,
+                                                 make_svi_train_step,
+                                                 train_state_layout,
+                                                 train_state_tree)
+    cfg = get_config("paper-mlp")
+    model = MLP(d_hidden=cfg.d_model, d_out=cfg.vocab_size,
+                num_hidden=cfg.num_layers - 1, sigma_init=cfg.sigma_init,
+                generator=torch.Generator().manual_seed(0), device=device)
+    opt = Adam(learning_rate=3e-3)
+    steps = SUPERVISED["steps"]
+    step = make_svi_train_step(
+        lambda m, batch, ctx: (m(batch["x"].reshape(len(batch["x"]), -1),
+                                 ctx), 0.0),
+        opt, num_data=TRAIN_N, kl_schedule=KLSchedule(0.25, steps))
+    mgr = CheckpointManager(str(directory))
+    failed = []
+
+    def step_fn(state, i):
+        state, metrics = step(state, {"x": x[rows[i]], "targets": y[rows[i]]},
+                              torch.Generator(device=device).manual_seed(i))
+        if i == fail_at and not failed:
+            failed.append(i)
+            raise RuntimeError(f"injected failure after step {i}'s update")
+        return state, metrics
+
+    def restore():
+        mgr.wait()
+        tree, done = mgr.restore(train_state_layout(model), device=device)
+        return load_train_state_tree(TrainState(model, None, 0), tree), done
+
+    sup = TrainSupervisor(lambda done, state: mgr.save(
+        done, train_state_tree(state)), restore,
+        save_every=SUPERVISED["save_every"], max_restarts=1)
+    state, _, done = sup.run(step_fn, init_train_state(model, opt), 0, steps)
+    mgr.wait()
+    if done != steps or state.step != steps:
+        fail(f"supervised run ended at step {done} / {state.step}")
+    return state, sup.restarts
+
+
+def _supervisor_check(device):
+    """(c): the paper MLP under TrainSupervisor, failing once, against an
+    uninterrupted run."""
+    import numpy as np
+    import torch
+    from repro_torch.data.dirty_mnist import batches, dirty_mnist
+    (x, y), _ = dirty_mnist(n_train=TRAIN_N, n_eval=10)
+    x, y = (torch.from_numpy(a).to(device) for a in (x, y))
+    steps, batch = SUPERVISED["steps"], SUPERVISED["batch"]
+    rows = [torch.from_numpy(i).to(device) for i, _ in itertools.islice(
+        batches(np.arange(TRAIN_N), None, batch, epochs=steps), steps)]
+    t0 = time.perf_counter()
+    whole, restarts0 = _supervised_mlp(device, x, y, rows, None,
+                                       TRAIN_CLI_DIR / "mlp_whole")
+    failing, restarts1 = _supervised_mlp(device, x, y, rows,
+                                         SUPERVISED["fail_at"],
+                                         TRAIN_CLI_DIR / "mlp_failing")
+    seconds = time.perf_counter() - t0
+    diffs = _state_diffs(failing, whole)
+    print(f"[train cli] paper-mlp under TrainSupervisor: "
+          f"{SUPERVISED['steps']} steps of {SUPERVISED['batch']}, a "
+          f"checkpoint every {SUPERVISED['save_every']}, a failure after "
+          f"step {SUPERVISED['fail_at']}'s update: restarts {restarts1} "
+          f"(uninterrupted {restarts0}); {len(diffs)} leaves differ from the "
+          f"uninterrupted run; both runs {seconds:.2f} s")
+    if (restarts0, restarts1) != (0, 1):
+        fail(f"supervisor restarts {restarts0} / {restarts1}, expected 0 / 1")
+    if diffs:
+        fail(f"supervised run differs from the uninterrupted one: "
+             f"{sorted(diffs.items())[:4]}")
+    return {"restarts": restarts1, "seconds": seconds}
+
+
+class _Enough(Exception):
+    """Ends the compression run after TRAIN_CLI_COMPRESSED steps."""
+
+
+def _compression_check(device):
+    """(d): compress_with_feedback over the CLI run's first
+    TRAIN_CLI_COMPRESSED steps of gradients (the run of (a): same seed,
+    data and schedule), leaf by leaf on the card."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.training.compression import (compress_with_feedback,
+                                                  dequantize_int8)
+    acc, worst = {}, {"block": 0.0, "sum": 0.0}
+
+    def hook(step, grads):
+        if step >= TRAIN_CLI_COMPRESSED:
+            raise _Enough
+        for name, g in grads.items():
+            if name not in acc:
+                acc[name] = [torch.zeros_like(g) for _ in range(3)]
+            err, recon, total = acc[name]
+            q, scale, new_err = compress_with_feedback(g, err)
+            flat = new_err.reshape(-1)
+            flat = F.pad(flat, (0, (-flat.numel()) % 256)).reshape(-1, 256)
+            worst["block"] = max(worst["block"],
+                                 float((flat.abs() / scale).max()))
+            recon += dequantize_int8(q, scale, g.shape)
+            total += g
+            err.copy_(new_err)
+
+    try:
+        _cli_run(TRAIN_CLI_ARGS, grad_hook=hook)
+    except _Enough:
+        pass
+    bad = []
+    for name, (err, recon, total) in acc.items():
+        worst["sum"] = max(worst["sum"],
+                           float((recon + err - total).abs().max()))
+        if not torch.allclose(recon + err, total, **COMPRESS_TOL):
+            bad.append(name)
+    n = sum(t[0].numel() for t in acc.values())
+    del acc
+    torch.cuda.empty_cache()
+    print(f"[train cli] compress_with_feedback over {TRAIN_CLI_COMPRESSED} "
+          f"steps of gradients ({n / 1e6:.1f} M a step): largest |error| a "
+          f"block {worst['block']:.7f} scales (bound {0.5 + COMPRESS_SLACK}); "
+          f"sum of reconstructions + error against the sum of gradients max "
+          f"abs err {worst['sum']:.3e} (rtol / atol 1e-4)")
+    if worst["block"] > 0.5 + COMPRESS_SLACK:
+        fail(f"int8 block error {worst['block']} scales")
+    if bad:
+        fail(f"error feedback not lossless in sum: {bad[:4]}")
+    return {"block_error_scales": worst["block"],
+            "sum_max_abs_err": worst["sum"]}
+
+
+def phase_train_cli(device):
+    """The training half of launch/ on the card: (a) the train CLI on
+    granite-8b at full width, uninterrupted and resumed, bit for bit;
+    (b) its checkpoint restored, converted and served through the kernels
+    (the path ``train_cli``); (c) the supervisor's retry on the paper MLP;
+    (d) int8 compression with error feedback over the CLI's gradients.
+    Returns ((b)'s launches, info)."""
+    import shutil
+
+    import torch
+    t0 = time.perf_counter()
+    cfg = lm_config()
+    ckpt = 6 * 4 * cfg.param_count()    # mu, rho and Adam's m, v of both
+    if TRAIN_CLI_DIR.exists():
+        shutil.rmtree(TRAIN_CLI_DIR)
+    TRAIN_CLI_DIR.mkdir(parents=True)
+    free, avail = shutil.disk_usage(TRAIN_CLI_DIR).free, _mem_available_bytes()
+    print(f"[train cli] a checkpoint of about {ckpt / 1e9:.1f} GB; "
+          f"{free / 1e9:.1f} GB free on disk, {avail / 1e9:.1f} GB of host "
+          "memory available")
+    if free < 1.2 * ckpt:
+        fail(f"train CLI: {free / 1e9:.1f} GB free under {TRAIN_CLI_DIR}, "
+             f"a checkpoint takes {ckpt / 1e9:.1f} GB")
+    if avail < 2.5 * ckpt:
+        fail(f"train CLI: {avail / 1e9:.1f} GB of host memory available; "
+             f"the run holds two host copies of a {ckpt / 1e9:.1f} GB state")
+    info = {"resume": _cli_resume(device, cfg)}
+    launches, info["serving"] = _checkpoint_to_serving(device, cfg)
+    torch.cuda.empty_cache()
+    info["supervisor"] = _supervisor_check(device)
+    info["compression"] = _compression_check(device)
+    shutil.rmtree(TRAIN_CLI_DIR)
+    torch.cuda.empty_cache()
+    info["seconds"] = time.perf_counter() - t0
+    print(f"[train cli] phase {info['seconds']:.1f} s")
+    return launches, info
+
+
 def moe_path_calls(cfg, shapes):
     """The batched expert kernel's calls in one MoE forward or decode step:
     up, gate and down per MoE layer; ``shapes`` is (up, down)."""
@@ -6032,6 +6423,8 @@ def main():
     mark("fused")
     launches["train"], train_info = phase_train(device)
     mark("train")
+    launches["train_cli"], train_cli_info = phase_train_cli(device)
+    mark("train cli")
     forwards += [moe_forward, audio_forward]
     if moe_profile is not None:
         profile.append({"model": moe_cfg.name, "batch": LM_BATCH,
@@ -6053,7 +6446,8 @@ def main():
          "audio": audio_info, "families": family_info,
          "configs": config_info,
          "fused": fused_info,
-         "train": train_info, "phase_seconds": phases,
+         "train": train_info, "train_cli": train_cli_info,
+         "phase_seconds": phases,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(f"[done] {time.perf_counter() - t0:.1f} s; by phase "
           + ", ".join(f"{k} {v:.1f}" for k, v in phases.items()))

@@ -1,5 +1,5 @@
-"""Config registry (counterpart of ``repro/configs/__init__.py``), for the
-architectures the port runs."""
+"""Config registry (counterpart of ``repro/configs/__init__.py``): one
+module per architecture, the paper's two models included."""
 import dataclasses
 import importlib
 
@@ -13,10 +13,14 @@ _MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "llama-3.2-vision-90b": "llama_3_2_vision_90b",
-    "musicgen-medium": "musicgen_medium",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "musicgen-medium": "musicgen_medium",
     "mamba2-370m": "mamba2_370m",
+    "paper-mlp": "paper_mlp",
+    "paper-lenet5": "paper_lenet5",
 }
+
+ASSIGNED_ARCHS = [k for k in _MODULES if not k.startswith("paper-")]
 
 
 def get_config(name: str) -> ModelConfig:
@@ -32,8 +36,11 @@ def reduced_config(name: str) -> ModelConfig:
     and top-2, d_rnn 64, SSM state 16 in heads of 32 and chunks of 8, 8
     image tokens, one layer per pattern entry times two; a VLM keeps one
     super-block (``cross_attn_every`` layers), a hybrid 5 layers (one
-    stacked group of its pattern and a 2-layer tail)."""
+    stacked group of its pattern and a 2-layer tail). The paper's MLP and
+    LeNet-5 configs come back unchanged."""
     cfg = get_config(name)
+    if cfg.family in ("mlp", "cnn"):
+        return cfg
     updates = dict(
         num_layers=min(cfg.num_layers, 2 * len(cfg.pattern)),
         d_model=64, d_ff=128, vocab_size=97,
@@ -58,4 +65,4 @@ def reduced_config(name: str) -> ModelConfig:
     return dataclasses.replace(cfg, **updates)
 
 
-__all__ = ["ModelConfig", "get_config", "reduced_config"]
+__all__ = ["ASSIGNED_ARCHS", "ModelConfig", "get_config", "reduced_config"]

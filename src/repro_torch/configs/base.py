@@ -18,7 +18,7 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | vlm | audio | hybrid | ssm
+    family: str                      # dense | moe | vlm | audio | hybrid | ssm | mlp | cnn
     num_layers: int
     d_model: int
     num_heads: int = 0

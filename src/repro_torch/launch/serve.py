@@ -328,6 +328,10 @@ def _parser():
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--rate", type=float, default=0.5,
                     help="Poisson arrival rate (requests per engine step)")
+    ap.add_argument("--engine", action="store_true", default=True,
+                    help="no-op compatibility flag, as in the reference: "
+                         "the continuous-batching engine is the only "
+                         "serving path")
     ap.add_argument("--impl", default=None, choices=["eager", "kernel"],
                     help="PFP operator implementation (core/dispatch.py; "
                          "default: the registry's, kernel)")

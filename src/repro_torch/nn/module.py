@@ -164,7 +164,7 @@ def init_bayes(shape, *, generator: Optional[torch.Generator] = None,
 
 def load_numpy_params(module: nn.Module, tree: Mapping) -> nn.Module:
     """Fill ``module`` from the reference's parameter tree: nested dicts of
-    numpy arrays.
+    numpy arrays (or of torch tensors, on any device: each is copied).
 
     * A ``{'mu','rho'}``, ``{'mu','srm'}`` or ``{'mu','var'}`` leaf replaces
       the module's :class:`BayesParam` of the same path (on the same
@@ -186,7 +186,7 @@ def load_numpy_params(module: nn.Module, tree: Mapping) -> nn.Module:
     for name, sub in tree.items():
         if name in plain:
             old = plain[name]
-            new = torch.tensor(np.asarray(sub), device=old.device)
+            new = _copy_to(sub, old.device)
             if new.shape != old.shape:
                 raise ValueError(f"{name}: shape {tuple(new.shape)} vs "
                                  f"{tuple(old.shape)}")
@@ -203,8 +203,10 @@ def load_numpy_params(module: nn.Module, tree: Mapping) -> nn.Module:
         if not isinstance(child, BayesParam):
             raise TypeError(f"{name}: the tree holds a leaf, the module a "
                             f"{type(child).__name__}")
-        tensors = {k: torch.tensor(np.asarray(v), device=child.mu.device)
-                   for k, v in sub.items()}
+        # Registered in sorted order ('mu' first), as a new leaf registers
+        # them: the order of named_parameters() is the order in which
+        # training sums the gradient norm.
+        tensors = {k: _copy_to(sub[k], child.mu.device) for k in sorted(sub)}
         if tuple(tensors["mu"].shape) != tuple(child.shape):
             raise ValueError(f"{name}: shape {tuple(tensors['mu'].shape)} "
                              f"vs {tuple(child.shape)}")
@@ -212,35 +214,94 @@ def load_numpy_params(module: nn.Module, tree: Mapping) -> nn.Module:
     return module
 
 
+def _copy_to(value, device) -> torch.Tensor:
+    """A new tensor on ``device`` holding a numpy array or tensor."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().to(device, copy=True)
+    return torch.tensor(np.asarray(value), device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayoutLeaf:
+    """A leaf of :func:`param_layout`: the dotted names of the parameters
+    it holds, one, or one a layer where an ``nn.ModuleList`` stacks them
+    along a leading axis."""
+    names: tuple
+    stacked: bool
+
+
+def param_layout(module: nn.Module, prefix: str = "") -> dict:
+    """The reference's tree of ``module``'s parameters (a
+    :class:`BayesParam` as its leaf dict, a plain parameter by name, an
+    ``nn.ModuleList`` child stacked), with a :class:`LayoutLeaf` naming
+    the parameters at each leaf."""
+    tree = {name: LayoutLeaf((prefix + name,), False)
+            for name, _ in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        path = f"{prefix}{name}."
+        if isinstance(child, BayesParam):
+            tree[name] = {k: LayoutLeaf((path + k,), False)
+                          for k, _ in child.named_parameters()}
+        elif isinstance(child, nn.ModuleList):
+            tree[name] = _stacked_layout([param_layout(m, f"{path}{i}.")
+                                          for i, m in enumerate(child)])
+        else:
+            tree[name] = param_layout(child, path)
+    return tree
+
+
+def _stacked_layout(trees):
+    if isinstance(trees[0], Mapping):
+        return {k: _stacked_layout([t[k] for t in trees]) for k in trees[0]}
+    return LayoutLeaf(tuple(n for t in trees for n in t.names), True)
+
+
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t`` that shares no memory with it."""
+    t = t.detach()
+    return t.cpu().numpy() if t.device.type != "cpu" else t.numpy().copy()
+
+
+def layout_tree(layout, values: Mapping[str, torch.Tensor]) -> dict:
+    """``layout`` with each leaf a host copy of its named ``values`` as a
+    numpy array (the layers of a stacked leaf stacked), sharing no memory
+    with them."""
+    if isinstance(layout, Mapping):
+        return {k: layout_tree(v, values) for k, v in layout.items()}
+    if layout.stacked:   # stacked where the tensors are: one host copy
+        return torch.stack([values[n].detach()
+                            for n in layout.names]).cpu().numpy()
+    return _host_copy(values[layout.names[0]])
+
+
+def layout_values(layout, tree, device) -> dict:
+    """The inverse of :func:`layout_tree`: {parameter name: a new tensor on
+    ``device``} from a tree of numpy arrays or tensors."""
+    if isinstance(layout, Mapping):
+        out = {}
+        for k, v in layout.items():
+            out.update(layout_values(v, tree[k], device))
+        return out
+    if not layout.stacked:
+        return {layout.names[0]: _copy_to(tree, device)}
+    return {n: _copy_to(_layer_of(tree, i, len(layout.names)), device)
+            for i, n in enumerate(layout.names)}
+
+
 def numpy_params(module: nn.Module) -> dict:
     """The inverse of :func:`load_numpy_params`: ``module``'s parameters as
     the reference's tree of numpy arrays (a :class:`BayesParam` as its leaf
     dict, a plain parameter by name, an ``nn.ModuleList`` child stacked
     along a leading axis)."""
-    tree = {name: p.detach().cpu().numpy()
-            for name, p in module.named_parameters(recurse=False)}
-    for name, child in module.named_children():
-        if isinstance(child, BayesParam):
-            tree[name] = {k: getattr(child, k).detach().cpu().numpy()
-                          for k in child.keys()}
-        elif isinstance(child, nn.ModuleList):
-            tree[name] = _stacked_tree([numpy_params(m) for m in child])
-        else:
-            tree[name] = numpy_params(child)
-    return tree
-
-
-def _stacked_tree(trees):
-    if isinstance(trees[0], Mapping):
-        return {k: _stacked_tree([t[k] for t in trees]) for k in trees[0]}
-    return np.stack(trees)
+    return layout_tree(param_layout(module),
+                       dict(module.named_parameters(remove_duplicate=False)))
 
 
 def _layer_of(tree, i: int, n: int):
     """Entry ``i`` of a stacked tree whose arrays lead with an axis of n."""
     if isinstance(tree, Mapping):
         return {k: _layer_of(v, i, n) for k, v in tree.items()}
-    arr = np.asarray(tree)
+    arr = tree if isinstance(tree, torch.Tensor) else np.asarray(tree)
     if arr.ndim == 0 or arr.shape[0] != n:
         raise ValueError(f"stacked leaf of shape {arr.shape} for {n} layers")
     return arr[i]

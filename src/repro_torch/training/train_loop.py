@@ -11,12 +11,14 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.bayes.variational import KLSchedule, elbo_loss
 from repro_torch.core.modes import Mode
-from repro_torch.nn.module import Context
+from repro_torch.nn.module import (Context, layout_tree, layout_values,
+                                   load_numpy_params, param_layout)
 from repro_torch.training.optimizer import Adam, AdamState
 
 
@@ -33,6 +35,56 @@ def init_train_state(model: nn.Module, optimizer: Adam) -> TrainState:
     model.requires_grad_(True)
     return TrainState(model, optimizer.init(dict(model.named_parameters())),
                       0)
+
+
+def train_state_layout(model: nn.Module) -> dict:
+    """The tree :func:`train_state_tree` gives for ``model``, with
+    ``param_layout`` leaves (Adam's ``m`` and ``v`` name the parameter they
+    belong to) and ``"step"`` at both steps: a proto for
+    ``CheckpointManager.restore`` that copies nothing."""
+    layout = param_layout(model)
+    return {"params": layout, "opt_state": AdamState("step", layout, layout),
+            "step": "step"}
+
+
+def train_state_tree(state: TrainState) -> dict:
+    """``state`` in the reference's ``TrainState`` layout, as host numpy
+    arrays: ``{'params': numpy_params(model), 'opt_state': AdamState(step,
+    m, v), 'step'}``, with ``m`` and ``v`` nested and stacked as the
+    parameters are, and both steps 0-d int32 as the reference's are. Each
+    package's ``CheckpointManager`` reads the other's files of this tree."""
+    layout = param_layout(state.model)
+    named = dict(state.model.named_parameters(remove_duplicate=False))
+    opt = state.opt_state
+    return {"params": layout_tree(layout, named),
+            "opt_state": AdamState(np.asarray(opt.step, np.int32),
+                                   layout_tree(layout, opt.m),
+                                   layout_tree(layout, opt.v)),
+            "step": np.asarray(state.step, np.int32)}
+
+
+def load_train_state_tree(state: TrainState, tree) -> TrainState:
+    """The inverse of :func:`train_state_tree`: load ``tree`` (numpy arrays
+    or tensors, the port's layout or the reference's ``TrainState``) into
+    ``state.model``. ``load_numpy_params`` replaces the model's Bayesian
+    leaves, so gradients are turned back on and Adam's moments are keyed by
+    the new parameters' names, on the model's device. Returns the new
+    state; ``state``'s moments are not used."""
+    get = (lambda t, k: t[k] if isinstance(t, dict) else getattr(t, k))
+    model = load_numpy_params(state.model, get(tree, "params"))
+    model.requires_grad_(True)
+    layout = param_layout(model)
+    device = next(model.parameters()).device
+    opt = get(tree, "opt_state")
+    m, v = (layout_values(layout, get(opt, k), device) for k in ("m", "v"))
+    names = [n for n, _ in model.named_parameters()]
+    if set(m) != set(names):
+        raise KeyError(f"the tree's moments name {sorted(set(m) ^ set(names))}"
+                       " differently from the model")
+    return TrainState(model, AdamState(int(get(opt, "step")),
+                                       {n: m[n] for n in names},
+                                       {n: v[n] for n in names}),
+                      int(get(tree, "step")))
 
 
 def make_svi_train_step(forward_fn: Callable, optimizer: Adam, *,

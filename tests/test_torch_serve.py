@@ -4,7 +4,8 @@
 reduced granite-8b (``--device cpu --reduced``): a single engine; a paged
 engine with prefix sharing and ``--expect-prefix-hits``; ``--speculate
 2``; ``--replicas 2``; ``--replicas 2 --disaggregate``, whose three
-exports pass ``repro_torch.obs.validate``. Each exits 0; ``--disaggregate``
+exports pass ``repro_torch.obs.validate``; the reference's no-op
+``--engine``. Each exits 0; ``--disaggregate``
 without ``--page-size`` exits 2, and without ``--device cpu`` and with no
 card the CLI raises. The summary key tuples equal the reference's letter
 for letter; they are read from ``src/repro/launch/serve.py`` with ``ast``,
@@ -104,6 +105,14 @@ def test_serve_cli_exits_zero(extra, capsys):
     assert serve.main(CPU + extra) == 0
     out = capsys.readouterr().out
     assert "summary" in out and "served" in out
+
+
+def test_serve_cli_takes_the_no_op_engine_flag(capsys):
+    """The reference's usage line without ``--devices``: ``--engine`` is a
+    no-op compatibility flag in both packages."""
+    assert serve.main(["--reduced", "--engine", "--tokens", "4",
+                       "--device", "cpu"]) == 0
+    assert "summary" in capsys.readouterr().out
 
 
 def test_serve_cli_disaggregated_exports_validate(tmp_path, capsys):
