@@ -317,12 +317,39 @@ Phases, each printing its own lines; any failure exits non-zero:
               the CLI's first 5 steps of gradients: every block's error
               within scale / 2 (+ fp32 rounding) and the reconstructions
               plus the final error the sum of the gradients (1e-4)
+ 14. mesh   : the mesh modules (launch/mesh.py, sharding.py, programs.py,
+              costs.py, roofline.py, dryrun.py, nn/pjit_hints.py,
+              core/mesh_route.py). (a) on the card, inside phase 13 while
+              its checkpoint lives: a world-1 NCCL group and a (1, 1)
+              mesh; the CLI resumed from the step-10 checkpoint with
+              --devices 1 --mesh 1,1 (elastic restore onto the mesh, steps
+              11-12 on DTensors) against the uninterrupted step-12 state
+              (bit for bit, or the largest difference printed, within
+              MESH_STEP_TOL); the result converted and one 4 x 512 PFP
+              forward on DTensors through the kernel impl's DTensor route
+              against the same weights with no mesh, bit for bit (its
+              launches are the path ``mesh``), both forwards timed with
+              CUDA events. (b) on the CPU, 8 gloo processes on a (4, 2)
+              mesh with the reduced configs, as the reference's small-mesh
+              tests: an SVI step sharded against single (loss 1e-3, params
+              rtol 1e-2 / atol 2.5e-3), an elastic restore (4, 2) -> (2, 2)
+              bit for bit, compressed_psum against all_reduce (0.05 scale
+              + 1e-3; bit for bit the dequantize-sum of the gathered
+              blocks; equal on every rank), a PFP forward through the
+              kernel route against the unsharded one (MODEL_TOL), then
+              the train CLI with --devices 8 --mesh 4,2 exits 0. (c) the
+              dry-run of granite-8b's train_4k, prefill_32k, decode_32k
+              on the pod mesh and decode_32k on the multipod mesh (a fake
+              group, no device), run in a CPU process started with the
+              build: per-device bytes, FLOPs, collectives, bottleneck and
+              fits_80gb_hbm printed, every cell ok
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and a last JSON line ``{"ok": true, "device": {...}}``. Full numbers go to
 chiprun_out/chip_smoke.json.
 """
 import argparse
+import atexit
 import itertools
 import json
 import re
@@ -595,6 +622,18 @@ COMPRESS_TOL = dict(rtol=1e-4, atol=1e-4)   # tests/test_property_invariants.py
 # the division (at |x / scale| <= 127), the product and the difference.
 COMPRESS_SLACK = 2.0 ** -16
 SUPERVISED = dict(steps=60, batch=128, save_every=20, fail_at=47)
+# The mesh phase. (a) steps 11-12 on a (1, 1) mesh against the uninterrupted
+# run: bit for bit expected; a DTensor decomposition that sums in another
+# order may differ, within the reference's sharded-vs-single atol
+# (tests/test_distributed_small_mesh.py:86).
+MESH_STEP_TOL = 2.5e-3
+MESH_RANKS, MESH_SHAPE = 8, (4, 2)          # (b): the reference's 8 devices
+MESH_DIR = ROOT / "build" / "mesh"
+MESH_B_TIMEOUT = 420                        # seconds for (b)'s processes
+DRYRUN_OUT = OUT_DIR / "dryrun_torch"
+DRYRUN_CELLS = (("train_4k", "pod"), ("prefill_32k", "pod"),
+                ("decode_32k", "pod"), ("decode_32k", "multipod"))
+DRYRUN_TIMEOUT = 900                        # seconds after the build starts
 # K on both sides of the dense kernel's split boundaries (kernels/pfp_dense.py
 # split_k at N 100: 1 to K 64, 2 to 96, 3 from 97, 7 at 784, 8 from 785).
 SPLIT_CHECK_K = (1, 17, 64, 65, 96, 97, 127, 129, 783, 784, 785)
@@ -5825,12 +5864,13 @@ def _mem_available_bytes():
 
 def _state_tensors(state):
     """Every tensor of a port ``TrainState`` by name: the parameters and
-    Adam's ``m`` and ``v``."""
+    Adam's ``m`` and ``v`` (a DTensor's whole tensor)."""
     out = {f"params/{n}": p for n, p in state.model.named_parameters()}
     for part in ("m", "v"):
         out.update({f"opt_state/{part}/{n}": t for n, t in
                     getattr(state.opt_state, part).items()})
-    return out
+    return {k: (v.full_tensor() if hasattr(v, "full_tensor") else v)
+            for k, v in out.items()}
 
 
 def _state_diffs(got, want):
@@ -5850,7 +5890,8 @@ def _state_diffs(got, want):
 def _cli_resume(device, cfg):
     """(a): the CLI uninterrupted (saving at step 10), then resumed from
     that checkpoint; the two final states compared leaf for leaf on the
-    card (the first is kept there: about 20 GB)."""
+    card (the first is kept there: about 20 GB). Returns (info, the
+    uninterrupted state) for the mesh phase's resume."""
     import numpy as np
     import torch
     argv = TRAIN_CLI_ARGS + ("--ckpt-dir", str(TRAIN_CLI_DIR))
@@ -5868,7 +5909,7 @@ def _cli_resume(device, cfg):
         fail(f"the resumed run ended at step {resumed.step}")
     diffs = _state_diffs(resumed, whole)
     n_bytes = sum(t.nbytes for t in _state_tensors(whole).values())
-    del whole, resumed
+    del resumed
     torch.cuda.empty_cache()
     ms = np.asarray(step_s[1:]) * 1e3
     info = {"step_ms_first": step_s[0] * 1e3,
@@ -5895,7 +5936,7 @@ def _cli_resume(device, cfg):
           f"{n_bytes / 1e9:.3f} GB of the "
           f"step-{TRAIN_CLI_STEPS} state (parameters, Adam m and v; both "
           "steps equal)")
-    return info
+    return info, whole
 
 
 def _checkpoint_to_serving(device, cfg):
@@ -6123,7 +6164,13 @@ def phase_train_cli(device):
     if avail < 2.5 * ckpt:
         fail(f"train CLI: {avail / 1e9:.1f} GB of host memory available; "
              f"the run holds two host copies of a {ckpt / 1e9:.1f} GB state")
-    info = {"resume": _cli_resume(device, cfg)}
+    info = {}
+    info["resume"], whole = _cli_resume(device, cfg)
+    # Phase 14 (a) runs here, while the step-10 checkpoint and the
+    # uninterrupted step-12 state exist.
+    info["mesh"] = mesh_card_check(device, cfg, whole)
+    del whole
+    torch.cuda.empty_cache()
     launches, info["serving"] = _checkpoint_to_serving(device, cfg)
     torch.cuda.empty_cache()
     info["supervisor"] = _supervisor_check(device)
@@ -6133,6 +6180,473 @@ def phase_train_cli(device):
     info["seconds"] = time.perf_counter() - t0
     print(f"[train cli] phase {info['seconds']:.1f} s")
     return launches, info
+
+
+def _to_plain(model):
+    """A copy-free plain-tensor view of a (1, 1)-mesh DTensor model: each
+    parameter its local block, which on one rank is the whole tensor."""
+    import copy
+
+    import torch
+    plain = copy.copy(model)
+    plain._modules = dict(model._modules)
+    for name, child in model.named_children():
+        plain._modules[name] = _to_plain(child)
+    plain._parameters = {
+        n: (None if p is None else torch.nn.Parameter(
+            p.to_local() if hasattr(p, "to_local") else p,
+            requires_grad=False))
+        for n, p in model._parameters.items()}
+    return plain
+
+
+def mesh_card_check(device, cfg, whole):
+    """Phase 14 (a), on the card. ``whole``: phase 13's uninterrupted
+    step-12 state; its step-10 checkpoint is on disk. Returns info with
+    the mesh forward's ``launches``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.bayes.convert import svi_to_pfp
+    from repro_torch.core.modes import Mode
+    from repro_torch.kernels._launch import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.models import lm
+    from repro_torch.nn.module import Context
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        dist.init_process_group(
+            "nccl", store=dist.HashStore(), rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+    else:   # a rehearsal on the CPU
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        argv = TRAIN_CLI_ARGS + ("--ckpt-dir", str(TRAIN_CLI_DIR),
+                                 "--resume", "--devices", "1", "--mesh",
+                                 "1,1")
+        meshed, out, run_s = _cli_run(argv)
+        if "(elastic onto (1, 1) mesh)" not in out:
+            fail("mesh: the CLI did not resume elastically onto the mesh")
+        params = list(meshed.model.parameters())
+        if not all(hasattr(p, "placements") for p in params):
+            fail("mesh: the resumed model's parameters are not DTensors")
+        diffs = _state_diffs(meshed, whole)
+        worst = max(diffs.values(), default=0.0)
+        print(f"[mesh] (a) CLI resumed from step 10 with --devices 1 --mesh "
+              f"1,1 on an NCCL group of one rank: steps 11-12 on DTensors "
+              f"in {run_s:.2f} s; against the uninterrupted run "
+              + ("bit for bit" if not diffs else
+                 f"{len(diffs)} tensors differ, largest |diff| {worst:.3e} "
+                 f"(e.g. {sorted(diffs.items(), key=lambda kv: -kv[1])[:3]})"))
+        if worst > MESH_STEP_TOL:
+            fail(f"mesh: resumed state on the mesh {worst:.3e} from the "
+                 f"uninterrupted one (> {MESH_STEP_TOL})")
+        converted = svi_to_pfp(meshed.model)
+        del meshed, params
+        torch.cuda.empty_cache()
+        plain = _to_plain(converted)
+        tokens = _lm_requests(cfg, device)[0]
+        placed = shlib.distribute_tree(
+            {"tokens": tokens}, shlib.batch_shardings({"tokens": tokens},
+                                                      next(iter(
+                converted.parameters())).device_mesh),
+            next(iter(converted.parameters())).device_mesh)
+        ctx = Context(mode=Mode.PFP, impl="kernel", formulation="srm",
+                      device=device)
+
+        def mesh_forward():
+            with implicit_replication():
+                return lm.forward(converted, cfg, placed, ctx)[0]
+
+        def plain_forward():
+            return lm.forward(plain, cfg, {"tokens": tokens}, ctx)[0]
+
+        with torch.no_grad():
+            reset_launch_counts()
+            got = mesh_forward()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            launches = {k: LAUNCHES[k] for k in LM_KERNELS}
+            want = plain_forward()
+            for part in ("mean", "var"):
+                g = getattr(got, part).full_tensor()
+                if not torch.equal(g, getattr(want, part)):
+                    fail(f"mesh: the DTensor forward's {part} differs from "
+                         f"the unmeshed one by "
+                         f"{float((g - getattr(want, part)).abs().max()):.3e}")
+            times = {}
+            for label, fn in (("plain", plain_forward), ("mesh", mesh_forward),
+                              ("mesh2", mesh_forward),
+                              ("plain2", plain_forward)):
+                times[label] = time_ms(fn, iters=3, warmup=1)
+        want_launches = {}
+        for kernel, _ in lm_path_calls(cfg):
+            want_launches[kernel] = want_launches.get(kernel, 0) + 1
+        if launches != want_launches:
+            fail(f"mesh: the DTensor forward launched {launches}, expected "
+                 f"{want_launches}")
+        mesh_ms = min(times["mesh"], times["mesh2"])
+        plain_ms = min(times["plain"], times["plain2"])
+        print(f"[mesh] (a) converted, one {LM_BATCH} x {LM_SEQ} PFP forward "
+              f"on DTensors through the kernel route == the unmeshed "
+              f"forward bit for bit (mean and var); launches {launches}")
+        print(f"[mesh] (a) forward {mesh_ms:.3f} ms on the mesh, "
+              f"{plain_ms:.3f} ms unmeshed (CUDA events, mean of 3 after 1, "
+              f"best of 2 turns): the DTensor route costs "
+              f"{mesh_ms - plain_ms:.3f} ms a forward")
+        del converted, plain, got, want
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_diffs": diffs,
+            "step_max_abs_diff": worst, "resume_s": run_s,
+            "forward_ms": times, "mesh_forward_ms": mesh_ms,
+            "plain_forward_ms": plain_ms,
+            "route_host_ms": mesh_ms - plain_ms,
+            "seconds": time.perf_counter() - t0}
+
+
+def start_dryrun():
+    """Phase 14 (c)'s cells in a CPU process of their own (a fake process
+    group, no device), started now and read by ``phase_mesh``."""
+    import os
+    import shutil
+    if DRYRUN_OUT.exists():
+        shutil.rmtree(DRYRUN_OUT)
+    code = ("import sys; from repro_torch.launch.dryrun import run_cell\n"
+            "for shape, mesh in %r:\n"
+            "    run_cell('granite-8b', shape, multi_pod=mesh == 'multipod',"
+            " out_dir=%r)\n" % (DRYRUN_CELLS, str(DRYRUN_OUT)))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    log = open(OUT_DIR / "dryrun.log", "w")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT),
+                            env=env, stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(_stop, proc)     # a failing phase ends it too
+    return proc, log, time.perf_counter(), time.time()
+
+
+def _stop(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def _mesh_rank(rank, world, port, directory):
+    """One gloo rank of phase 14 (b). Rank 0 writes the results."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        res = {"step": _rank_svi_step(), "elastic": _rank_elastic(directory),
+               "psum": _rank_psum(), "forward": _rank_forward()}
+        if rank == 0:
+            (Path(directory) / "ranks.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_svi_step():
+    """One SVI step of the reduced granite-8b sharded on (4, 2) against
+    the same step on one device (every rank runs both)."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.training.optimizer import Adam
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_svi_train_step)
+    cfg = reduced_config("granite-8b")
+    opt = Adam(learning_rate=1e-3)
+
+    def fwd(m, batch, ctx):
+        logits, aux, _ = lm.forward(m, cfg, batch, ctx)
+        return logits, aux
+
+    def model():
+        return lm.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+
+    step = make_svi_train_step(fwd, opt, num_data=1000)
+    g = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 16), generator=g)
+             for k in ("tokens", "targets")}
+    single, m1 = step(init_train_state(model(), opt), batch,
+                      torch.Generator().manual_seed(3))
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"), device_type="cpu")
+    sharded_model = shlib.distribute_params(model(), mesh)
+    placed = shlib.distribute_tree(batch, shlib.batch_shardings(batch, mesh),
+                                   mesh)
+    with implicit_replication():
+        sharded, m2 = step(init_train_state(sharded_model, opt), placed,
+                           torch.Generator().manual_seed(3))
+    loss = (float(m1["loss"]), float(m2["loss"].full_tensor()))
+    worst, bad = 0.0, []
+    for (n, a), (_, b) in zip(single.model.named_parameters(),
+                              sharded.model.named_parameters()):
+        b = b.detach().full_tensor()
+        worst = max(worst, float((a.detach() - b).abs().max()))
+        if not torch.allclose(b, a.detach(), rtol=1e-2, atol=2.5e-3):
+            bad.append(n)
+    return {"loss": loss, "params_max_abs_diff": worst, "params_bad": bad}
+
+
+def _rank_elastic(directory):
+    """The reduced yi-6b's parameters saved from the (4, 2) mesh, restored
+    onto (2, 2) (ranks 0-3), bit for bit."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.nn.module import numpy_params, param_layout
+    from repro_torch.training.checkpoint import CheckpointManager
+    cfg = reduced_config("yi-6b")
+    model = lm.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+    want = numpy_params(model)
+    mesh8 = make_mesh(MESH_SHAPE, ("data", "model"), device_type="cpu")
+    shlib.distribute_params(model, mesh8)
+    mgr = CheckpointManager(str(Path(directory) / "elastic"))
+    mgr.save(1, numpy_params(model), blocking=True)
+    dist.barrier()
+    mesh4 = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+    if mesh4.get_coordinate() is None:
+        return {"rank_in_mesh": False}
+    layout = param_layout(model)
+    tree, step = mgr.restore(layout, shardings=shlib.layout_shardings(
+        layout, model, mesh4))
+    placements, equal, leaves = set(), True, 0
+
+    def walk(got, exp):
+        nonlocal equal, leaves
+        if isinstance(exp, dict):
+            for k in exp:
+                walk(got[k], exp[k])
+            return
+        leaves += 1
+        placements.add(str(tuple(got.placements)))
+        equal = equal and np.array_equal(got.full_tensor().numpy(), exp)
+
+    walk(tree, want)
+    return {"rank_in_mesh": True, "step": step, "equal": equal,
+            "leaves": leaves, "placements": sorted(placements)}
+
+
+def _rank_psum():
+    """compressed_psum over an 8-rank 'data' axis against all_reduce, the
+    in-process dequantize-sum of every rank's blocks, and every rank."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training.compression import (compressed_psum,
+                                                  dequantize_sum,
+                                                  quantize_int8)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rows = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(world, 64)).astype(np.float32))
+    mesh = make_mesh((world,), ("data",), device_type="cpu")
+    x = rows[rank:rank + 1].clone()
+    got = compressed_psum(x, mesh, "data")
+    exact = x.clone()
+    dist.all_reduce(exact)
+    blocks = [quantize_int8(rows[r:r + 1]) for r in range(world)]
+    local = dequantize_sum(torch.stack([q for q, _ in blocks]),
+                           torch.stack([s for _, s in blocks]), x.shape)
+    every = [torch.empty_like(got) for _ in range(world)]
+    dist.all_gather(every, got)
+    err = float((got - exact).abs().max())
+    scale = float(exact.abs().max())
+    return {"err": err, "scale": scale, "bound": 0.05 * scale + 1e-3,
+            "equals_local_sum": bool(torch.equal(got, local)),
+            "equal_on_every_rank": all(torch.equal(e, got) for e in every)}
+
+
+def _rank_forward():
+    """A PFP forward of the reduced granite-8b under the kernel impl with
+    the serving rules on (4, 2) (row-parallel wo and w_down: partial sums
+    reduced across ranks) against the unsharded forward."""
+    import copy
+
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.bayes.convert import svi_to_pfp
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.nn.module import Context
+    cfg = reduced_config("granite-8b")
+    plain = svi_to_pfp(lm.init_params(
+        cfg, generator=torch.Generator().manual_seed(0), device="cpu"))
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"), device_type="cpu")
+    sharded = shlib.distribute_params(copy.deepcopy(plain), mesh, serve=True)
+    tokens = {"tokens": torch.randint(0, cfg.vocab_size, (4, 16),
+                                      generator=torch.Generator()
+                                      .manual_seed(2))}
+    ctx = Context(mode="pfp", impl="kernel", device="cpu")
+    want = lm.forward(plain, cfg, tokens, ctx)[0]
+    with implicit_replication():
+        got = lm.forward(sharded, cfg, shlib.distribute_tree(
+            tokens, shlib.batch_shardings(tokens, mesh), mesh), ctx)[0]
+    out = {}
+    for part in ("mean", "var"):
+        g, w = getattr(got, part).full_tensor(), getattr(want, part)
+        rtol, atol = MODEL_TOL[part]
+        out[part] = {"max_abs_err": float((g - w).abs().max()),
+                     "ok": bool(torch.allclose(g, w, rtol=rtol, atol=atol))}
+    return out
+
+
+def _mesh_cpu_check():
+    """Phase 14 (b): 8 gloo processes, then the train CLI's own 8 ranks."""
+    import os
+    import shutil
+    import socket
+
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    if MESH_DIR.exists():
+        shutil.rmtree(MESH_DIR)
+    MESH_DIR.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.start_processes(_mesh_rank,
+                             args=(MESH_RANKS, port, str(MESH_DIR)),
+                             nprocs=MESH_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.perf_counter() + MESH_B_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                fail(f"mesh (b): the {MESH_RANKS} gloo processes did not end "
+                     f"in {MESH_B_TIMEOUT} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    res = json.loads((MESH_DIR / "ranks.json").read_text())
+    ranks_s = time.perf_counter() - t0
+    st, el, ps, fw = res["step"], res["elastic"], res["psum"], res["forward"]
+    print(f"[mesh] (b) {MESH_RANKS} gloo processes on the CPU, mesh "
+          f"{MESH_SHAPE}, reduced configs ({ranks_s:.1f} s):")
+    print(f"[mesh] (b) SVI step sharded vs single: loss {st['loss'][1]:.6f} "
+          f"vs {st['loss'][0]:.6f} (|diff| "
+          f"{abs(st['loss'][1] - st['loss'][0]):.3e}, bound 1e-3); params "
+          f"max |diff| {st['params_max_abs_diff']:.3e} (rtol 1e-2, atol "
+          f"2.5e-3)")
+    print(f"[mesh] (b) elastic restore (4, 2) -> (2, 2): {el['leaves']} "
+          f"leaves bit for bit {el['equal']}, placements {el['placements']}")
+    print(f"[mesh] (b) compressed_psum vs all_reduce: max |err| "
+          f"{ps['err']:.3e} (bound {ps['bound']:.3e}); == the dequantize-sum "
+          f"of the gathered blocks {ps['equals_local_sum']}; equal on every "
+          f"rank {ps['equal_on_every_rank']}")
+    print(f"[mesh] (b) PFP forward through the kernel route (serve rules) vs "
+          f"unsharded: mean {fw['mean']['max_abs_err']:.3e}, var "
+          f"{fw['var']['max_abs_err']:.3e} (MODEL_TOL)")
+    if abs(st["loss"][1] - st["loss"][0]) >= 1e-3 or st["params_bad"]:
+        fail(f"mesh (b): sharded SVI step off: {st}")
+    if not (el["rank_in_mesh"] and el["equal"] and el["step"] == 1):
+        fail(f"mesh (b): elastic restore: {el}")
+    if not (ps["err"] < ps["bound"] and ps["equals_local_sum"]
+            and ps["equal_on_every_rank"]):
+        fail(f"mesh (b): compressed_psum: {ps}")
+    if not (fw["mean"]["ok"] and fw["var"]["ok"]):
+        fail(f"mesh (b): forward on the mesh: {fw}")
+    t1 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--devices", str(MESH_RANKS), "--mesh",
+         ",".join(map(str, MESH_SHAPE)), "--reduced", "--steps", "6",
+         "--batch", "4", "--seq", "32", "--ckpt-dir", str(MESH_DIR / "cli")],
+        cwd=str(ROOT), env=env, capture_output=True, text=True,
+        timeout=MESH_B_TIMEOUT)
+    lines = [ln for ln in cli.stdout.splitlines() if ln.startswith(
+        ("mesh=", "step", "done"))]
+    print(f"[mesh] (b) python -m repro_torch.launch.train --device cpu "
+          f"--devices 8 --mesh 4,2 --reduced --steps 6 --batch 4 --seq 32: "
+          f"exit {cli.returncode} in {time.perf_counter() - t1:.1f} s; "
+          + " | ".join(lines))
+    if cli.returncode != 0:
+        fail(f"mesh (b): the train CLI on 8 ranks exited {cli.returncode}: "
+             f"{cli.stderr[-2000:]}")
+    shutil.rmtree(MESH_DIR)
+    return {**res, "ranks_s": ranks_s, "cli_lines": lines,
+            "cli_s": time.perf_counter() - t1}
+
+
+def _dryrun_results(dryrun):
+    """Phase 14 (c): wait for the dry-run process and read its cells."""
+    proc, log, started, started_wall = dryrun
+    try:
+        proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT -
+                              (time.perf_counter() - started)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"mesh (c): the dry-run did not end in {DRYRUN_TIMEOUT} s "
+             "(chiprun_out/dryrun.log)")
+    finally:
+        log.close()
+    waited = time.perf_counter() - started
+    cells, written = {}, []
+    for shape, mesh in DRYRUN_CELLS:
+        path = DRYRUN_OUT / f"granite-8b__{shape}__{mesh}.json"
+        if not path.exists():
+            fail(f"mesh (c): no result for {shape} on {mesh} "
+                 "(chiprun_out/dryrun.log)")
+        r = json.loads(path.read_text())
+        written.append(path.stat().st_mtime - started_wall)
+        cells[f"{shape}:{mesh}"] = r
+        if r["status"] != "ok":
+            fail(f"mesh (c): {shape} on {mesh}: {r.get('error')}")
+        mem = r["memory_analysis"]
+        coll = {k: v["count"] for k, v in r["collective_bytes"].items()
+                if v["count"]}
+        temp = mem.get("temp_size_in_bytes")
+        print(f"[mesh] (c) granite-8b {shape} on {mesh} ({r['chips']} ranks, "
+              f"{r['program']}): args {mem['argument_size_in_bytes'] / 1e9:.3f}"
+              f" GB/device, outputs {mem['output_size_in_bytes'] / 1e9:.3f} GB, "
+              + (f"temporaries {temp / 1e9:.3f} GB (eager, no remat: "
+                 "CostMode's live storages)"
+                 if temp is not None else "temporaries not measured")
+              + f"; {r['flops_per_device']:.4e} FLOP/device "
+              f"({r['matmul_flops_per_device']:.4e} in matmuls), "
+              f"{r['bytes_per_device']:.4e} B; collectives {coll}, link "
+              f"{r['collective_bytes_link']:.4e} B; compute "
+              f"{r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, "
+              f"collective {r['collective_s']:.4g} s -> {r['bottleneck']}; "
+              f"fits_80gb_hbm {r['fits_80gb_hbm']}; build {r['lower_s']} s, "
+              f"run {r['compile_s']} s")
+    took = max(written)
+    print(f"[mesh] (c) {len(cells)} dry-run cells ok, the last written "
+          f"{took:.1f} s after the process started (read {waited:.1f} s "
+          "after it), in a CPU process beside the other phases")
+    return {"cells": cells, "seconds": took, "read_after_s": waited}
+
+
+def phase_mesh(card, dryrun):
+    """Phase 14: (a)'s results (run inside phase 13), (b) on the CPU, (c)
+    the dry-run's cells. Returns the path ``mesh``'s launches and info."""
+    t0 = time.perf_counter()
+    info = {"card": card, "cpu": _mesh_cpu_check(),
+            "dryrun": _dryrun_results(dryrun)}
+    info["seconds"] = time.perf_counter() - t0
+    print(f"[mesh] phase {info['seconds']:.1f} s (besides (a) "
+          f"{card['seconds']:.1f} s in the train cli phase)")
+    return card["launches"], info
 
 
 def moe_path_calls(cfg, shapes):
@@ -6360,6 +6874,7 @@ def main():
         marks.append((name, time.perf_counter()))
 
     card = phase_card()
+    dryrun = start_dryrun()
     build = phase_build()
     mark("build")
     errs = phase_kernels(device)
@@ -6425,6 +6940,9 @@ def main():
     mark("train")
     launches["train_cli"], train_cli_info = phase_train_cli(device)
     mark("train cli")
+    launches["mesh"], mesh_info = phase_mesh(train_cli_info.pop("mesh"),
+                                             dryrun)
+    mark("mesh")
     forwards += [moe_forward, audio_forward]
     if moe_profile is not None:
         profile.append({"model": moe_cfg.name, "batch": LM_BATCH,
@@ -6447,6 +6965,7 @@ def main():
          "configs": config_info,
          "fused": fused_info,
          "train": train_info, "train_cli": train_cli_info,
+         "mesh": mesh_info,
          "phase_seconds": phases,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(f"[done] {time.perf_counter() - t0:.1f} s; by phase "

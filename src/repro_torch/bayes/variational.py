@@ -18,6 +18,7 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.core import mesh_route
 from repro_torch.nn.module import BayesParam
 
 
@@ -60,4 +61,6 @@ def elbo_loss(logits, labels, model: nn.Module, *, kl_scale, num_data: int,
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.mean(torch.gather(logp, -1, labels[..., None].long()))
     kl = total_kl(model, prior_sigma) / num_data
+    # On a mesh: a mean's and a sum's partials add once reduced.
+    nll, kl = mesh_route.whole(nll), mesh_route.whole(kl)
     return nll + kl_scale * kl + aux_loss, {"nll": nll, "kl": kl}

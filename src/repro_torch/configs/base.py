@@ -132,3 +132,20 @@ class ModelConfig:
         if self.family == "hybrid":
             return self.block_pattern
         return ("attn",)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the dry-run's cells (``launch/programs.py``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

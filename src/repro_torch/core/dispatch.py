@@ -19,6 +19,9 @@ activations consume VAR and emit SRM) is enforced here by the public
 functions, as in the reference. The embedding gather and the residual add
 have no kernel in the reference either: both impls share one function.
 
+A ``kernel`` impl given DTensors runs its kernels on the local shards
+through ``core/mesh_route.py``.
+
 The opt-in fusion pass (``set_fusion`` / ``fusion()``) rewrites the chain
 norm -> bias-free SRM dense -> activation onto the fused ``norm_dense_act``
 kernel when the tuned-schedule cache (``repro_torch.tuning``) holds a
@@ -31,7 +34,7 @@ from __future__ import annotations
 import contextlib
 from typing import Callable, Dict, Optional
 
-from repro_torch.core import pfp_layers
+from repro_torch.core import mesh_route, pfp_layers
 from repro_torch.core.gaussian import (SRM, VAR, GaussianTensor, as_gaussian,
                                        is_gaussian)
 from repro_torch.kernels import ops, ref
@@ -76,9 +79,14 @@ def resolve_impl(impl: Optional[str]) -> str:
 
 
 def register(name: str, impl: str):
-    """Decorator: register ``fn`` as the ``impl`` implementation of ``name``."""
+    """Decorator: register ``fn`` as the ``impl`` implementation of ``name``.
+    A ``kernel`` impl (and the one function of the embedding and the
+    residual) is registered behind ``mesh_route.wrap``, which routes
+    DTensor arguments through the op's plan (``core/mesh_route.py``)."""
     def deco(fn):
-        _REGISTRY.setdefault(name, {})[impl] = fn
+        routed = impl == "kernel" or name in mesh_route.SHARED
+        _REGISTRY.setdefault(name, {})[impl] = (
+            mesh_route.wrap(name, fn) if routed else fn)
         return fn
 
     return deco
@@ -151,6 +159,7 @@ def pfp_dense(x, w, b=None, *, formulation: str = "srm",
         # Fusion pass, step 2: a bias-free SRM dense over a pending norm
         # stays pending; an activation next may complete the fused unit.
         return _PendingNormDense(x, w, impl)
+    x, w = mesh_route.place_dense(x, w)
     x = _to_compute_rep(x, formulation)
     out = get_op("dense", impl)(x, w, formulation)
     return _add_bias(out, b)
@@ -677,7 +686,9 @@ class _PendingNormDense(_PendingFusion):
         x, w = norm.x, self.w
         if (self._value is not None or act not in KINDS
                 or not _fusion_active(impl)
-                or not fusable(x.shape[-1], w.mean.shape[-1])):
+                or not fusable(x.shape[-1], w.mean.shape[-1])
+                or mesh_route.has_dtensor((x, w))):
+            # On a mesh the pass runs the exact unfused chain.
             return None
         shape_key = (_rows(x.shape), x.shape[-1], w.mean.shape[-1])
         sched = _schedule_for("norm_dense_act", shape_key, x.dtype,

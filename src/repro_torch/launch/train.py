@@ -1,4 +1,5 @@
-"""SVI training CLI for the LM zoo on one card, with checkpoint and resume.
+"""SVI training CLI for the LM zoo, on one card or a mesh, with checkpoint
+and resume.
 
 Counterpart of ``repro/launch/train.py``: Adam on a cosine schedule (warmup
 5 steps, peak 1e-3, global-norm clip 1.0), the SVI ELBO step with the KL
@@ -11,16 +12,40 @@ seeded with ``i`` (the reference's ``jax.random.PRNGKey(i)``) and its batch
 from ``TokenPipeline.batch(i)``, so a resumed run draws what an
 uninterrupted one draws and ends at the same state bit for bit.
 
-Differences from the reference: one card, so ``--devices`` and ``--mesh``
-are refused (they come with the ``torch.distributed`` slice); the weights
-are drawn on ``--device`` (the CUDA card by default; without one this
-raises unless ``--device cpu``) from seed 0, and ``--layers`` cuts the
-model; checkpoints are written only where ``--ckpt-dir`` names a
-directory (the reference defaults to one under ``/tmp``).
+The mesh: ``--devices N --mesh D,M`` trains on a (data, model) mesh of N =
+D * M ranks, one rank a process (``--mesh`` alone implies ``--devices``,
+``--devices`` alone the mesh (N, 1)). The parameters, Adam's moments (with
+the parameters' placements) and each batch are placed by the sharding
+rules of ``launch/sharding.py``; every rank draws the whole batch and the
+whole noise from the same seeds and keeps its own block, so the sharded
+step draws what the single-device step draws. ``--resume`` restores
+elastically onto this run's mesh, whatever mesh saved the checkpoint.
+Rank 0 alone prints and writes. The ranks come from:
+
+* a launcher (``torchrun``, which sets ``WORLD_SIZE``): the world must
+  equal ``--devices``;
+* ``--devices 1``: an in-process group of one rank (gloo with ``--device
+  cpu``, NCCL on the card);
+* ``--device cpu`` with more ranks and no launcher: the CLI starts N local
+  gloo processes itself, so the reference's command line runs as it is.
+
+On the card NCCL takes one rank a card, so ``--devices`` may not exceed
+the card count.
+
+Differences from the reference: without ``--devices`` / ``--mesh`` it
+trains on one device, with no process group; the weights are drawn on
+``--device`` (the CUDA card by default; without one this raises unless
+``--device cpu``) from seed 0, and ``--layers`` cuts the model;
+checkpoints are written only where ``--ckpt-dir`` names a directory (the
+reference defaults to one under ``/tmp``).
 
 Usage (``PYTHONPATH=src``):
   python -m repro_torch.launch.train --device cpu --reduced --steps 6 \\
       --batch 4 --seq 32 --ckpt-dir build/ckpt
+  python -m repro_torch.launch.train --device cpu --devices 8 --mesh 4,2 \\
+      --reduced --steps 6 --batch 4 --seq 32 --ckpt-dir build/ckpt
+  torchrun --nproc-per-node 8 -m repro_torch.launch.train --devices 8 \\
+      --mesh 4,2 --reduced --steps 6
   python -m repro_torch.launch.train --layers 2 --batch 1 --seq 256 \\
       --steps 12 --ckpt-dir build/ckpt     # granite-8b, full width, card
 
@@ -28,17 +53,18 @@ Usage (``PYTHONPATH=src``):
 ``TrainState``, so scripts and tests can read it in-process.
 """
 import argparse
+import contextlib
 import dataclasses
+import math
+import os
 import sys
 import time
-
-_REFUSED = ("devices", "mesh")
 
 
 def _parser():
     ap = argparse.ArgumentParser(
-        description="SVI-train an LM of the zoo on one card, with "
-                    "checkpoints and resume.")
+        description="SVI-train an LM of the zoo on one card or a mesh, "
+                    "with checkpoints and resume.")
     ap.add_argument("--arch", default="granite-8b")
     ap.add_argument("--reduced", action="store_true",
                     help="CPU-sized config of the same family")
@@ -55,12 +81,76 @@ def _parser():
                          "no checkpoints)")
     ap.add_argument("--resume", action="store_true",
                     help="start from the latest checkpoint in --ckpt-dir")
-    for flag in _REFUSED:
-        ap.add_argument(f"--{flag}", default=None,
-                        help="refused: the mesh comes with the "
-                             "torch.distributed slice (ROADMAP.md queue A "
-                             "item 3)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="train on a mesh of this many ranks")
+    ap.add_argument("--mesh", default=None, help="data,model (e.g. 4,2)")
     return ap
+
+
+def mesh_dims(args):
+    """The (data, model) mesh ``args`` ask for, or None for one device.
+    Raises ValueError, naming the flag, where the flags disagree with each
+    other, with the launcher's world or with the cards there are."""
+    import torch
+
+    if args.mesh is None and args.devices is None:
+        return None
+    if args.mesh is None:
+        dims = (args.devices, 1)
+    else:
+        try:
+            dims = tuple(int(x) for x in args.mesh.split(","))
+        except ValueError:
+            dims = ()
+        if len(dims) != 2 or min(dims) < 1:
+            raise ValueError(f"--mesh {args.mesh!r}: expected D,M (two "
+                             "positive integers, data and model)")
+    n = args.devices if args.devices is not None else math.prod(dims)
+    if n < 1 or math.prod(dims) != n:
+        raise ValueError(f"--mesh {dims[0]},{dims[1]} holds "
+                         f"{math.prod(dims)} ranks, --devices {n}")
+    world = os.environ.get("WORLD_SIZE")
+    if world is not None and int(world) != n:
+        raise ValueError(f"--devices {n} under a launcher of {world} ranks")
+    if (args.device or "cuda").startswith("cuda"):
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if world is None and n > cards:
+            raise ValueError(f"--devices {n}: NCCL takes one rank a card and "
+                             f"there are {cards} (pass --device cpu for "
+                             "gloo ranks on the CPU)")
+    return dims
+
+
+@contextlib.contextmanager
+def _process_group(args, dims):
+    """This rank's mesh and device. Uses the process group that is there
+    (a launcher's, a spawned rank's, a caller's); else starts one from the
+    launcher's environment, or an in-process group of one rank, and
+    destroys what it started."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.device import resolve_device
+    from repro_torch.launch.mesh import make_mesh
+
+    device = resolve_device(args.device)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    started = not dist.is_initialized()
+    if started and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend)
+    elif started:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        if device.type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+            device = torch.device("cuda", local)
+            torch.cuda.set_device(device)
+        yield make_mesh(dims, ("data", "model"),
+                        device_type=device.type), device
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 class _GradTap:
@@ -79,6 +169,23 @@ class _GradTap:
 
 
 def run(args, *, eps=None, grad_hook=None, on_step=None):
+    """Train as ``args`` say; on a mesh (``--devices`` / ``--mesh``) each
+    rank calls this, inside its process group. Returns the final
+    ``TrainState`` (on a mesh, its tensors are DTensors)."""
+    dims = mesh_dims(args)
+    if dims is None:
+        return _run(args, None, None, eps=eps, grad_hook=grad_hook,
+                    on_step=on_step)
+    with _process_group(args, dims) as (mesh, device):
+        return _run(args, mesh, device, eps=eps, grad_hook=grad_hook,
+                    on_step=on_step)
+
+
+def _scalar(t) -> float:
+    return float(t.full_tensor() if hasattr(t, "full_tensor") else t)
+
+
+def _run(args, mesh, mesh_device, *, eps=None, grad_hook=None, on_step=None):
     """Train as ``args`` (parsed and checked as ``main`` does) say and
     return the final ``TrainState``.
 
@@ -98,7 +205,8 @@ def run(args, *, eps=None, grad_hook=None, on_step=None):
     from repro_torch.models import lm
     from repro_torch.training.checkpoint import CheckpointManager
     from repro_torch.training.fault_tolerance import StepMonitor
-    from repro_torch.training.optimizer import Adam, cosine_schedule
+    from repro_torch.training.optimizer import (Adam, AdamState,
+                                                cosine_schedule)
     from repro_torch.training.train_loop import (TrainState,
                                                  init_train_state,
                                                  load_train_state_tree,
@@ -106,16 +214,32 @@ def run(args, *, eps=None, grad_hook=None, on_step=None):
                                                  train_state_layout,
                                                  train_state_tree)
 
-    device = resolve_device(args.device)
+    device = mesh_device or resolve_device(args.device)
+    say = print
+    placed = contextlib.nullcontext
+    if mesh is not None:
+        import torch.distributed as dist
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        from repro_torch.launch import sharding as shlib
+        if dist.get_rank() != 0:
+            say = _silent
+        # Tensors the model makes itself (positions, masks) count as
+        # replicas beside the DTensors.
+        placed = implicit_replication
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    print(f"device={device.type} arch={cfg.name} layers={cfg.num_layers} "
-          f"params~{cfg.param_count() / 1e6:.1f}M")
+    where = ("" if mesh is None else
+             f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} ")
+    say(f"{where}device={device.type} arch={cfg.name} "
+        f"layers={cfg.num_layers} params~{cfg.param_count() / 1e6:.1f}M")
 
     model = lm.init_params(
         cfg, generator=torch.Generator(device=device).manual_seed(0),
         device=device)
+    if mesh is not None:
+        shlib.distribute_params(model, mesh)
     opt = Adam(learning_rate=cosine_schedule(1e-3, 5, args.steps),
                clip_norm=1.0)
 
@@ -134,12 +258,21 @@ def run(args, *, eps=None, grad_hook=None, on_step=None):
     start = 0
     if args.resume and mgr.latest_step() is not None:
         # The restored moments replace the fresh state's, so none is made.
-        tree, start = mgr.restore(train_state_layout(model))
+        layout = train_state_layout(model)
+        shardings = None
+        if mesh is not None:   # elastic: onto this run's mesh
+            ls = shlib.layout_shardings(layout["params"], model, mesh)
+            shardings = {"params": ls, "opt_state": AdamState(None, ls, ls),
+                         "step": None}
+        tree, start = mgr.restore(layout, device=device, shardings=shardings)
         state = load_train_state_tree(TrainState(model, None, 0), tree)
         del tree
         read = mgr.restores[-1]
-        print(f"resumed from step {start} onto {device.type}: "
-              f"{read['bytes'] / 1e9:.3f} GB read in {read['seconds']:.3f} s")
+        onto = ("" if mesh is None else
+                f" (elastic onto {tuple(mesh.shape)} mesh)")
+        say(f"resumed from step {start} onto {device.type}: "
+            f"{read['bytes'] / 1e9:.3f} GB read in {read['seconds']:.3f} s"
+            f"{onto}")
     else:
         state = init_train_state(model, opt)
 
@@ -148,17 +281,21 @@ def run(args, *, eps=None, grad_hook=None, on_step=None):
             t0 = time.perf_counter()
             batch = {k: torch.from_numpy(v).long().to(device)
                      for k, v in pipe.batch(i).items()}
+            if mesh is not None:
+                batch = shlib.distribute_tree(
+                    batch, shlib.batch_shardings(batch, mesh), mesh)
             gen = torch.Generator(device=device).manual_seed(i)
-            state, m = step_fn(state, batch, gen, eps=eps)
-            loss = float(m["loss"])   # waits for the step on the device
+            with placed():
+                state, m = step_fn(state, batch, gen, eps=eps)
+            loss = _scalar(m["loss"])   # waits for the step on the device
             dt = time.perf_counter() - t0
             verdict = monitor.record(i, dt)
             if on_step is not None:
                 on_step(i, m, dt)
             if i % 5 == 0 or verdict == "straggle":
-                print(f"step {i:4d} loss={loss:.3f} "
-                      f"nll={float(m['nll']):.3f} {dt * 1e3:.0f}ms "
-                      f"[{verdict}]")
+                say(f"step {i:4d} loss={loss:.3f} "
+                    f"nll={_scalar(m['nll']):.3f} {dt * 1e3:.0f}ms "
+                    f"[{verdict}]")
             if mgr is not None and (i + 1) % 10 == 0:
                 t0 = time.perf_counter()
                 mgr.save(i + 1, train_state_tree(state))
@@ -167,26 +304,71 @@ def run(args, *, eps=None, grad_hook=None, on_step=None):
         if mgr is not None:
             mgr.wait()
     for saved in mgr.saves if mgr is not None else ():
-        print(f"checkpoint step {saved['step']}: {saved['bytes'] / 1e9:.3f} "
-              f"GB, host copy {paused[saved['step']]:.3f} s, write "
-              f"{saved['write_seconds']:.3f} s")
-    print("done; latest checkpoint:",
-          mgr.latest_step() if mgr is not None else None)
+        say(f"checkpoint step {saved['step']}: {saved['bytes'] / 1e9:.3f} "
+            f"GB, host copy {paused[saved['step']]:.3f} s, write "
+            f"{saved['write_seconds']:.3f} s")
+    say("done; latest checkpoint:",
+        mgr.latest_step() if mgr is not None else None)
     return state
 
 
+def _silent(*args, **kwargs):
+    """Where a rank other than 0 would print."""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _rank_main(rank: int, argv, world: int, port: int):
+    """One spawned gloo rank of ``--device cpu --devices N``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        run(_parser().parse_args(argv))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(argv, world: int) -> int:
+    """Run ``world`` local gloo ranks of this command line and join them;
+    1 if any rank failed."""
+    import torch.multiprocessing as mp
+
+    try:
+        mp.start_processes(_rank_main, args=(list(argv), world, _free_port()),
+                           nprocs=world, join=True, start_method="spawn")
+    except mp.ProcessException as e:
+        print(f"ERROR: a rank failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
+    import torch.distributed as dist
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
-    refused = [f"--{flag}" for flag in _REFUSED
-               if getattr(args, flag) is not None]
-    if refused:
-        print(f"ERROR: {' and '.join(refused)}: the port trains on one card; "
-              "the mesh comes with the torch.distributed slice (ROADMAP.md "
-              "queue A item 3)", file=sys.stderr)
+    try:
+        dims = mesh_dims(args)
+    except ValueError as e:
+        print(f"ERROR: {e}", file=sys.stderr)
         return 2
     if args.resume and not args.ckpt_dir:
         print("ERROR: --resume needs --ckpt-dir", file=sys.stderr)
         return 2
+    world = math.prod(dims) if dims is not None else 1
+    if (world > 1 and "WORLD_SIZE" not in os.environ
+            and not dist.is_initialized()):
+        return _spawn(argv, world)   # --device cpu: local gloo ranks
     run(args)
     return 0
 

@@ -50,6 +50,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import mesh_route
 from repro_torch.core.device import DeviceLike, init_generator, resolve_device
 from repro_torch.core.gaussian import GaussianTensor, is_gaussian
 from repro_torch.core.modes import Mode
@@ -61,6 +62,7 @@ from repro_torch.nn.layers import (NORMS, dense_init, embedding_init,
 from repro_torch.nn.mlp import MLPBlock
 from repro_torch.nn.module import Context
 from repro_torch.nn.moe import MoE, moe_apply, zero_aux
+from repro_torch.nn.pjit_hints import constrain, place_state
 from repro_torch.nn.recurrent import (RGLRU, RecurrentState,
                                       init_recurrent_state, rglru_block_apply)
 from repro_torch.nn.ssm import Mamba2, SSMState, init_ssm_state, mamba2_apply
@@ -273,6 +275,7 @@ def forward(model: LM, cfg: ModelConfig, inputs: Mapping, ctx: Context, *,
     and ``states`` are given. ``moe_aux_loss=False`` is the inference path:
     the router's load-balance loss is never built."""
     x, positions, standard_positions = _embed_inputs(model, cfg, inputs, ctx)
+    x = constrain(x, "batch", "seq", "embed")
     device = positions.device
     image_emb = inputs.get("image_embeddings")
     if image_emb is not None:
@@ -294,6 +297,8 @@ def forward(model: LM, cfg: ModelConfig, inputs: Mapping, ctx: Context, *,
                        else states["stack"].get(name))
             st = (None if stacked is None else type(stacked)(
                 *(leaf[group] for leaf in stacked)))
+            if name == "b0":   # the head of a stacked group's body
+                x = constrain(x, "batch", "seq", "embed")
         x, new_st, aux = _block_apply(
             block, x, ctx, cfg, positions=positions,
             standard_positions=standard_positions, image_emb=image_emb,
@@ -305,7 +310,9 @@ def forward(model: LM, cfg: ModelConfig, inputs: Mapping, ctx: Context, *,
         elif st is not None:
             new_stack.setdefault(name, []).append(new_st)
     x = model.ln_f(x, ctx)
+    x = constrain(x, "batch", "seq", "embed")
     logits = model.lm_head(x, ctx)
+    logits = constrain(logits, "batch", "seq", "vocab")
     if is_gaussian(logits):
         # Under the fusion pass (core/dispatch.py) ln_f -> lm_head comes
         # back as a lazy pending; reading its fields runs it here, so no
@@ -532,9 +539,11 @@ def prefill(model: LM, cfg: ModelConfig, inputs: Mapping, ctx: Context,
     """Full-sequence pass into fresh contiguous decode state (KV caches of
     ``max_len`` rows, recurrent and SSM carries). Returns (last-position
     logits (B, 1, V), states)."""
-    batch = len(inputs["tokens"] if cfg.embed_inputs
-                else inputs["frame_embeddings"])
-    states = init_decode_state(cfg, batch, max_len, device=ctx.device)
+    first = (inputs["tokens"] if cfg.embed_inputs
+             else inputs["frame_embeddings"])
+    states = init_decode_state(cfg, len(first), max_len, device=ctx.device)
+    if mesh_route.has_dtensor((first,)):
+        states = place_state(states)   # on a mesh: split as the rules say
     logits, _, new_states = forward(model, cfg, inputs, ctx, states=states,
                                     collect_states=True, moe_aux_loss=False)
     if is_gaussian(logits):

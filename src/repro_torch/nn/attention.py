@@ -31,7 +31,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from repro_torch.core import dispatch, pfp_math
+from repro_torch.core import dispatch, mesh_route, pfp_math
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.gaussian import VAR, GaussianTensor, is_gaussian
 from repro_torch.core.masking import attention_valid_mask, mask_scores
@@ -39,6 +39,7 @@ from repro_torch.core.pfp_attention import MEAN_FIELD, VARIANCE_CORRECTED
 from repro_torch.kernels.ref import gather_kv_pages
 from repro_torch.nn.layers import dense_init, rope_angles, rope_apply
 from repro_torch.nn.module import Context
+from repro_torch.nn.pjit_hints import constrain_kv
 
 # Query-block size of the chunked core: the (bq, Tk) score tile is its peak
 # attention memory, never (Tq, Tk).
@@ -102,6 +103,7 @@ def _split_heads(x, num_heads: int, head_dim: int):
                               _split_heads(x.second, num_heads, head_dim),
                               x.rep)
     b, t, _ = x.shape
+    x = mesh_route.whole_heads(x, num_heads)
     return x.reshape(b, t, num_heads, head_dim).transpose(1, 2)
 
 
@@ -201,7 +203,12 @@ def attention_apply(layer: Attention, x, ctx: Context, *, num_heads: int,
                                                            v_var))))
         new_cache = cache
     elif cache is not None:
-        cache = KVCache(*(_insert_rows(buf, new, positions)
+        # The updated cache is pinned to the decode state's sharding
+        # (reference nn/attention.py:201-203; a no-op off a mesh). The
+        # reference pins one-token steps only; here a prefill's insert
+        # comes back from DTensor's scatter gathered whole, and pinning it
+        # back is a local slice, so every insert is pinned.
+        cache = KVCache(*(constrain_kv(_insert_rows(buf, new, positions))
                           for buf, new in zip(cache, (k_mu, v_mu, v_var))))
         new_cache = cache
         k_mu, v_mu, v_var = cache
@@ -216,7 +223,24 @@ def attention_apply(layer: Attention, x, ctx: Context, *, num_heads: int,
                                                            s)
         causal = False
 
+    # On a mesh: the query heads take the split, whole heads a rank.
+    if pfp:
+        q = GaussianTensor(mesh_route.heads_split(q.mean, num_heads),
+                           mesh_route.heads_split(q.second, num_heads), q.rep)
+    else:
+        q = mesh_route.heads_split(q, num_heads)
+    if mesh_route.cuts_kv_groups(q.mean if pfp else q, num_heads,
+                                 num_kv_heads):
+        # On a mesh whose query-head split the KV heads do not divide (8 KV
+        # heads over 16 ranks): repeat each KV head for its G query heads,
+        # kv-major as the grouping reads them, so each rank keeps its own
+        # query heads and their KV heads whole.
+        k_mu, v_mu, v_var = (a.repeat_interleave(group, dim=1)
+                             for a in (k_mu, v_mu, v_var))
+        num_kv_heads, group = num_heads, 1
+
     def _group(arr):  # (B, H, T, D) -> (B, Hkv, G, T, D)
+        arr = mesh_route.whole_heads(arr, num_kv_heads, dim=1)
         b, _, t, d = arr.shape
         return arr.reshape(b, num_kv_heads, group, t, d)
 
@@ -315,6 +339,12 @@ def _attention_core(q_mu, q_var, k_mu, v_mu, v_var, *, q_pos, k_pos, causal,
     (B, Tk); k_valid (B, Tk) bool or None. Queries longer than
     ``chunk_size`` (and a multiple of it) go in blocks of ``chunk_size``.
     Returns (out_mu, out_var or None)."""
+    if mesh_route.has_dtensor((q_mu,)):
+        # On a mesh each rank runs this core on its own rows and heads.
+        return mesh_route.per_rank_core(
+            _attention_core, q_mu, q_var, k_mu, v_mu, v_var, q_pos=q_pos,
+            k_pos=k_pos, k_valid=k_valid, causal=causal, window=window,
+            scale=scale, chunk_size=chunk_size)
 
     def block(qb_mu, qb_var, qb_pos):
         scores = torch.einsum("bhgqd,bhkd->bhgqk", qb_mu, k_mu) * scale

@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.core import dispatch
+from repro_torch.core import dispatch, mesh_route
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.gaussian import VAR, GaussianTensor, is_gaussian
 from repro_torch.core.pfp_layers import DETERMINISTIC_ACTIVATIONS
@@ -61,7 +61,8 @@ def dense_apply(layer: Dense, x, ctx: Context):
     if isinstance(w, GaussianTensor):  # PFP path
         return dispatch.pfp_dense(x, w, b, formulation=ctx.formulation,
                                   impl=ctx.impl)
-    y = (x.mean if is_gaussian(x) else x) @ w
+    x, w = mesh_route.place_dense(x.mean if is_gaussian(x) else x, w)
+    y = x @ w
     if b is not None:
         y = y + b
     return y
@@ -105,7 +106,7 @@ def embedding_apply(layer: Embedding, ids, ctx: Context):
     t = resolve_weight(layer.table, ctx)
     if isinstance(t, GaussianTensor):
         return dispatch.pfp_embedding(t, ids, impl=ctx.impl)
-    return t[ids]
+    return mesh_route.gather_rows(t, ids)
 
 
 # -- norms ---------------------------------------------------------------------
@@ -194,4 +195,4 @@ def sinusoidal_embedding(positions, d_model: int):
 def residual_add(x, y):
     if is_gaussian(x) or is_gaussian(y):
         return dispatch.pfp_residual(x, y)
-    return x + y
+    return x + mesh_route.follow(y, x)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core import mesh_route
 from repro_torch.core.device import DeviceLike, init_generator, resolve_device
 from repro_torch.core.gaussian import SRM, VAR, GaussianTensor
 from repro_torch.core.modes import Mode
@@ -103,6 +104,14 @@ class Context:
             return eps.to(device=mu.device, dtype=mu.dtype)
         if self.generator is None:
             raise ValueError("SVI mode needs ctx.generator (or ctx.eps)")
+        if mesh_route.has_dtensor((mu,)):
+            # Every rank draws the whole leaf's noise from the same seeded
+            # generator and keeps its own block of it: the sharded step
+            # draws the single-device step's noise on any mesh.
+            from repro_torch.launch.sharding import distribute
+            eps = torch.randn(mu.shape, generator=self.generator,
+                              dtype=mu.dtype, device=mu.to_local().device)
+            return distribute(eps, mu.device_mesh, mu.placements)
         return torch.randn(mu.shape, generator=self.generator,
                            dtype=mu.dtype, device=mu.device)
 
@@ -146,11 +155,14 @@ def init_bayes(shape, *, generator: Optional[torch.Generator] = None,
     """Variational Gaussian weight. Default: mu from a normal truncated at
     +-2 and scaled by fan_in**-0.5; sigma = sigma_init (the paper's 1e-4).
     Draws on the device of ``generator`` (a CPU one seeded with 0 when none
-    is given), then moves to ``device``."""
+    is given), then moves to ``device``. On the ``meta`` device nothing is
+    drawn: the leaf has its shape and dtype only."""
     device = resolve_device(device)
     shape = tuple(shape)
     if mu_init is not None:
         mu = torch.full(shape, mu_init, dtype=dtype, device=device)
+    elif device.type == "meta":
+        mu = torch.empty(shape, dtype=dtype, device=device)
     else:
         if scale is None:
             scale = (fan_in if fan_in is not None else shape[0]) ** -0.5
@@ -256,9 +268,15 @@ def _stacked_layout(trees):
     return LayoutLeaf(tuple(n for t in trees for n in t.names), True)
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """``t`` detached; a DTensor gathered whole (every rank takes part)."""
+    t = t.detach()
+    return t.full_tensor() if mesh_route.has_dtensor((t,)) else t
+
+
 def _host_copy(t: torch.Tensor) -> np.ndarray:
     """A numpy copy of ``t`` that shares no memory with it."""
-    t = t.detach()
+    t = _whole(t)
     return t.cpu().numpy() if t.device.type != "cpu" else t.numpy().copy()
 
 
@@ -269,7 +287,7 @@ def layout_tree(layout, values: Mapping[str, torch.Tensor]) -> dict:
     if isinstance(layout, Mapping):
         return {k: layout_tree(v, values) for k, v in layout.items()}
     if layout.stacked:   # stacked where the tensors are: one host copy
-        return torch.stack([values[n].detach()
+        return torch.stack([_whole(values[n])
                             for n in layout.names]).cpu().numpy()
     return _host_copy(values[layout.names[0]])
 

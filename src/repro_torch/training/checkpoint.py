@@ -15,9 +15,12 @@ letter for letter, so that each package reads what the other wrote:
   snapshot; CUDA tensors never reach the writer), then writes on a thread
   so the train loop keeps stepping. ``wait()`` joins it and raises what
   the write raised.
-* placement: leaves are stored whole; ``restore`` puts them on the device
-  it is given (the reference's ``shardings=`` placement onto a mesh comes
-  with the mesh modules, ROADMAP.md).
+* placement: leaves are stored whole. ``save`` takes DTensor leaves: every
+  rank joins the gather of each (``full_tensor()``), and rank 0 alone
+  writes. ``restore`` puts the leaves on the device it is given, or, with
+  ``shardings``, places each on a mesh by its placements, every rank
+  slicing its own block of the file with no collective: an elastic
+  restore, whatever mesh wrote the checkpoint.
 * bounded retention: ``keep_last`` prunes old steps.
 * accounting: each committed save appends {step, bytes, write_seconds}
   to ``saves``, each restore {step, bytes, seconds} to ``restores``.
@@ -31,6 +34,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import sys
 import threading
 import time
 from typing import Any, Optional
@@ -75,10 +79,26 @@ def _unflatten_into(proto, flat, prefix=""):
     return flat[prefix[: -len(_SEP)]]
 
 
+def _is_dtensor(leaf) -> bool:
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(leaf, mod.DTensor)
+
+
+def _writes() -> bool:
+    """Whether this process writes: rank 0 of a process group, or the
+    only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _host(leaf) -> np.ndarray:
     """A host copy of a tensor leaf (a CPU tensor is cloned, so the train
-    loop may update it in place while the writer runs); a numpy leaf is
-    taken as it is, as the reference takes it."""
+    loop may update it in place while the writer runs; a DTensor is
+    gathered whole first, every rank taking part); a numpy leaf is taken as
+    it is, as the reference takes it."""
+    if _is_dtensor(leaf):
+        return leaf.detach().full_tensor().cpu().numpy()
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
         return (leaf.cpu() if leaf.is_cuda else leaf.clone()).numpy()
@@ -102,6 +122,8 @@ class CheckpointManager:
         leaf is not copied: leave it unchanged until ``wait()``."""
         host = {k: _host(v) for k, v in _flatten(tree).items()}
         self.wait()
+        if not _writes():
+            return
 
         def _write():
             t1 = time.perf_counter()
@@ -171,11 +193,16 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, proto: Any, step: Optional[int] = None,
-                device: DeviceLike = None):
+                device: DeviceLike = None, shardings: Any = None):
         """Restore into the structure of ``proto`` (its leaves are not
         read) as torch tensors on ``device`` (default: the CPU), each with
         the dtype and shape the manifest records. Only the leaves that
-        ``proto`` holds are read from disk. Returns (tree, step)."""
+        ``proto`` holds are read from disk.
+
+        ``shardings``: a tree of ``launch.sharding.Sharding`` (mesh and
+        placements) over some of ``proto``'s leaves. Each such leaf comes
+        back as a DTensor on its mesh, each rank keeping its own block of
+        the file; the others come back whole. Returns (tree, step)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint in {self.directory}")
@@ -184,14 +211,18 @@ class CheckpointManager:
             manifest = json.load(f)
         device = torch.device("cpu" if device is None else device)
         t0 = time.perf_counter()
+        placed = _flatten(shardings) if shardings is not None else {}
         flat = {}
         for k in _flatten(proto):
             info = manifest["leaves"][k]
             flat[k] = torch.from_numpy(
                 np.load(os.path.join(d, info["file"]))).to(device)
+            if placed.get(k) is not None:
+                flat[k] = placed[k].place(flat[k])
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         self.restores.append({
-            "step": step, "bytes": sum(t.nbytes for t in flat.values()),
+            "step": step, "bytes": sum(
+                t.numel() * t.element_size() for t in flat.values()),
             "seconds": time.perf_counter() - t0})
         return _unflatten_into(proto, flat), step

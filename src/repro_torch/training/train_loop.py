@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from repro_torch.bayes.variational import KLSchedule, elbo_loss
+from repro_torch.core import mesh_route
 from repro_torch.core.modes import Mode
 from repro_torch.nn.module import (Context, layout_tree, layout_values,
                                    load_numpy_params, param_layout)
@@ -122,10 +123,10 @@ def make_svi_train_step(forward_fn: Callable, optimizer: Adam, *,
         ctx = Context(mode=Mode.SVI, device=device, generator=generator,
                       eps=eps)
         n = num_microbatches
-        size = len(batch["targets"]) // n
         grads = loss = None
         for i in range(n):
-            part = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            part = {k: mesh_route.microbatch(v, i, n)
+                    for k, v in batch.items()}
             part_loss, stats = loss_fn(state.model, part, ctx, state.step)
             part_grads = torch.autograd.grad(part_loss, params,
                                              materialize_grads=True)

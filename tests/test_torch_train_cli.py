@@ -8,8 +8,10 @@ then restarted with ``--resume``, leave step-20 checkpoints equal bit for
 bit, manifests included. (A ``--steps 10`` run is another run, not an
 interrupted one: the cosine schedule, the KL annealing and the ELBO's
 data count all follow ``--steps``, in the reference too.) ``--devices``
-and ``--mesh`` exit 2, and without ``--device cpu`` and with no card the
-CLI raises before it builds anything. The paper configs and
+and ``--mesh`` that disagree, a malformed ``--mesh`` and more ranks than
+cards exit 2 before anything starts (the mesh runs themselves are in
+``tests/test_torch_mesh_world1.py``), and without ``--device cpu`` and with
+no card the CLI raises before it builds anything. The paper configs and
 ``ASSIGNED_ARCHS`` equal the reference's.
 
 Against the reference: the CLI's first step through ``run(..., eps=)``,
@@ -100,11 +102,26 @@ def test_resumed_run_equals_uninterrupted_bit_for_bit(tmp_path, capsys):
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
 
 
-@pytest.mark.parametrize("argv", [["--devices", "8"], ["--mesh", "4,2"],
-                                  ["--devices", "8", "--mesh", "4,2"]])
-def test_mesh_flags_are_refused(argv, capsys):
-    assert train.main(CPU + argv) == 2
-    assert "ROADMAP.md queue A item 3" in capsys.readouterr().err
+@pytest.mark.parametrize("argv,says", [
+    (CPU + ["--devices", "8", "--mesh", "4,4"], "holds 16 ranks, --devices 8"),
+    (CPU + ["--mesh", "4x2"], "expected D,M"),
+    (["--reduced", "--devices", "2"], "NCCL takes one rank a card"),
+])
+def test_mesh_flags_are_checked(argv, says, monkeypatch, capsys):
+    """Each exits 2 before anything is started: no run, no process
+    group, no rank."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(train, "run", _never)
+    monkeypatch.setattr(train, "_spawn", _never)
+    assert train.main(argv) == 2
+    assert says in capsys.readouterr().err
+    assert not dist.is_initialized()
+
+
+def _never(*args, **kwargs):
+    raise AssertionError("started")
 
 
 def test_resume_without_a_checkpoint_directory_is_refused(capsys):
