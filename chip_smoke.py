@@ -343,6 +343,29 @@ Phases, each printing its own lines; any failure exits non-zero:
               group, no device), run in a CPU process started with the
               build: per-device bytes, FLOPs, collectives, bottleneck and
               fits_80gb_hbm printed, every cell ok
+ 15. serve mesh: sharded serving (Engine / pools / Fleet / DisaggPair on a
+              DeviceMesh, the serve CLI's --devices / --mesh). (a) on the
+              card: granite-8b at full width (2 layers) drawn again, a
+              world-1 NCCL group and a (1, 1) mesh; the contiguous and
+              paged (prefix sharing, copy-on-write) engines, a speculative
+              run (K 4), an escalating run (SVI second opinions), the
+              2-replica fleet replicated and disaggregated, and the paged
+              engine under the fused phase's tuned DB, each on the mesh
+              against its unmeshed twin on the same requests: tokens, MI
+              and finish reasons bit for bit (the meshed runs' launches
+              are the path ``serve_mesh``, with the CLI's); tokens/s, the
+              decode step's median and p90 and the device's busy ms a
+              step on and off the mesh; the serve CLI in-process with
+              --full-size --layers 2 --impl kernel --devices 1 --mesh 1,1
+              --page-size 16 --prefix-sharing exits 0. (b) the serve CLI
+              on 8 gloo processes on the CPU (reduced granite-8b) on
+              (2, 4) with the cache's sequence split, (4, 2) with pages
+              split over 'data' and (2, 4) with a disaggregated 2-replica
+              fleet: each exits 0 with the CLI's own checks, and its
+              stream (rank 0's --stream-out) equals a single-process run
+              of the same command in tokens and finish reasons, MI within
+              MI_ATOL; a differing token fails with the top-2 logit margin
+              at the first differing step
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and a last JSON line ``{"ok": true, "device": {...}}``. Full numbers go to
@@ -350,6 +373,8 @@ chiprun_out/chip_smoke.json.
 """
 import argparse
 import atexit
+import contextlib
+import io
 import itertools
 import json
 import re
@@ -637,6 +662,31 @@ DRYRUN_TIMEOUT = 900                        # seconds after the build starts
 # K on both sides of the dense kernel's split boundaries (kernels/pfp_dense.py
 # split_k at N 100: 1 to K 64, 2 to 96, 3 from 97, 7 at 784, 8 from 785).
 SPLIT_CHECK_K = (1, 17, 64, 65, 96, 97, 127, 129, 783, 784, 785)
+# The sharded-serving phase. (a) SERVE_MESH_REQUESTS requests of
+# SERVE_MESH_NEW new tokens, prompts opening with one SERVE_MESH_SYSTEM-
+# token system prompt (8.5 pages of 16: a shared prefix ends mid-page, so
+# copy-on-write runs), through each run of SERVE_MESH_RUN_NAMES off the
+# mesh and on a (1, 1) mesh. (b) the serve CLI on 8 gloo processes on the
+# CPU: the sequence split over 'model' (2 KV heads over 4 ranks, 24 cache
+# rows), pages split over 'data' (a budget of 55 pages: 56 with the trash
+# page, which 4 divides) and the disaggregated fleet.
+SERVE_MESH_REQUESTS, SERVE_MESH_SYSTEM = 6, 136
+SERVE_MESH_PROMPTS, SERVE_MESH_NEW = (160, 300), 12
+SERVE_MESH_RUN_NAMES = ("contiguous", "paged", "speculative", "escalate",
+                        "fleet", "fleet_disaggregated", "fused")
+SERVE_MESH_KERNELS = ("dense", "activation", "glu_product", "rmsnorm",
+                      "attention_cache", "attention_paged")
+SERVE_MESH_CPU = {
+    "seq_split": ("--devices", "8", "--mesh", "2,4", "--tokens", "8"),
+    "pages_over_data": ("--mesh", "4,2", "--page-size", "2",
+                        "--page-budget", "55", "--prefix-sharing",
+                        "--common-prefix", "4"),
+    "fleet_disaggregated": ("--mesh", "2,4", "--replicas", "2",
+                            "--disaggregate", "--page-size", "4",
+                            "--prefix-sharing", "--common-prefix", "8"),
+}
+SERVE_MESH_DIR = ROOT / "build" / "serve_mesh"
+SERVE_MESH_B_TIMEOUT = 360                  # seconds for (b)'s CLI runs
 
 KERNELS = {
     "dense": ("src/repro_torch/csrc/pfp_dense.cu",
@@ -2847,10 +2897,10 @@ def _engine_requests(cfg, seed, n, prompts, new, system=0, cold=0):
 
 
 def _make_engine(cfg, model, device, impl, formulation, tracer=None,
-                 router=None, **config):
+                 router=None, mesh=None, **config):
     """An Engine at the phase's slots, cache rows (DECODE_MAX_LEN unless
     ``config`` sets max_len), windows and budget; ``router``: RouterConfig
-    fields (default ENGINE_ROUTER)."""
+    fields (default ENGINE_ROUTER); ``mesh``: serve on it."""
     from repro_torch.serving.engine import (Engine, EngineConfig,
                                             RequestScheduler, RouterConfig,
                                             SchedulerConfig,
@@ -2863,27 +2913,29 @@ def _make_engine(cfg, model, device, impl, formulation, tracer=None,
                                  formulation=formulation, impl=impl),
         scheduler=RequestScheduler(SchedulerConfig(
             prefill_chunk=PREFILL_CHUNK, prefill_budget=ENGINE_BUDGET)),
-        tracer=tracer, device=device)
+        mesh=mesh, tracer=tracer, device=device)
 
 
-def _engine_step_profile(cfg, model, device, seed):
+def _engine_step_profile(cfg, model, device, seed, mesh=None):
     """torch.profiler over engine steps of the paged engine in which every
-    slot decodes (no prefill round): wall and device busy per step."""
+    slot decodes (no prefill round), on ``mesh`` or off it: wall and
+    device busy per step."""
     eng = _make_engine(cfg, model, device, "kernel", "srm",
-                       page_size=PAGE_SIZE, seed=seed)
+                       page_size=PAGE_SIZE, seed=seed, mesh=mesh)
     for req in _engine_requests(cfg, seed + 1, DECODE_SLOTS,
                                 (PREFILL_CHUNK + 1, PREFILL_CHUNK + 1),
                                 NEW_TOKENS[1]):
         eng.submit(req)
     while eng.decoding < DECODE_SLOTS:
         eng.step()
+    where = "" if mesh is None else ", on the mesh"
     return _profile(f"{cfg.name} engine decode step, {DECODE_SLOTS} slots "
-                    f"paged", eng.step, 5, 1)
+                    f"paged{where}", eng.step, 5, 1)
 
 
 def _engine_run(cfg, model, device, requests, *, impl="kernel",
                 formulation="srm", router=None, reasons=("length",),
-                setup=None, **config):
+                setup=None, mesh=None, **config):
     """Drive ``requests`` through one Engine as run_load does (each request
     submitted when the engine clock reaches its arrival), one CUDA sync
     after every step for its wall time. ``router``: RouterConfig fields;
@@ -2898,7 +2950,7 @@ def _engine_run(cfg, model, device, requests, *, impl="kernel",
     from repro_torch.obs import Tracer
     tracer = Tracer()
     eng = _make_engine(cfg, model, device, impl, formulation, tracer,
-                       router, **config)
+                       router, mesh, **config)
     if setup is not None:
         setup(eng)
     pending = sorted(copy.deepcopy(requests), key=lambda r: r.arrival)
@@ -3378,7 +3430,7 @@ def phase_engine_spec(device, lm_cfg, lm_model, paged, seed=0):
 
 
 def _fleet_run(cfg, model, device, requests, *, disaggregate, router=None,
-               **config):
+               mesh=None, **config):
     """Drive ``requests`` through a FLEET_REPLICAS-replica Fleet of the
     engine phase's engines (``_make_engine``'s slots, cache rows, windows
     and budget) as run_load does, one CUDA sync after every fleet step.
@@ -3405,7 +3457,7 @@ def _fleet_run(cfg, model, device, requests, *, disaggregate, router=None,
                                  formulation="srm", impl="kernel"),
         scheduler_config=SchedulerConfig(prefill_chunk=PREFILL_CHUNK,
                                          prefill_budget=ENGINE_BUDGET),
-        device=device, tracer=tracer)
+        mesh=mesh, device=device, tracer=tracer)
     pending = sorted(copy.deepcopy(requests), key=lambda r: r.arrival)
     reset_launch_counts()
     torch.cuda.synchronize()
@@ -3516,6 +3568,24 @@ def _profiled_pass_check(cfg, model, device, seed):
             "rows": prof.table()}
 
 
+def _escalation_router(results, most):
+    """RouterConfig fields that escalate between 1 and ``most`` tokens of
+    a plain run's ``results`` (uid -> tokens, MI trace, finish reason)
+    and never abstain: mi_continue at the lowest MI level with at most
+    ``most`` tokens above it."""
+    mis = [m for r in results.values() for m in r[1]]
+    levels = sorted(set(mis))
+    if len(levels) < 2:
+        fail(f"escalation: every token of the plain run has MI {levels}")
+    mi_continue = levels[-2]
+    for level in reversed(levels[:-2]):
+        if sum(m > level for m in mis) > most:
+            break
+        mi_continue = level
+    return dict(mi_continue=mi_continue, mi_abstain=2.0 * levels[-1],
+                escalate_samples=SVI_SAMPLES, svi_mi_abstain=float("inf"))
+
+
 def phase_fleet(device, lm_cfg, lm_model, seed=0):
     """The serving front door on granite-8b at full width: 2-replica
     fleets (replicated, disaggregated, contiguous) against single engines,
@@ -3569,20 +3639,10 @@ def phase_fleet(device, lm_cfg, lm_model, seed=0):
     _fleet_report("contiguous", runs["contiguous"])
     _same_results("contiguous", runs["contiguous"]["results"],
                   singles["contiguous"]["results"])
-    # mi_continue: the lowest MI level of the plain run with at most
-    # FLEET_MAX_ESCALATIONS - 2 tokens above it (and at least one), so
-    # that a token whose SVI answer changes the later stream leaves room.
-    mis = [m for r in singles["paged"]["results"].values() for m in r[1]]
-    levels = sorted(set(mis))
-    if len(levels) < 2:
-        fail(f"fleet: every token of the paged run has MI {levels}")
-    mi_continue = levels[-2]
-    for level in reversed(levels[:-2]):
-        if sum(m > level for m in mis) > FLEET_MAX_ESCALATIONS - 2:
-            break
-        mi_continue = level
-    router = dict(mi_continue=mi_continue, mi_abstain=2.0 * levels[-1],
-                  escalate_samples=SVI_SAMPLES, svi_mi_abstain=float("inf"))
+    # At most FLEET_MAX_ESCALATIONS - 2 tokens escalate, so that a token
+    # whose SVI answer changes the later stream leaves room.
+    router = _escalation_router(singles["paged"]["results"],
+                                FLEET_MAX_ESCALATIONS - 2)
     singles["escalate"] = _engine_run(lm_cfg, lm_model, device, requests,
                                       router=router, **paged)
     runs["escalate"] = _fleet_run(lm_cfg, lm_model, device, requests,
@@ -6649,6 +6709,315 @@ def phase_mesh(card, dryrun):
     return card["launches"], info
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: sharded serving (Engine / pools / Fleet / the serve CLI on a mesh)
+# ---------------------------------------------------------------------------
+def _serve_mesh_runs(cfg, model, device, requests, router, mesh=None):
+    """The runs of SERVE_MESH_RUN_NAMES on one model, on ``mesh`` or off
+    it: name -> the run's record (``_engine_run`` / ``_fleet_run``)."""
+    from repro_torch.core import dispatch
+    from repro_torch.tuning import cache as tcache
+    paged = dict(page_size=PAGE_SIZE, prefix_sharing=True)
+    out = {}
+    out["contiguous"] = _engine_run(cfg, model, device, requests, mesh=mesh)
+    out["paged"] = _engine_run(cfg, model, device, requests, mesh=mesh,
+                               **paged)
+    out["speculative"] = _engine_run(cfg, model, device, requests, mesh=mesh,
+                                     speculate_k=SPEC_K, **paged)
+    out["escalate"] = _engine_run(cfg, model, device, requests, mesh=mesh,
+                                  router=router, **paged)
+    for name, dis in (("fleet", False), ("fleet_disaggregated", True)):
+        out[name] = _fleet_run(cfg, model, device, requests, mesh=mesh,
+                               disaggregate=dis, **paged)
+    # The tuned DB of the fused phase: on one rank the local decode unit is
+    # the global one, so the DB fuses it where it did there.
+    tcache.reset_global_cache()
+    tcache.load_global_cache(str(SCHEDULE_DB))
+    try:
+        with dispatch.fusion(True):
+            out["fused"] = _engine_run(cfg, model, device, requests,
+                                       mesh=mesh, page_size=PAGE_SIZE)
+    finally:
+        tcache.reset_global_cache()
+    return out
+
+
+def _serve_mesh_card(device, seed):
+    """Phase 15 (a): granite-8b at full width on a world-1 NCCL group and
+    a (1, 1) mesh, every run of SERVE_MESH_RUN_NAMES against its unmeshed
+    twin on the same requests, bit for bit; the serve CLI with --devices 1
+    --mesh 1,1. Returns (the meshed runs' and the CLI's launches, info)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels._launch import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving.engine.engine import placed_model
+    t0 = time.perf_counter()
+    cfg, model = _lm_model(device)
+    requests = _engine_requests(cfg, seed, SERVE_MESH_REQUESTS,
+                                SERVE_MESH_PROMPTS, SERVE_MESH_NEW,
+                                system=SERVE_MESH_SYSTEM)
+    print(f"[serve mesh] (a) {cfg.name}, {cfg.num_layers} layers, kernel "
+          f"impl: {len(requests)} requests, prompts "
+          f"{[len(r.prompt) for r in requests]} (one {SERVE_MESH_SYSTEM}-"
+          f"token system prompt), {SERVE_MESH_NEW} new tokens each; "
+          f"{DECODE_SLOTS} slots of {DECODE_MAX_LEN} rows, pages of "
+          f"{PAGE_SIZE}; each run off the mesh, then on a world-1 NCCL "
+          f"group's (1, 1) mesh")
+    plain = _engine_run(cfg, model, device, requests, page_size=PAGE_SIZE,
+                        prefix_sharing=True)
+    router = _escalation_router(plain["results"], FLEET_MAX_ESCALATIONS)
+    off = _serve_mesh_runs(cfg, model, device, requests, router)
+    profiles = {"off": _engine_step_profile(cfg, model, device, seed)}
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        # placed once, as the serve CLI places it; the drawn model stays
+        # as it was
+        placed = placed_model(model, mesh)
+        if any(hasattr(p, "placements") for p in model.parameters()) or \
+                not all(hasattr(p, "placements")
+                        for p in placed.parameters()):
+            fail("serve mesh: placed_model did not give a placed copy, the "
+                 "drawn model left as it was")
+        on = _serve_mesh_runs(cfg, placed, device, requests, router, mesh)
+        profiles["on"] = _engine_step_profile(cfg, placed, device, seed,
+                                              mesh)
+        del placed
+    finally:
+        dist.destroy_process_group()
+    del model
+    torch.cuda.empty_cache()
+    launches = {}
+    for name in SERVE_MESH_RUN_NAMES:
+        _same_results(f"serve mesh {name}", on[name]["results"],
+                      off[name]["results"])
+        for k, v in on[name]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for name, want in (("paged", "prefix_hits"), ("paged", "cow_copies"),
+                       ("escalate", "escalations"),
+                       ("fleet", "route_prefix_hits"),
+                       ("fleet_disaggregated", "handoffs")):
+        if not on[name]["summary"][want] > 0:
+            fail(f"serve mesh {name}: {want} is "
+                 f"{on[name]['summary'][want]}")
+    if not on["speculative"]["summary"]["accepted_draft_tokens"] > 0:
+        fail("serve mesh speculative: no draft token accepted")
+    fused = on["fused"]["launches"].get("norm_dense_act", 0)
+    print(f"[serve mesh] (a) on the mesh == off it, bit for bit (tokens, "
+          f"MI, finish reasons): {', '.join(SERVE_MESH_RUN_NAMES)}; "
+          f"escalations {on['escalate']['summary']['escalations']} (SVI "
+          f"{SVI_SAMPLES} samples, mi_continue {router['mi_continue']!r}), "
+          f"copies on write {on['paged']['summary']['cow_copies']}, draft "
+          f"tokens accepted "
+          f"{on['speculative']['summary']['accepted_draft_tokens']} of "
+          f"{on['speculative']['summary']['draft_tokens']}, handoffs "
+          f"{on['fleet_disaggregated']['summary']['handoffs']}; the tuned "
+          f"DB (at the local shape, here the global one) "
+          + (f"fuses the decode unit: norm_dense_act launched {fused} times"
+             if fused else "runs the unfused chain at the decode unit"))
+    stats = {}
+    for label, runs in (("off", off), ("on", on)):
+        run = runs["paged"]
+        toks = run["summary"]["tokens_generated"]
+        stats[label] = {
+            "tokens_per_s": toks / run["seconds"],
+            "decode_step_ms_median": _q(run["decode_only_ms"], 50),
+            "decode_step_ms_p90": _q(run["decode_only_ms"], 90),
+            "busy_ms": (profiles[label] or {}).get("busy_ms"),
+            "profiled_step_ms": (profiles[label] or {}).get("wall_ms")}
+    print("[serve mesh] (a) paged engine, decode-only steps (CUDA-synced "
+          "walls): " + "; ".join(
+              f"{label} the mesh {st['tokens_per_s']:.2f} tokens/s, step "
+              f"median {st['decode_step_ms_median']:.3f} / p90 "
+              f"{st['decode_step_ms_p90']:.3f} ms, device busy "
+              + (f"{st['busy_ms']:.3f}" if st["busy_ms"] is not None
+                 else "not measured") + " ms a step"
+              for label, st in (("off", stats["off"]), ("on", stats["on"])))
+          + f" ({CARD})")
+    argv = ["--full-size", "--layers", str(LM_LAYERS), "--impl", "kernel",
+            "--devices", "1", "--mesh", "1,1", "--page-size",
+            str(PAGE_SIZE), "--prefix-sharing", "--seed", str(seed)]
+    reset_launch_counts()
+    t_cli = time.perf_counter()
+    rc = serve.main(argv)
+    torch.cuda.synchronize()
+    cli_seconds = time.perf_counter() - t_cli
+    cli_launches = {k: v for k, v in LAUNCHES.items() if v}
+    if rc != 0:
+        fail(f"serve mesh: python -m repro_torch.launch.serve "
+             f"{' '.join(argv)} exited {rc}")
+    for k, v in cli_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"[serve mesh] (a) python -m repro_torch.launch.serve "
+          f"{' '.join(argv)}: exit 0 in {cli_seconds:.1f} s; launches "
+          f"{cli_launches}")
+    missing = [k for k in SERVE_MESH_KERNELS if not launches.get(k)]
+    if missing:
+        fail(f"serve mesh: kernels never launched on the mesh: {missing}")
+    strip = ("results",)
+    return launches, {
+        "off": {n: {k: v for k, v in r.items() if k not in strip}
+                for n, r in off.items()},
+        "on": {n: {k: v for k, v in r.items() if k not in strip}
+               for n, r in on.items()},
+        "router": router, "stats": stats, "profiles": profiles,
+        "fused_launches": fused, "cli_argv": argv,
+        "cli_seconds": cli_seconds, "cli_launches": cli_launches,
+        "seconds": time.perf_counter() - t0}
+
+
+def _run_groups(cmds, timeout):
+    """Run the commands ``cmds`` ({name: argv}) at once, each in a session
+    of its own (the CLI's spawned ranks are its children), output to files
+    under SERVE_MESH_DIR; return {name: (exit code, stdout, stderr,
+    seconds)}. At ``timeout`` kill every session and fail."""
+    import os
+    import signal
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    procs = {}
+    for name, cmd in cmds.items():
+        with open(SERVE_MESH_DIR / f"{name}.out", "w") as out, \
+                open(SERVE_MESH_DIR / f"{name}.err", "w") as err:
+            procs[name] = subprocess.Popen(cmd, cwd=str(ROOT), env=env,
+                                           stdout=out, stderr=err,
+                                           start_new_session=True)
+    ended = {}
+    try:
+        while len(ended) < len(procs):
+            for name, proc in procs.items():
+                if name not in ended and proc.poll() is not None:
+                    ended[name] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > timeout:
+                fail(f"serve mesh (b): {sorted(set(procs) - set(ended))} "
+                     f"did not end in {timeout} s")
+            time.sleep(0.2)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    return {name: (proc.returncode,
+                   (SERVE_MESH_DIR / f"{name}.out").read_text(),
+                   (SERVE_MESH_DIR / f"{name}.err").read_text(),
+                   ended[name])
+            for name, proc in procs.items()}
+
+
+def _margin_at(argv, uid, tok_idx):
+    """The top-2 logit-mean margin a single-process run of the serve CLI
+    (``argv``) routed request ``uid``'s token ``tok_idx`` on."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import Engine
+    margins, route = {}, Engine._route_current
+
+    def recording(self, decode_slots):
+        top = torch.topk(self._lm_mean, 2, dim=-1).values
+        for slot in decode_slots:
+            req = self._slots[slot].request
+            margins[(req.uid, len(req.generated))] = float(
+                top[slot, 0] - top[slot, 1])
+        return route(self, decode_slots)
+
+    Engine._route_current = recording
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            serve.main(argv)
+    finally:
+        Engine._route_current = route
+    return margins.get((uid, tok_idx), float("nan"))
+
+
+def _serve_mesh_cpu():
+    """Phase 15 (b): the serve CLI on 8 gloo processes on the CPU for each
+    SERVE_MESH_CPU mesh (reduced granite-8b; the three at once), each
+    stream held against a single-process run of the same command."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    if SERVE_MESH_DIR.exists():
+        shutil.rmtree(SERVE_MESH_DIR)
+    SERVE_MESH_DIR.mkdir(parents=True)
+    info = {}
+    runs = _run_groups({name: [
+        sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+        *flags, "--stream-out", str(SERVE_MESH_DIR / f"{name}.json")]
+        for name, flags in SERVE_MESH_CPU.items()}, SERVE_MESH_B_TIMEOUT)
+    for name, flags in SERVE_MESH_CPU.items():
+        meshed = SERVE_MESH_DIR / f"{name}.json"
+        single = SERVE_MESH_DIR / f"{name}.single.json"
+        rc, out, err, run_s = runs[name]
+        lines = [ln for ln in out.splitlines() if ln.startswith(
+            ("decode state", "served", "fleet served"))]
+        print(f"[serve mesh] (b) python -m repro_torch.launch.serve --device "
+              f"cpu {' '.join(flags)}: exit {rc} after {run_s:.1f} s (the "
+              f"three meshes at once); " + " | ".join(lines))
+        if rc != 0:
+            fail(f"serve mesh (b) {name}: exit {rc}: {err[-2000:]}")
+        plain = [f for i, f in enumerate(flags)
+                 if f not in ("--devices", "--mesh")
+                 and flags[i - 1] not in ("--devices", "--mesh")]
+        argv = ["--device", "cpu", *plain]
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = serve.main(argv + ["--stream-out", str(single)])
+        if rc != 0:
+            fail(f"serve mesh (b) {name}: the single-process run failed")
+        got = json.loads(meshed.read_text())
+        want = json.loads(single.read_text())
+        if sorted(got) != sorted(want):
+            fail(f"serve mesh (b) {name}: uids {sorted(got)} served, "
+                 f"{sorted(want)} by the single process")
+        worst = 0.0
+        for uid in sorted(want, key=int):
+            g, w = got[uid], want[uid]
+            if g["tokens"] != w["tokens"]:
+                i = next(j for j, (a, b) in enumerate(
+                    zip(g["tokens"] + [None], w["tokens"] + [None]))
+                         if a != b)
+                margin = _margin_at(argv, int(uid), i)
+                fail(f"serve mesh (b) {name}: uid {uid} token {i} is "
+                     f"{(g['tokens'] + [None])[i]} on the mesh, "
+                     f"{(w['tokens'] + [None])[i]} in one process; top-2 "
+                     f"logit margin there {margin:.3e}")
+            if g["finish"] != w["finish"]:
+                fail(f"serve mesh (b) {name}: uid {uid} finished "
+                     f"{g['finish']} on the mesh, {w['finish']} in one "
+                     "process")
+            worst = max(worst, float(np.max(np.abs(
+                np.subtract(g["mi"], w["mi"])), initial=0.0)))
+        if worst > MI_ATOL:
+            fail(f"serve mesh (b) {name}: MI {worst:.3e} from the single "
+                 f"process (> {MI_ATOL})")
+        print(f"[serve mesh] (b) {name}: {len(want)} requests, tokens and "
+              f"finish reasons equal the single process's, MI max |diff| "
+              f"{worst:.3e} (atol {MI_ATOL})")
+        info[name] = {"flags": flags, "seconds": run_s, "lines": lines,
+                      "mi_max_abs_diff": worst}
+    shutil.rmtree(SERVE_MESH_DIR)
+    info["seconds"] = time.perf_counter() - t0
+    return info
+
+
+def phase_serve_mesh(device, seed):
+    """Phase 15: (a) on the card, (b) on the CPU. Returns the path
+    ``serve_mesh``'s launches and info."""
+    t0 = time.perf_counter()
+    launches, card = _serve_mesh_card(device, seed)
+    info = {"card": card, "cpu": _serve_mesh_cpu()}
+    info["seconds"] = time.perf_counter() - t0
+    print(f"[serve mesh] phase {info['seconds']:.1f} s ((a) "
+          f"{card['seconds']:.1f} s, (b) {info['cpu']['seconds']:.1f} s)")
+    return launches, info
+
+
 def moe_path_calls(cfg, shapes):
     """The batched expert kernel's calls in one MoE forward or decode step:
     up, gate and down per MoE layer; ``shapes`` is (up, down)."""
@@ -6943,6 +7312,9 @@ def main():
     launches["mesh"], mesh_info = phase_mesh(train_cli_info.pop("mesh"),
                                              dryrun)
     mark("mesh")
+    launches["serve_mesh"], serve_mesh_info = phase_serve_mesh(device,
+                                                               args.seed)
+    mark("serve mesh")
     forwards += [moe_forward, audio_forward]
     if moe_profile is not None:
         profile.append({"model": moe_cfg.name, "batch": LM_BATCH,
@@ -6965,7 +7337,7 @@ def main():
          "configs": config_info,
          "fused": fused_info,
          "train": train_info, "train_cli": train_cli_info,
-         "mesh": mesh_info,
+         "mesh": mesh_info, "serve_mesh": serve_mesh_info,
          "phase_seconds": phases,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(f"[done] {time.perf_counter() - t0:.1f} s; by phase "

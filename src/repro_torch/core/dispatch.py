@@ -161,7 +161,7 @@ def pfp_dense(x, w, b=None, *, formulation: str = "srm",
         return _PendingNormDense(x, w, impl)
     x, w = mesh_route.place_dense(x, w)
     x = _to_compute_rep(x, formulation)
-    out = get_op("dense", impl)(x, w, formulation)
+    out = mesh_route.whole(get_op("dense", impl)(x, w, formulation))
     return _add_bias(out, b)
 
 
@@ -686,15 +686,23 @@ class _PendingNormDense(_PendingFusion):
         x, w = norm.x, self.w
         if (self._value is not None or act not in KINDS
                 or not _fusion_active(impl)
-                or not fusable(x.shape[-1], w.mean.shape[-1])
-                or mesh_route.has_dtensor((x, w))):
-            # On a mesh the pass runs the exact unfused chain.
+                or not fusable(x.shape[-1], w.mean.shape[-1])):
             return None
-        shape_key = (_rows(x.shape), x.shape[-1], w.mean.shape[-1])
+        sharded = mesh_route.has_dtensor((x, w))
+        # On a mesh each rank runs its own block (mesh_route.fused_plan),
+        # and the DB is consulted at that local shape: a DB tuned at the
+        # global shape misses on a split one and the unfused chain runs,
+        # as in the reference.
+        shape_key = (mesh_route.fused_local_shape(x, w) if sharded else
+                     (_rows(x.shape), x.shape[-1], w.mean.shape[-1]))
         sched = _schedule_for("norm_dense_act", shape_key, x.dtype,
                               x.mean.device)
         if sched is None:
             return None  # cache miss: the unfused chain, bit for bit
+        if sharded:
+            return mesh_route.ROUTES["norm_dense_act"](
+                lambda *args: _nda_run(*args, sched), x, norm.gain,
+                norm.bias, w, norm.kind, norm.eps, act)
         return _nda_run(x, norm.gain, norm.bias, w, norm.kind, norm.eps, act,
                         sched)
 

@@ -17,13 +17,21 @@ tests hold them against the reference's ``AbstractMesh``). A live
 DTensors. ``axis_names``, ``axis_size``, ``dp_axes`` and ``fsdp_axis``
 accept either.
 
+The CLIs (``launch/train.py``, ``launch/serve.py``) start their ranks
+here: :func:`mesh_dims` reads ``--devices`` / ``--mesh``,
+:func:`process_group` gives a rank its mesh and device, and
+:func:`spawn` starts local gloo ranks on the CPU.
+
 Nothing here touches ``torch.distributed`` when imported.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Dict, Sequence, Tuple
+import os
+import sys
+from typing import Callable, Dict, Sequence, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +92,17 @@ def fsdp_axis(mesh) -> str:
     return "data"
 
 
+def live_mesh(mesh):
+    """``mesh`` where it can place tensors (a ``DeviceMesh``, or None);
+    a :class:`MeshSpec` raises ``TypeError``: it describes a mesh and has
+    no process group."""
+    if isinstance(mesh, MeshSpec):
+        raise TypeError(
+            "a MeshSpec describes a mesh and has no process group: serve on "
+            "a live DeviceMesh (launch.mesh.make_mesh)")
+    return mesh
+
+
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
               device_type: str = "cuda"):
     """A live ``DeviceMesh`` of ``shape`` over the ranks of the default
@@ -115,3 +134,125 @@ def make_production_mesh(*, multi_pod: bool = False,
     ``fake`` group of 256 or 512 ranks)."""
     spec = production_spec(multi_pod)
     return make_mesh(spec.sizes, spec.names, device_type=device_type)
+
+
+# -- the CLIs' ranks ---------------------------------------------------------
+def mesh_dims(args, *, over: str = "data"):
+    """The (data, model) mesh a CLI's ``args`` ask for, or None for one
+    device: ``--mesh D,M``, or ``--devices N`` alone over the axis
+    ``over`` ((N, 1) for 'data', (1, N) for 'model'). Raises ValueError,
+    naming the flag, where the flags disagree with each other, with the
+    launcher's world or with the cards there are, and where more than one
+    rank on the card has no launcher (only ``--device cpu`` starts its
+    ranks in-process)."""
+    import torch
+    import torch.distributed as dist
+
+    if args.mesh is None and args.devices is None:
+        return None
+    if args.mesh is None:
+        dims = (args.devices, 1) if over == "data" else (1, args.devices)
+    else:
+        try:
+            dims = tuple(int(x) for x in args.mesh.split(","))
+        except ValueError:
+            dims = ()
+        if len(dims) != 2 or min(dims) < 1:
+            raise ValueError(f"--mesh {args.mesh!r}: expected D,M (two "
+                             "positive integers, data and model)")
+    n = args.devices if args.devices is not None else math.prod(dims)
+    if n < 1 or math.prod(dims) != n:
+        raise ValueError(f"--mesh {dims[0]},{dims[1]} holds "
+                         f"{math.prod(dims)} ranks, --devices {n}")
+    world = os.environ.get("WORLD_SIZE")
+    if world is not None and int(world) != n:
+        raise ValueError(f"--devices {n} under a launcher of {world} ranks")
+    if (args.device or "cuda").startswith("cuda"):
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if world is None and n > cards:
+            raise ValueError(f"--devices {n}: NCCL takes one rank a card and "
+                             f"there are {cards} (pass --device cpu for "
+                             "gloo ranks on the CPU)")
+        if world is None and n > 1 and not dist.is_initialized():
+            raise ValueError(f"--devices {n} on the card: start the ranks "
+                             f"with torchrun --nproc-per-node {n} (NCCL, one "
+                             "rank a card); only --device cpu starts gloo "
+                             "ranks here")
+    return dims
+
+
+@contextlib.contextmanager
+def process_group(args, dims):
+    """This rank's mesh and device. Uses the process group that is there
+    (a launcher's, a spawned rank's, a caller's); else starts one from the
+    launcher's environment, or an in-process group of one rank (gloo with
+    ``--device cpu``, NCCL on the card), and destroys what it started."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.device import resolve_device
+
+    device = resolve_device(args.device)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    started = not dist.is_initialized()
+    if started and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend)
+    elif started:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        if device.type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+            device = torch.device("cuda", local)
+            torch.cuda.set_device(device)
+        yield make_mesh(dims, ("data", "model"),
+                        device_type=device.type), device
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def silent(*args, **kwargs):
+    """Where a rank other than 0 would print."""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def rank_main(rank: int, entry: Callable, argv, world: int, port: int):
+    """One spawned gloo rank: ``entry(argv)`` (a CLI's module-level entry
+    point) inside a process group of ``world`` ranks; a nonzero code it
+    returns is this process's exit code."""
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        rc = entry(argv)
+    finally:
+        dist.destroy_process_group()
+    if rc:
+        sys.exit(rc)
+
+
+def spawn(entry: Callable, argv, world: int) -> int:
+    """Run ``world`` local gloo ranks of ``entry(argv)`` and join them; 1
+    if any rank failed."""
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    try:
+        mp.start_processes(rank_main,
+                           args=(entry, list(argv), world, _free_port()),
+                           nprocs=world, join=True, start_method="spawn")
+    except ProcessException as e:
+        print(f"ERROR: a rank failed: {e}", file=sys.stderr)
+        return 1
+    return 0

@@ -1,5 +1,5 @@
 """PFP serving CLI: the continuous-batching engine, or a fleet of
-engines, on one card.
+engines, on one card or a (data, model) mesh.
 
 Counterpart of ``repro/launch/serve.py``. Drives
 ``repro_torch.serving.engine``: Poisson request arrivals, admission-
@@ -13,12 +13,25 @@ bit against a single engine on the same trace. ``--impl kernel`` (the
 registry's default) runs every PFP op on the hand-written CUDA kernels;
 ``--impl eager`` on plain torch.
 
-Differences from the reference: one card, so no ``--devices`` or
-``--mesh`` (they come with the ``torch.distributed`` slice); ``--impl``
-takes ``eager`` / ``kernel``; the weights are drawn on ``--device`` (the
-CUDA card by default; without one this raises unless ``--device cpu``)
-from ``--seed``, and ``--layers`` cuts the model; the engine serves in
-IEEE fp32 where the reference serves in bf16.
+The mesh: ``--devices N --mesh D,M`` serves on a (data, model) mesh of N
+= D * M ranks, one rank a process, as the reference's executed version of
+the decode dry-run cells does; ``--mesh`` alone implies ``--devices``, and
+``--devices`` alone the mesh (1, N), as in the reference. Every rank runs
+the whole serving loop on the same trace: the model is placed by the
+serving rules, the decode state by the decode-state rules, every host
+decision taken on values read whole on every rank (``Engine(mesh=)``).
+Rank 0 alone prints and writes exports; the drain and leak checks run on
+every rank. The ranks come from ``torchrun``, from an in-process group of
+one rank (``--devices 1``), or, with ``--device cpu``, from local gloo
+processes the CLI starts itself (``launch/mesh.py``). The MoE, hybrid,
+SSM and VLM families do not serve on a mesh yet (ROADMAP.md).
+
+Differences from the reference: without ``--devices`` / ``--mesh`` it
+serves on one device, with no process group; ``--impl`` takes ``eager`` /
+``kernel``; the weights are drawn on ``--device`` (the CUDA card by
+default; without one this raises unless ``--device cpu``) from
+``--seed``, and ``--layers`` cuts the model; the engine serves in IEEE
+fp32 where the reference serves in bf16.
 
 Usage (``PYTHONPATH=src``):
   python -m repro_torch.launch.serve --device cpu --reduced --tokens 4
@@ -28,6 +41,10 @@ Usage (``PYTHONPATH=src``):
       --prom-out obs/metrics.prom
   python -m repro_torch.launch.serve --full-size --layers 2 --impl kernel \\
       --replicas 2 --page-size 16 --prefix-sharing --profile-ops  # card
+  python -m repro_torch.launch.serve --device cpu --devices 8 --mesh 2,4 \\
+      --tokens 8                      # 8 gloo ranks on the CPU
+  python -m repro_torch.launch.serve --full-size --layers 2 --impl kernel \\
+      --devices 1 --mesh 1,1 --page-size 16 --prefix-sharing  # card, NCCL
 
 ``main(argv)`` returns the exit code, so scripts can call it in-process.
 """
@@ -87,6 +104,18 @@ def _served(reqs):
     """uid -> (tokens, MI trace, finish reason) of finished requests."""
     return {r.uid: (list(r.generated), [float(m) for m in r.mi_trace],
                     r.finish_reason) for r in reqs}
+
+
+def _write_stream(path, reqs):
+    """--stream-out: the served stream as JSON, {uid: {tokens, mi,
+    finish}}, for comparing two runs of one trace."""
+    if not path:
+        return
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({str(uid): {"tokens": toks, "mi": mi, "finish": fin}
+                   for uid, (toks, mi, fin) in sorted(_served(reqs).items())},
+                  f)
 
 
 def _print_summary(summary, keys):
@@ -188,7 +217,7 @@ def _export_obs(args, target, summary, tracer, profile=None):
 
 
 def _run_fleet(args, cfg, model, router, sched_cfg, device, max_len,
-               make_trace, tracer=None):
+               make_trace, tracer=None, mesh=None):
     """--replicas R: the fleet frontend path. Routed multi-replica output
     must be bit-for-bit (tokens AND MI traces) a single engine's on the
     same trace — every replica runs the baseline's pass shapes and the
@@ -218,9 +247,11 @@ def _run_fleet(args, cfg, model, router, sched_cfg, device, max_len,
     fleet = Fleet(cfg, model, engine_cfg,
                   FleetConfig(replicas=args.replicas,
                               disaggregate=args.disaggregate),
-                  router=router, scheduler_config=sched_cfg, device=device,
-                  tracer=tracer)
+                  router=router, scheduler_config=sched_cfg, mesh=mesh,
+                  device=device, tracer=tracer)
+    _print_placement(fleet.replicas[0].pool, mesh)
     summary = run_load(fleet, make_trace())
+    _write_stream(args.stream_out, fleet.finished)
 
     profile = None
     if args.profile_ops:
@@ -237,7 +268,7 @@ def _run_fleet(args, cfg, model, router, sched_cfg, device, max_len,
     if args.prefix_sharing:
         layout += "/prefix"
     print(f"== fleet summary ({cfg.name}, R={args.replicas} {mode}, "
-          f"device={device}, impl={args.impl or 'default'}, "
+          f"{_where(device, mesh)}, impl={args.impl or 'default'}, "
           f"kv={layout}) ==")
     _print_summary(summary,
                    _FLEET_KEYS + (_DISAGG_KEYS if args.disaggregate else ()))
@@ -288,7 +319,7 @@ def _run_fleet(args, cfg, model, router, sched_cfg, device, max_len,
     # handoff faults.
     single = Engine(cfg, model, engine_cfg, router=router,
                     scheduler=RequestScheduler(sched_cfg, max_len=max_len),
-                    device=device)
+                    mesh=mesh, device=device)
     run_load(single, make_trace())
     got, want = _served(fleet.finished), _served(single.finished)
     if got != want:
@@ -309,7 +340,7 @@ def _run_fleet(args, cfg, model, router, sched_cfg, device, max_len,
 def _parser():
     ap = argparse.ArgumentParser(
         description="Serve a PFP LM through the continuous-batching engine "
-                    "(or a fleet of them) on one card.")
+                    "(or a fleet of them) on one card or a mesh.")
     ap.add_argument("--arch", default="granite-8b")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full-size", dest="reduced", action="store_false",
@@ -320,6 +351,11 @@ def _parser():
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (raises without one); "
                          "'cpu' serves on the CPU")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="serve on a mesh of this many ranks (default: one "
+                         "device, no mesh)")
+    ap.add_argument("--mesh", default=None,
+                    help="data,model dims (default with --devices N: 1,N)")
     ap.add_argument("--batch", type=int, default=4,
                     help="decode slots (the continuous batch size)")
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -399,6 +435,9 @@ def _parser():
     ap.add_argument("--mi-abstain", type=float, default=3.0)
     ap.add_argument("--escalate-samples", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--stream-out", default=None, metavar="PATH",
+                    help="write the served stream (uid -> tokens, MI trace, "
+                         "finish reason) as JSON to PATH")
     # -- observability ------------------------------------------------------
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write the deterministic request trace as JSONL "
@@ -438,7 +477,28 @@ def _parser():
     return ap
 
 
-def _serve(args, device):
+def _print_placement(pool, mesh):
+    """On a mesh: one KV leaf of ``pool``'s state, its placements and its
+    local block (rank 0 prints)."""
+    if mesh is None:
+        return
+    tree = pool.states
+    while not hasattr(tree, "k_mu"):
+        tree = next(iter(tree.values()))
+    leaf = tree.k_mu
+    print(f"decode state on the mesh: k_mu {tuple(leaf.shape)} placed "
+          f"{tuple(leaf.placements)}, local block "
+          f"{tuple(leaf.to_local().shape)}")
+
+
+def _where(device, mesh) -> str:
+    if mesh is None:
+        return f"device={device}"
+    return (f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
+            f"device={device.type}")
+
+
+def _serve(args, device, mesh=None):
     import numpy as np
 
     from repro_torch.obs.trace import Tracer
@@ -447,11 +507,14 @@ def _serve(args, device):
                                             SchedulerConfig,
                                             UncertaintyRouter, poisson_trace,
                                             run_load)
+    from repro_torch.serving.engine.engine import placed_model
     from repro_torch.tuning.autotune import build_lm
 
     cfg, model = build_lm(args.arch, layers=args.layers,
                           reduced=args.reduced, device=device,
                           seed=args.seed)
+    # placed once; every engine and replica below serves from this copy
+    model = placed_model(model, mesh)
     max_len = args.prompt_len + args.tokens
     router = UncertaintyRouter(
         cfg, RouterConfig(mi_continue=args.mi_continue,
@@ -484,7 +547,7 @@ def _serve(args, device):
 
     if args.replicas > 1:
         return _run_fleet(args, cfg, model, router, sched_cfg, device,
-                          max_len, make_trace, tracer)
+                          max_len, make_trace, tracer, mesh)
 
     def build_engine(speculate_k, tracer=None):
         return Engine(
@@ -499,10 +562,12 @@ def _serve(args, device):
                          speculate_k=speculate_k),
             router=router,
             scheduler=RequestScheduler(sched_cfg, max_len=max_len),
-            tracer=tracer, device=device)
+            mesh=mesh, tracer=tracer, device=device)
 
     engine = build_engine(args.speculate, tracer)
+    _print_placement(engine.pool, mesh)
     summary = run_load(engine, make_trace())
+    _write_stream(args.stream_out, engine.finished)
 
     profile = None
     if args.profile_ops:
@@ -517,7 +582,7 @@ def _serve(args, device):
         layout += "/prefix"
     if args.speculate:
         layout += f"/spec-k{args.speculate}"
-    print(f"== engine summary ({cfg.name}, device={device}, "
+    print(f"== engine summary ({cfg.name}, {_where(device, mesh)}, "
           f"impl={args.impl or 'default'}, kv={layout}) ==")
     _print_summary(summary, _SUMMARY_KEYS
                    + (_MOE_KEYS if cfg.family == "moe" else ())
@@ -644,28 +709,75 @@ def _tuning_epilogue(args, queries, device):
     return 0
 
 
-def main(argv=None) -> int:
-    args = _parser().parse_args(argv)
+def _config(args):
+    from repro_torch.configs import get_config, reduced_config
+
+    return reduced_config(args.arch) if args.reduced else get_config(args.arch)
+
+
+def _run(args, device, mesh=None) -> int:
+    """One rank's (or the single device's) serving run and its epilogue.
+    A rank other than 0 prints nothing and writes no file."""
+    import io
+
     from repro_torch.core import dispatch
-    from repro_torch.core.device import resolve_device
     from repro_torch.tuning import cache as sched_cache
 
-    device = resolve_device(args.device)
-    if args.schedule_db:
-        n = len(sched_cache.load_global_cache(args.schedule_db))
-        print(f"schedule-db: preloaded {n} tuned entries "
-              f"from {args.schedule_db}")
-    # Scope the warm-start proof to this run's consults, not earlier work
-    # in the same process.
-    sched_cache.consult_counters(reset=True)
+    quiet = mesh is not None and mesh.get_rank() != 0
+    if quiet:
+        args = argparse.Namespace(**{
+            **vars(args), "trace_out": None, "metrics_out": None,
+            "prom_out": None, "stream_out": None, "save_schedule_db": None})
     with contextlib.ExitStack() as stack:
-        stack.enter_context(dispatch.fusion(args.fuse_ops))
-        queries = (stack.enter_context(sched_cache.record_shapes())
-                   if args.save_schedule_db else None)
-        rc = _serve(args, device)
-    if rc == 0:
-        rc = _tuning_epilogue(args, queries, device)
+        if quiet:
+            stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
+        if args.schedule_db:
+            n = len(sched_cache.load_global_cache(args.schedule_db))
+            print(f"schedule-db: preloaded {n} tuned entries "
+                  f"from {args.schedule_db}")
+        # Scope the warm-start proof to this run's consults, not earlier
+        # work in the same process.
+        sched_cache.consult_counters(reset=True)
+        with contextlib.ExitStack() as run:
+            run.enter_context(dispatch.fusion(args.fuse_ops))
+            queries = (run.enter_context(sched_cache.record_shapes())
+                       if args.save_schedule_db else None)
+            rc = _serve(args, device, mesh)
+        if rc == 0:
+            rc = _tuning_epilogue(args, queries, device)
     return rc
+
+
+def _rank_entry(argv) -> int:
+    """A spawned rank of ``--device cpu --devices N``."""
+    return main(argv)
+
+
+def main(argv=None) -> int:
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.core.device import resolve_device
+    from repro_torch.launch.mesh import mesh_dims, process_group, spawn
+    from repro_torch.serving.engine.engine import check_mesh_family
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
+    try:
+        dims = mesh_dims(args, over="model")
+        if dims is not None:
+            check_mesh_family(_config(args))
+    except (ValueError, NotImplementedError) as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 2
+    if dims is None:
+        return _run(args, resolve_device(args.device))
+    if (math.prod(dims) > 1 and "WORLD_SIZE" not in os.environ
+            and not dist.is_initialized()):
+        return spawn(_rank_entry, argv, math.prod(dims))  # local gloo ranks
+    with process_group(args, dims) as (mesh, device):
+        return _run(args, device, mesh)
 
 
 if __name__ == "__main__":

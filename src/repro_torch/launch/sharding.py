@@ -289,6 +289,19 @@ def distribute_params(module, mesh, shardings: Optional[dict] = None, *,
     return module
 
 
+def placed_copy(module, mesh, *, serve: bool = False):
+    """A copy of ``module`` with its parameters placed on ``mesh`` as
+    :func:`distribute_params` places them, ``module`` left as it is. The
+    copy has modules of its own; its parameters' blocks are cut from
+    ``module``'s tensors, and a replica shares their storage."""
+    import copy
+    import itertools
+
+    memo = {id(t): t for t in itertools.chain(module.parameters(),
+                                              module.buffers())}
+    return distribute_params(copy.deepcopy(module, memo), mesh, serve=serve)
+
+
 def distribute_tree(tree, shardings, mesh):
     """A tree of whole tensors placed by a tree of placements of the same
     shape (``batch_shardings`` / ``state_shardings``)."""

@@ -60,6 +60,9 @@ import os
 import sys
 import time
 
+from repro_torch.launch.mesh import mesh_dims, process_group, silent
+from repro_torch.launch.mesh import spawn as _spawn
+
 
 def _parser():
     ap = argparse.ArgumentParser(
@@ -87,72 +90,6 @@ def _parser():
     return ap
 
 
-def mesh_dims(args):
-    """The (data, model) mesh ``args`` ask for, or None for one device.
-    Raises ValueError, naming the flag, where the flags disagree with each
-    other, with the launcher's world or with the cards there are."""
-    import torch
-
-    if args.mesh is None and args.devices is None:
-        return None
-    if args.mesh is None:
-        dims = (args.devices, 1)
-    else:
-        try:
-            dims = tuple(int(x) for x in args.mesh.split(","))
-        except ValueError:
-            dims = ()
-        if len(dims) != 2 or min(dims) < 1:
-            raise ValueError(f"--mesh {args.mesh!r}: expected D,M (two "
-                             "positive integers, data and model)")
-    n = args.devices if args.devices is not None else math.prod(dims)
-    if n < 1 or math.prod(dims) != n:
-        raise ValueError(f"--mesh {dims[0]},{dims[1]} holds "
-                         f"{math.prod(dims)} ranks, --devices {n}")
-    world = os.environ.get("WORLD_SIZE")
-    if world is not None and int(world) != n:
-        raise ValueError(f"--devices {n} under a launcher of {world} ranks")
-    if (args.device or "cuda").startswith("cuda"):
-        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if world is None and n > cards:
-            raise ValueError(f"--devices {n}: NCCL takes one rank a card and "
-                             f"there are {cards} (pass --device cpu for "
-                             "gloo ranks on the CPU)")
-    return dims
-
-
-@contextlib.contextmanager
-def _process_group(args, dims):
-    """This rank's mesh and device. Uses the process group that is there
-    (a launcher's, a spawned rank's, a caller's); else starts one from the
-    launcher's environment, or an in-process group of one rank, and
-    destroys what it started."""
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch.core.device import resolve_device
-    from repro_torch.launch.mesh import make_mesh
-
-    device = resolve_device(args.device)
-    backend = "nccl" if device.type == "cuda" else "gloo"
-    started = not dist.is_initialized()
-    if started and "WORLD_SIZE" in os.environ:
-        dist.init_process_group(backend)
-    elif started:
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                world_size=1)
-    try:
-        if device.type == "cuda":
-            local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
-            device = torch.device("cuda", local)
-            torch.cuda.set_device(device)
-        yield make_mesh(dims, ("data", "model"),
-                        device_type=device.type), device
-    finally:
-        if started:
-            dist.destroy_process_group()
-
-
 class _GradTap:
     """``optimizer`` with ``hook(step, grads)`` called on each step's
     gradients (before clipping) ahead of its update."""
@@ -176,7 +113,7 @@ def run(args, *, eps=None, grad_hook=None, on_step=None):
     if dims is None:
         return _run(args, None, None, eps=eps, grad_hook=grad_hook,
                     on_step=on_step)
-    with _process_group(args, dims) as (mesh, device):
+    with process_group(args, dims) as (mesh, device):
         return _run(args, mesh, device, eps=eps, grad_hook=grad_hook,
                     on_step=on_step)
 
@@ -223,7 +160,7 @@ def _run(args, mesh, mesh_device, *, eps=None, grad_hook=None, on_step=None):
 
         from repro_torch.launch import sharding as shlib
         if dist.get_rank() != 0:
-            say = _silent
+            say = silent
         # Tensors the model makes itself (positions, masks) count as
         # replicas beside the DTensors.
         placed = implicit_replication
@@ -312,43 +249,9 @@ def _run(args, mesh, mesh_device, *, eps=None, grad_hook=None, on_step=None):
     return state
 
 
-def _silent(*args, **kwargs):
-    """Where a rank other than 0 would print."""
-
-
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        return sock.getsockname()[1]
-
-
-def _rank_main(rank: int, argv, world: int, port: int):
-    """One spawned gloo rank of ``--device cpu --devices N``."""
-    import torch
-    import torch.distributed as dist
-
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
-    try:
-        run(_parser().parse_args(argv))
-    finally:
-        dist.destroy_process_group()
-
-
-def _spawn(argv, world: int) -> int:
-    """Run ``world`` local gloo ranks of this command line and join them;
-    1 if any rank failed."""
-    import torch.multiprocessing as mp
-
-    try:
-        mp.start_processes(_rank_main, args=(list(argv), world, _free_port()),
-                           nprocs=world, join=True, start_method="spawn")
-    except mp.ProcessException as e:
-        print(f"ERROR: a rank failed: {e}", file=sys.stderr)
-        return 1
+def _rank_entry(argv) -> int:
+    """A spawned rank of ``--device cpu --devices N``."""
+    run(_parser().parse_args(argv))
     return 0
 
 
@@ -368,7 +271,7 @@ def main(argv=None) -> int:
     world = math.prod(dims) if dims is not None else 1
     if (world > 1 and "WORLD_SIZE" not in os.environ
             and not dist.is_initialized()):
-        return _spawn(argv, world)   # --device cpu: local gloo ranks
+        return _spawn(_rank_entry, argv, world)   # --device cpu: gloo ranks
     run(args)
     return 0
 

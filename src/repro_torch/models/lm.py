@@ -352,12 +352,24 @@ def _stacked(cfg: ModelConfig, make) -> dict:
     return states
 
 
+def _placed_state(states, mesh):
+    """``states`` placed by the decode-state rules on a live ``mesh``
+    (``launch.sharding.state_shardings``), or as they are without one."""
+    if mesh is None:
+        return states
+    from repro_torch.launch import sharding
+
+    return sharding.distribute_tree(
+        states, sharding.state_shardings(states, mesh), mesh)
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
-                      device: DeviceLike = None) -> dict:
+                      device: DeviceLike = None, mesh=None) -> dict:
     """Zeroed contiguous decode state: a KV cache of (B, Hkv, max_len, Dh)
     leaves for each attention layer, a ``RecurrentState`` or ``SSMState``
     carry for each recurrent or SSM layer, nothing for a cross-attention
-    layer; a leading layer-group axis under ``stack``."""
+    layer; a leading layer-group axis under ``stack``. With a live
+    ``mesh``: DTensors placed by the decode-state rules."""
     device = resolve_device(device)
 
     def make(kind):
@@ -371,12 +383,12 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
         return init_kv_cache(batch, cfg.num_kv_heads, max_len, cfg.head_dim,
                              device=device)
 
-    return _stacked(cfg, make)
+    return _placed_state(_stacked(cfg, make), mesh)
 
 
 def init_paged_decode_state(cfg: ModelConfig, num_pages: int,
-                            page_size: int, *,
-                            device: DeviceLike = None) -> dict:
+                            page_size: int, *, device: DeviceLike = None,
+                            mesh=None) -> dict:
     """Paged decode state: each attention layer's cache is a pool of
     ``num_pages`` pages (page 0 the trash page), (NP, Hkv, page_size, Dh)
     leaves, with a leading layer-group axis under ``stack`` (none for a
@@ -384,7 +396,9 @@ def init_paged_decode_state(cfg: ModelConfig, num_pages: int,
     page tables of the decode inputs, so the tree has no slot axis. Only
     attention-family models page: a recurrent or SSM carry has no
     positional validity mask, so it cannot share a lockstep-written global
-    pool (such models keep the contiguous layout)."""
+    pool (such models keep the contiguous layout). With a live ``mesh``:
+    DTensors placed by the decode-state rules, as :func:`prefill` places
+    a contiguous state."""
     bad = sorted({k for k in cfg.pattern if k not in ("attn", "moe",
                                                        "cross")})
     if bad:
@@ -392,8 +406,9 @@ def init_paged_decode_state(cfg: ModelConfig, num_pages: int,
             f"paged decode state supports attention-family models only; "
             f"{cfg.name} has block kinds {bad}")
     device = resolve_device(device)
-    return _stacked(cfg, lambda kind: init_paged_kv_cache(
-        num_pages, cfg.num_kv_heads, page_size, cfg.head_dim, device=device))
+    return _placed_state(_stacked(cfg, lambda kind: init_paged_kv_cache(
+        num_pages, cfg.num_kv_heads, page_size, cfg.head_dim,
+        device=device)), mesh)
 
 
 def load_numpy_decode_state(tree, device: DeviceLike = None):
@@ -440,41 +455,70 @@ def _index(idx, device):
     return idx.to(device=device, dtype=torch.long).reshape(-1)
 
 
+def _sharded(leaf) -> bool:
+    return mesh_route.has_dtensor((leaf,))
+
+
 def take_decode_slots(states, idx):
     """Gather per-slot decode state along the slot axis; the result's
     batch is ``len(idx)`` (a slot's view for a prefill, or a permutation
-    that compacts the slot pool: one gather per leaf, on the device)."""
+    that compacts the slot pool: one gather per leaf, on the device). On a
+    mesh the slot axis is gathered first (``mesh_route.take_rows``): a
+    permutation may move rows across data ranks. That happens on
+    compaction, defrag and a slot's view, not at every step."""
     def take(path, leaf):
-        return leaf.index_select(_state_batch_axis(path),
-                                 _index(idx, leaf.device))
+        ax = _state_batch_axis(path)
+        if _sharded(leaf):
+            return mesh_route.take_rows(leaf, ax, _index(idx, "cpu"))
+        return leaf.index_select(ax, _index(idx, leaf.device))
     return _map_with_path(take, states)
 
 
 def write_decode_slot(states, slot: int, sub):
     """Write a single-slot substate (batch 1) into the pool at ``slot``:
-    the inverse of ``take_decode_slots(states, [slot])``. Out of place."""
+    the inverse of ``take_decode_slots(states, [slot])``. Out of place.
+    On a mesh only the rank holding the slot writes, in its own block."""
     def wr(path, leaf, sub_leaf):
-        return leaf.index_copy(_state_batch_axis(path),
-                               _index([slot], leaf.device),
+        ax = _state_batch_axis(path)
+        if _sharded(leaf):
+            rows = mesh_route.rows_like(sub_leaf, leaf, ax)
+            return mesh_route.update_rows(
+                leaf, ax, _index([slot], "cpu"),
+                lambda local, at, sel: local.index_copy(
+                    ax, at, rows.index_select(ax, sel).to(local.dtype)))
+        return leaf.index_copy(ax, _index([slot], leaf.device),
                                sub_leaf.to(leaf.dtype))
     return _map_with_path(wr, states, sub)
 
 
 def reset_decode_slot(states, slot: int):
     """Zero one slot's decode state, so a newly allocated request never
-    sees the previous occupant's."""
+    sees the previous occupant's (on a mesh, on the rank holding it)."""
     def rz(path, leaf):
-        return leaf.index_fill(_state_batch_axis(path),
-                               _index([slot], leaf.device), 0)
+        ax = _state_batch_axis(path)
+        if _sharded(leaf):
+            return mesh_route.update_rows(
+                leaf, ax, _index([slot], "cpu"),
+                lambda local, at, sel: local.index_fill(ax, at, 0))
+        return leaf.index_fill(ax, _index([slot], leaf.device), 0)
     return _map_with_path(rz, states)
 
 
 def copy_decode_pages(states, src, dst):
     """Copy page-pool rows ``src`` onto rows ``dst`` of a paged decode
     state: the device half of a copy-on-write. One gather and one scatter
-    per leaf; the Gaussian KV triple never visits the host."""
+    per leaf; the Gaussian KV triple never visits the host. On a mesh the
+    source pages are gathered (they may live on another data rank) and
+    each destination page is written by the rank that holds it."""
     def cp(path, leaf):
         ax = _state_batch_axis(path)
+        if _sharded(leaf):
+            rows = mesh_route.rows_like(
+                mesh_route.take_rows(leaf, ax, _index(src, "cpu")), leaf, ax)
+            return mesh_route.update_rows(
+                leaf, ax, _index(dst, "cpu"),
+                lambda local, at, sel: local.index_copy(
+                    ax, at, rows.index_select(ax, sel)))
         rows = leaf.index_select(ax, _index(src, leaf.device))
         return leaf.index_copy(ax, _index(dst, leaf.device), rows)
     return _map_with_path(cp, states)
@@ -483,12 +527,15 @@ def copy_decode_pages(states, src, dst):
 def select_decode_slots(new_states, old_states, keep_new):
     """Per-slot merge: ``keep_new`` (B,) bool takes the new slot state
     where True and the old one where False (a lockstep step advances every
-    slot; parked slots keep their old state)."""
+    slot; parked slots keep their old state). On a mesh each rank merges
+    its own slots."""
     def sel(path, new, old):
         ax = _state_batch_axis(path)
+        keep = torch.as_tensor(keep_new, device=new.device, dtype=torch.bool)
+        if _sharded(old):
+            return mesh_route.select_rows(new, old, ax, keep)
         shape = [1] * new.dim()
         shape[ax] = new.shape[ax]
-        keep = torch.as_tensor(keep_new, device=new.device, dtype=torch.bool)
         return torch.where(keep.reshape(shape), new, old)
     return _map_with_path(sel, new_states, old_states)
 

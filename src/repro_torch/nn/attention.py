@@ -118,7 +118,10 @@ def _merge_heads(x):
 def _insert_rows(buf, new, positions):
     """Contiguous cache insert at each row's own offset ``positions[:, 0]``
     (slots sit at independent positions), clamped so the rows fit, as
-    ``dynamic_update_slice`` clamps in the reference. Out of place."""
+    ``dynamic_update_slice`` clamps in the reference. Out of place. On a
+    mesh each rank writes its own block (``mesh_route.insert_rows``)."""
+    if mesh_route.has_dtensor((buf,)):
+        return mesh_route.insert_rows(buf, new, positions)
     b, hkv, tq, d = new.shape
     start = positions[:, 0].clamp(0, buf.shape[2] - tq)
     idx = start[:, None] + torch.arange(tq, device=buf.device)   # (B, Tq)
@@ -128,7 +131,11 @@ def _insert_rows(buf, new, positions):
 
 def _insert_pages(buf, new, dest_page, dest_row):
     """Paged cache insert: new (B, Hkv, Tq, Dh) rows to
-    ``buf[dest_page, :, dest_row]`` ((B, Tq) indices each). Out of place."""
+    ``buf[dest_page, :, dest_row]`` ((B, Tq) indices each). Out of place.
+    On a mesh each row is written by the rank that holds its page
+    (``mesh_route.insert_pages``)."""
+    if mesh_route.has_dtensor((buf,)):
+        return mesh_route.insert_pages(buf, new, dest_page, dest_row)
     out = buf.clone()
     out[dest_page, :, dest_row] = new.to(buf.dtype).transpose(1, 2)
     return out
@@ -158,7 +165,6 @@ def attention_apply(layer: Attention, x, ctx: Context, *, num_heads: int,
     if ctx.attention_mode not in (MEAN_FIELD, VARIANCE_CORRECTED):
         raise ValueError(f"unknown attention mode {ctx.attention_mode!r}")
     scale = head_dim ** -0.5
-    group = num_heads // num_kv_heads
 
     kv_src = x if cross_kv is None else cross_kv
     q = _split_heads(layer.wq(x, ctx), num_heads, head_dim)
@@ -178,8 +184,8 @@ def attention_apply(layer: Attention, x, ctx: Context, *, num_heads: int,
 
     new_cache = None
     paged = isinstance(cache, PagedKVCache)
-    kv_len = k_valid = None
-    k_pos = positions
+    kv_len = None
+    kind = None
     if paged:
         if page_table is None or cache_len is None:
             raise ValueError("PagedKVCache needs page_table and cache_len")
@@ -202,26 +208,73 @@ def attention_apply(layer: Attention, x, ctx: Context, *, num_heads: int,
                                for buf, new in zip(cache, (k_mu, v_mu,
                                                            v_var))))
         new_cache = cache
+        k_mu, v_mu, v_var = cache
+        kind = "paged"
     elif cache is not None:
         # The updated cache is pinned to the decode state's sharding
-        # (reference nn/attention.py:201-203; a no-op off a mesh). The
-        # reference pins one-token steps only; here a prefill's insert
-        # comes back from DTensor's scatter gathered whole, and pinning it
-        # back is a local slice, so every insert is pinned.
+        # (reference nn/attention.py:201-203; a no-op off a mesh, and on
+        # one where the insert kept the state's placements, as the per-rank
+        # insert does). The reference pins one-token steps only; here
+        # every insert is pinned.
         cache = KVCache(*(constrain_kv(_insert_rows(buf, new, positions))
                           for buf, new in zip(cache, (k_mu, v_mu, v_var))))
         new_cache = cache
         k_mu, v_mu, v_var = cache
-        s = k_mu.shape[2]
         kv_len = cache_len if cache_len is not None else positions[:, -1] + 1
-        k_pos = torch.arange(s, device=k_mu.device).expand(positions.shape[0],
-                                                           s)
-        k_valid = k_pos < kv_len[:, None]
+        kind = "cache"
     elif cross_kv is not None:
-        s = k_mu.shape[2]
-        k_pos = torch.arange(s, device=k_mu.device).expand(positions.shape[0],
-                                                           s)
         causal = False
+        kind = "cross"
+
+    out_mu, out_var = _attend(
+        q, k_mu, v_mu, v_var, page_table, ctx, kind=kind,
+        num_heads=num_heads, num_kv_heads=num_kv_heads, positions=positions,
+        kv_len=kv_len, scale=scale, causal=causal, window=window,
+        standard_positions=standard_positions)
+    b = out_mu.shape[0]
+    out = out_mu.reshape(b, num_heads, -1, head_dim)
+    if pfp:
+        out = GaussianTensor(out, out_var.reshape(b, num_heads, -1, head_dim),
+                             VAR)
+    return layer.wo(_merge_heads(out), ctx), new_cache
+
+
+def _attend(q, k_mu, v_mu, v_var, page_table, ctx, *, kind, num_heads,
+            num_kv_heads, positions, kv_len, scale, causal, window,
+            standard_positions):
+    """The attention of :func:`attention_apply` after the projections and
+    the cache insert. ``kind``: None (no cache), ``"cross"``, ``"cache"``
+    (k / v / v_var the contiguous cache) or ``"paged"`` (the page pools,
+    read through ``page_table``). On a mesh the query heads take the
+    split; a DTensor cache is read on each rank's blocks, placed by the
+    cache or paged plan (``mesh_route.per_rank_cache``), by the same
+    :func:`_attend_grouped` as off a mesh. Returns (out_mu, out_var or
+    None), grouped (B, Hkv, G, Tq, D), or (B, H, Tq, D) on a DTensor
+    cache."""
+    pfp = is_gaussian(q)
+    group = num_heads // num_kv_heads
+    kw = dict(kind=kind, pfp=pfp, scale=scale, causal=causal, window=window,
+              standard_positions=standard_positions)
+    if kind in ("cache", "paged") and mesh_route.has_dtensor((k_mu,)):
+        def local(q_mu, q_var, k_mu, v_mu, v_var, q_pos, kv_len, table):
+            b, h, tq, d = q_mu.shape
+            hkv = k_mu.shape[1]
+
+            def grouped(a):
+                return (None if a is None
+                        else a.reshape(b, hkv, h // hkv, tq, d))
+
+            out_mu, out_var = _attend_grouped(
+                grouped(q_mu), grouped(q_var), k_mu, v_mu, v_var, table, ctx,
+                positions=q_pos, kv_len=kv_len, **kw)
+            return (out_mu.reshape(b, h, tq, -1),
+                    None if out_var is None else out_var.reshape(b, h, tq, -1))
+
+        return mesh_route.per_rank_cache(
+            local, q.mean if pfp else q,
+            q.var if pfp and ctx.attention_mode == VARIANCE_CORRECTED
+            else None, k_mu, v_mu, v_var, rows=(positions, kv_len),
+            page_table=page_table if kind == "paged" else None)
 
     # On a mesh: the query heads take the split, whole heads a rank.
     if pfp:
@@ -247,7 +300,16 @@ def attention_apply(layer: Attention, x, ctx: Context, *, num_heads: int,
     q_mu = _group(q.mean if pfp else q)
     q_var = (_group(q.var)
              if pfp and ctx.attention_mode == VARIANCE_CORRECTED else None)
+    return _attend_grouped(q_mu, q_var, k_mu, v_mu, v_var, page_table, ctx,
+                           positions=positions, kv_len=kv_len, **kw)
 
+
+def _attend_grouped(q_mu, q_var, k_mu, v_mu, v_var, page_table, ctx, *,
+                    kind, pfp, positions, kv_len, scale, causal, window,
+                    standard_positions):
+    """Grouped queries (B, Hkv, G, Tq, D) against the keys of ``kind``
+    (see :func:`_attend`): a registry kernel where one applies, else the
+    chunked core. Returns (out_mu, out_var or None), (B, Hkv, G, Tq, D)."""
     # Registry paths for mean-field PFP attention under the kernel impl:
     #   * the cache paths always qualify: per-row query starts, valid
     #     lengths and windows are native to the cache kernels, and the
@@ -257,41 +319,34 @@ def attention_apply(layer: Attention, x, ctx: Context, *, num_heads: int,
     #     chunked core, as probit-corrected scores do everywhere.
     use_kernel = (pfp and dispatch.resolve_impl(ctx.impl) == "kernel"
                   and q_var is None)
-    if use_kernel and cache is not None:
-        q_start = positions[:, 0]
-        if paged:
-            out_mu, out_var = _attention_paged_registry(
-                q_mu, cache, page_table, q_start, kv_len, scale=scale,
-                causal=causal, window=window, impl=ctx.impl)
-        else:
-            out_mu, out_var = _attention_cache_registry(
-                q_mu, k_mu, v_mu, v_var, q_start, kv_len, scale=scale,
-                causal=causal, window=window, impl=ctx.impl)
-    elif (use_kernel and cache is None and window is None
-          and (standard_positions or not causal)):
-        out_mu, out_var = _attention_registry(
-            q_mu, k_mu, v_mu, v_var, scale=scale, causal=causal,
-            impl=ctx.impl)
-    else:
-        if paged:
-            # Gather the pages into the contiguous layout, then the same
-            # chunked core as the contiguous cache.
-            k_mu, v_mu, v_var = (gather_kv_pages(a, page_table)
-                                 for a in cache)
-            s = k_mu.shape[2]
-            k_pos = torch.arange(s, device=k_mu.device).expand(
-                positions.shape[0], s)
+    if use_kernel and kind == "paged":
+        return _attention_paged_registry(
+            q_mu, k_mu, v_mu, v_var, page_table, positions[:, 0], kv_len,
+            scale=scale, causal=causal, window=window, impl=ctx.impl)
+    if use_kernel and kind == "cache":
+        return _attention_cache_registry(
+            q_mu, k_mu, v_mu, v_var, positions[:, 0], kv_len, scale=scale,
+            causal=causal, window=window, impl=ctx.impl)
+    if (use_kernel and kind in (None, "cross") and window is None
+            and (standard_positions or not causal)):
+        return _attention_registry(q_mu, k_mu, v_mu, v_var, scale=scale,
+                                   causal=causal, impl=ctx.impl)
+    if kind == "paged":
+        # Gather the pages into the contiguous layout, then the same
+        # chunked core as the contiguous cache.
+        k_mu, v_mu, v_var = (gather_kv_pages(a, page_table)
+                             for a in (k_mu, v_mu, v_var))
+    k_pos, k_valid = positions, None
+    if kind is not None:
+        s = k_mu.shape[2]
+        k_pos = torch.arange(s, device=k_mu.device).expand(
+            positions.shape[0], s)
+        if kind != "cross":
             k_valid = k_pos < kv_len[:, None]
-        out_mu, out_var = _attention_core(
-            q_mu, q_var, k_mu, v_mu, v_var if pfp else None, q_pos=positions,
-            k_pos=k_pos, k_valid=k_valid, causal=causal, window=window,
-            scale=scale, chunk_size=_QUERY_CHUNK)
-    b = out_mu.shape[0]
-    out = out_mu.reshape(b, num_heads, -1, head_dim)
-    if pfp:
-        out = GaussianTensor(out, out_var.reshape(b, num_heads, -1, head_dim),
-                             VAR)
-    return layer.wo(_merge_heads(out), ctx), new_cache
+    return _attention_core(
+        q_mu, q_var, k_mu, v_mu, v_var if pfp else None, q_pos=positions,
+        k_pos=k_pos, k_valid=k_valid, causal=causal, window=window,
+        scale=scale, chunk_size=_QUERY_CHUNK)
 
 
 def _attention_registry(q_mu, k_mu, v_mu, v_var, *, scale, causal, impl):
@@ -317,15 +372,15 @@ def _attention_cache_registry(q_mu, k_mu, v_mu, v_var, q_start, kv_len, *,
             out_var.reshape(b, hkv, g, tq, dh))
 
 
-def _attention_paged_registry(q_mu, cache, page_table, q_start, kv_len, *,
-                              scale, causal, window, impl):
+def _attention_paged_registry(q_mu, k_mu, v_mu, v_var, page_table, q_start,
+                              kv_len, *, scale, causal, window, impl):
     """Paged KV-cache attention through the registry op
     ``attention_paged``: the kernel reads the pages through the table, no
     contiguous gather."""
     b, hkv, g, tq, dh = q_mu.shape
     out_mu, out_var = dispatch.pfp_attention_paged(
-        q_mu.reshape(b, hkv * g, tq, dh), cache.k_mu, cache.v_mu, cache.v_var,
-        page_table, q_start, kv_len, scale=scale, causal=causal,
+        q_mu.reshape(b, hkv * g, tq, dh), k_mu, v_mu, v_var, page_table,
+        q_start, kv_len, scale=scale, causal=causal,
         window=window, impl=impl)
     return (out_mu.reshape(b, hkv, g, tq, dh),
             out_var.reshape(b, hkv, g, tq, dh))

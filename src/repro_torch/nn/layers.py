@@ -62,7 +62,7 @@ def dense_apply(layer: Dense, x, ctx: Context):
         return dispatch.pfp_dense(x, w, b, formulation=ctx.formulation,
                                   impl=ctx.impl)
     x, w = mesh_route.place_dense(x.mean if is_gaussian(x) else x, w)
-    y = x @ w
+    y = mesh_route.whole(x @ w)
     if b is not None:
         y = y + b
     return y

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.bayes.metrics import predictive_metrics_from_samples
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import mesh_route
 from repro_torch.core.device import DeviceLike
 from repro_torch.core.gaussian import is_gaussian
 from repro_torch.core.modes import Mode
@@ -47,7 +48,17 @@ def uncertainty_decode(logit_mean, logit_var,
     the new token. Eq. 11 draws ``num_uncertainty_samples`` logit samples
     with noise from ``generator`` (on the logits' device), or takes the
     noise ``eps`` (N, B, V) as given, so that two implementations can be
-    fed the same draws."""
+    fed the same draws.
+
+    On a mesh the logits come split over the vocab (the LM head's N
+    split). The last position's moments are read whole on every rank
+    first (2 B V floats gathered; gathering the Eq. 11 samples instead
+    would move N B V), and every rank draws the whole noise from the same
+    seeded generator, so Eq. 1-3 and the argmax run on whole rows and each
+    rank computes the single engine's bits."""
+    if mesh_route.has_dtensor((logit_mean, logit_var)):
+        logit_mean = mesh_route.full(logit_mean[:, -1:])
+        logit_var = mesh_route.full(logit_var[:, -1:])
     mean = logit_mean[:, -1]
     var = torch.clamp(logit_var[:, -1], min=0.0)
     std = torch.sqrt(var)

@@ -49,9 +49,24 @@ pool, prefix sharing and speculation refuse them, as in the reference.
 An SVI second opinion runs the plain torch ops, whose attention reads the
 gathered pages on one pool and the cache on the other, so across the two
 pools it need only agree at tolerance.
+
+With ``mesh=`` (a live ``DeviceMesh`` of axes ``('data', 'model')``) every
+rank runs the same engine: the model is placed by the serving rules
+(``params_shardings(serve=True)``), the pools' states by the decode-state
+rules and each pass's inputs by ``batch_shardings``; the kernel impl runs
+on each rank's blocks through ``core/mesh_route.py``. The logits come back
+whole on every rank (``full_tensor``) before anything reads them, and the
+Eq. 11 and SVI noise is drawn whole from the seeded generators, so every
+host decision (tokens, MI, routing, finishing, admission, preemption,
+defrag) is taken on the same values on every rank and every rank's
+scheduler takes the same path. On one rank the meshed engine serves the
+unmeshed engine's tokens and MI bit for bit. The dense family serves on a
+mesh; the MoE, hybrid, SSM and VLM families raise, naming the ROADMAP.md
+item that brings them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, List, Optional
 
@@ -59,9 +74,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import mesh_route
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.gaussian import is_gaussian
 from repro_torch.core.modes import Mode
+from repro_torch.launch.mesh import live_mesh
 from repro_torch.models import lm
 from repro_torch.nn.module import Context
 from repro_torch.obs.trace import Tracer
@@ -77,6 +94,41 @@ from repro_torch.serving.engine.state import (DecodeStatePool,
                                               PagedDecodeStatePool)
 
 _MASK64 = (1 << 64) - 1
+
+# Block kinds that do not serve on a mesh yet, and the ROADMAP.md item
+# that brings them.
+MESH_WAITS = {"moe": "expert parallelism",
+              "rec": "the einsum route and the SSD per rank",
+              "ssm": "the einsum route and the SSD per rank",
+              "cross": "the VLM's cross-attention on a mesh"}
+
+
+def _host(t):
+    """A device result on the host, read whole on every rank."""
+    return mesh_route.full(t).cpu().numpy()
+
+
+def placed_model(model, mesh):
+    """``model`` to serve on ``mesh``: as it is off a mesh or where its
+    parameters are DTensors already, else a copy placed by the serving
+    rules (``params_shardings(serve=True)``). The caller's model is left
+    as it is. A ``MeshSpec`` raises ``TypeError`` (``live_mesh``)."""
+    mesh = live_mesh(mesh)
+    if mesh is None or any(mesh_route.has_dtensor((p,))
+                           for p in model.parameters()):
+        return model
+    from repro_torch.launch import sharding
+
+    return sharding.placed_copy(model, mesh, serve=True)
+
+
+def check_mesh_family(cfg: ModelConfig) -> None:
+    """Raise where ``cfg``'s family does not serve on a mesh yet."""
+    waits = sorted({MESH_WAITS[k] for k in cfg.pattern if k in MESH_WAITS})
+    if waits:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) does not serve on a mesh yet: it "
+            f"waits for {' and '.join(waits)} (ROADMAP.md)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,10 +236,14 @@ class Engine:
                  router: Optional[UncertaintyRouter] = None,
                  scheduler: Optional[RequestScheduler] = None,
                  pool=None, prefix: Optional[PrefixIndex] = None,
-                 tracer=None, lane: str = "engine",
+                 mesh=None, tracer=None, lane: str = "engine",
                  device: DeviceLike = None):
         """``model`` is the port's ``lm.LM`` (converted to PFP) on
         ``device`` (None: the CUDA card; this raises without one).
+        ``mesh``: a live ``DeviceMesh`` to serve on; a model whose
+        parameters are not DTensors yet is served from a copy placed on it
+        by the serving rules (:func:`placed_model`), the caller's model
+        left as it is. ``device`` is then this rank's device.
         ``router`` defaults to the reference's ``RouterConfig()``.
         ``pool``/``prefix`` inject SHARED decode
         state (disaggregated serving: a prefill engine and a decode engine
@@ -197,7 +253,10 @@ class Engine:
         if not cfg.embed_inputs:
             raise ValueError("engine serves token-prompt models only")
         self.cfg = cfg
-        self.model = model
+        self.mesh = live_mesh(mesh)
+        if self.mesh is not None:
+            check_mesh_family(cfg)
+        self.model = placed_model(model, self.mesh)
         self.config = config
         self.device = resolve_device(device)
         self.router = router if router is not None else UncertaintyRouter(
@@ -237,6 +296,9 @@ class Engine:
             if pool.device != self.device:
                 raise ValueError(f"injected pool lives on {pool.device}, "
                                  f"the engine on {self.device}")
+            if pool.mesh is not self.mesh:
+                raise ValueError("injected pool is placed on another mesh "
+                                 "than the engine's")
             self.pool = pool
         elif self.paged:
             if not self._static_chunks:
@@ -247,10 +309,11 @@ class Engine:
                     f"{cfg.name}")
             self.pool = PagedDecodeStatePool(
                 cfg, config.slots, config.max_len, config.page_size,
-                num_pages=config.page_budget, device=self.device)
+                num_pages=config.page_budget, mesh=self.mesh,
+                device=self.device)
         else:
             self.pool = DecodeStatePool(cfg, config.slots, config.max_len,
-                                        device=self.device)
+                                        mesh=self.mesh, device=self.device)
         self.prefix: Optional[PrefixIndex] = None
         if config.prefix_sharing:
             if not self.paged:
@@ -318,17 +381,47 @@ class Engine:
         return Context(mode=Mode.PFP, formulation=self.config.formulation,
                        impl=self.config.impl, device=self.device)
 
+    @contextlib.contextmanager
+    def _placed(self):
+        """The context every pass on a mesh runs in: tensors the model
+        makes itself (positions, masks) count as replicas beside the
+        DTensors, and partial sums are added in rank order, so a row's
+        bits do not depend on its slot (``mesh_route.ordered_sums``)."""
+        if self.mesh is None:
+            yield
+            return
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with implicit_replication(), mesh_route.ordered_sums():
+            yield
+
+    def _inputs(self, inputs: dict) -> dict:
+        """A pass's inputs as tensors on the device; on a mesh placed by
+        ``batch_shardings`` (slots over ``data`` where they divide)."""
+        if self.mesh is None:
+            return inputs
+        from repro_torch.launch import sharding
+
+        inputs = {k: (v if isinstance(v, torch.Tensor)
+                      else self._as_tensor(v)).to(torch.long)
+                  for k, v in inputs.items()}
+        return sharding.distribute_tree(
+            inputs, sharding.batch_shardings(inputs, self.mesh), self.mesh)
+
     @staticmethod
     def _split_logits(logits):
+        """(mean, var) of the logits, whole on every rank."""
         if is_gaussian(logits):
-            return logits.mean, logits.var
+            return mesh_route.full(logits.mean), mesh_route.full(logits.var)
+        logits = mesh_route.full(logits)
         return logits, torch.zeros_like(logits)
 
     def _chunk_step(self, inputs, sub, out_idx: int):
         """One prefill chunk on a single-slot state view: (1, C) tokens in,
         logit (mean, var) at the last *real* token (``out_idx``) + updated
         substate out."""
-        logits, new_sub = lm.decode_step(self.model, self.cfg, inputs, sub,
+        logits, new_sub = lm.decode_step(self.model, self.cfg,
+                                         self._inputs(inputs), sub,
                                          self._ctx())
         mean, var = self._split_logits(logits)
         return (mean[:, out_idx].float(), var[:, out_idx].float()), new_sub
@@ -338,8 +431,8 @@ class Engine:
         """Lockstep decode for the whole slot batch + select-merge so only
         ``active`` slots observe the state/logit update. The 4th output is
         the MoE aux dict (drop accounting; zeros on dense families)."""
-        inputs = {"tokens": tokens, "positions": positions,
-                  "cache_len": cache_len}
+        inputs = self._inputs({"tokens": tokens, "positions": positions,
+                               "cache_len": cache_len})
         logits, aux, new_states = lm.decode_step_with_aux(
             self.model, self.cfg, inputs, states, self._ctx())
         mean, var = self._split_logits(logits)
@@ -353,8 +446,9 @@ class Engine:
         """Lockstep decode over the shared page pool. No select-merge: an
         inactive slot's cache_len sits at its position, so the paged
         insert redirects its write to the trash page."""
-        inputs = {"tokens": tokens, "positions": positions,
-                  "cache_len": cache_len, "page_table": page_table}
+        inputs = self._inputs({"tokens": tokens, "positions": positions,
+                               "cache_len": cache_len,
+                               "page_table": page_table})
         logits, aux, new_states = lm.decode_step_with_aux(
             self.model, self.cfg, inputs, states, self._ctx())
         mean, var = self._split_logits(logits)
@@ -369,8 +463,9 @@ class Engine:
         (B, C) window tokens in, per-slot logit (mean, var) rows gathered
         at each slot's own last-real-token index, merged into the logit
         buffers only where ``done`` (prefill completed this round)."""
-        logits, new_states = lm.decode_step(self.model, self.cfg, inputs,
-                                            states, self._ctx())
+        logits, new_states = lm.decode_step(self.model, self.cfg,
+                                            self._inputs(inputs), states,
+                                            self._ctx())
         mean, var = self._split_logits(logits)
         rows = torch.arange(mean.shape[0], device=mean.device)
         keep = done[:, None]
@@ -392,9 +487,10 @@ class Engine:
                       "positions": (positions + i)[:, None],
                       "cache_len": positions + i + 1,
                       "page_table": table}
-            logits, st = lm.draft_decode_step(self.model, self.cfg, inputs,
-                                              st, self._ctx())
-            tok = torch.argmax(logits[:, -1], dim=-1)
+            logits, st = lm.draft_decode_step(self.model, self.cfg,
+                                              self._inputs(inputs), st,
+                                              self._ctx())
+            tok = torch.argmax(mesh_route.full(logits)[:, -1], dim=-1)
             drafts.append(tok)
         return torch.stack(drafts, dim=1)
 
@@ -406,8 +502,9 @@ class Engine:
         pad rows land on the trash page). Rows the acceptance scan rejects
         need no rollback — the engine leaves ``positions`` at the accepted
         prefix, so stale rows stay masked until re-fed."""
-        logits, new_states = lm.decode_step(self.model, self.cfg, inputs,
-                                            states, self._ctx())
+        logits, new_states = lm.decode_step(self.model, self.cfg,
+                                            self._inputs(inputs), states,
+                                            self._ctx())
         mean, var = self._split_logits(logits)
         return mean.float(), var.float(), new_states
 
@@ -439,7 +536,14 @@ class Engine:
     @property
     def decode_fn(self):
         """The lockstep decode pass (public: benchmarks time it)."""
-        return self._decode_step_paged if self.paged else self._decode_step
+        fn = self._decode_step_paged if self.paged else self._decode_step
+        if self.mesh is None:
+            return fn
+
+        def placed(*args):
+            with self._placed():
+                return fn(*args)
+        return placed
 
     @property
     def logit_buffers(self):
@@ -489,6 +593,10 @@ class Engine:
 
     # -- the engine step ----------------------------------------------------
     def step(self) -> None:
+        with self._placed():
+            self._step()
+
+    def _step(self) -> None:
         now = float(self._step_idx)
         # drain deadline-expired waiters even while the pool is full, so
         # they never hold the bounded admission queue against live traffic
@@ -810,8 +918,7 @@ class Engine:
         keyed = {slot: (self._slots[slot].request.uid,
                         len(self._slots[slot].request.generated))
                  for slot in decode_slots}
-        host = self._uncertainty(self._lm_mean, self._lm_var,
-                                 keyed).cpu().numpy()
+        host = _host(self._uncertainty(self._lm_mean, self._lm_var, keyed))
         return self._resolve_escalations(decode_slots, host[0], host[1])
 
     def _route_and_decode(self, now: float) -> None:
@@ -988,9 +1095,9 @@ class Engine:
             pos0[slot] = self.pool.positions[slot]
         drafts = np.zeros((b, max(k - 1, 0)), np.int64)
         if k > 1:
-            drafts = self._draft_steps(
+            drafts = _host(self._draft_steps(
                 self._as_tensor(head), self._as_tensor(pos0),
-                self.pool.states, self.pool.device_table()).cpu().numpy()
+                self.pool.states, self.pool.device_table()))
             self.metrics.on_draft_pass(k - 1)
             if self._tracer is not None:
                 self._tracer.emit(self._step_idx, "spec_draft",
@@ -1034,7 +1141,7 @@ class Engine:
                      for slot in live if i < f_of[slot]}
             columns.append(self._uncertainty(vmean[:, i].contiguous(),
                                              vvar[:, i].contiguous(), keyed))
-        host = torch.stack(columns, dim=2).cpu().numpy()   # (2, B, K)
+        host = _host(torch.stack(columns, dim=2))   # (2, B, K)
         tok_np, mi_np = host[0], host[1]
 
         drafted_total = accepted_total = 0
@@ -1171,7 +1278,7 @@ class Engine:
             self.model, rows, self.pool.states, self._svi_noise, uids,
             tok_idx, out_idx)
         self.metrics.on_svi_pass(len(esc_slots))
-        host = torch.stack((stoks.double(), smis.double())).cpu().numpy()
+        host = _host(torch.stack((stoks.double(), smis.double())))
         return {slot: self._svi_outcome(
                     self._slots[slot], int(pfp_tok_np[slot]),
                     float(pfp_mi_np[slot]), int(host[0, slot]),
@@ -1267,7 +1374,7 @@ class Engine:
         stok, smi = self.router.second_opinion(self.model, inputs, sub,
                                                noise, out_idx=out_idx)
         self.metrics.on_svi_pass(1)
-        host = torch.stack((stok.double(), smi.double())).cpu().numpy()
+        host = _host(torch.stack((stok.double(), smi.double())))
         return self._svi_outcome(sl, pfp_tok, pfp_mi, int(host[0]),
                                  float(host[1]), batched=False)
 

@@ -24,7 +24,11 @@ The second opinion's noise comes from a ``torch.Generator`` that the
 caller seeds per (request, token) before the pass, and the N samples draw
 from it in turn; or, in tests, from N ``Context.eps`` callables that hand
 in the reference's own noise. SVI mode runs the plain torch ops (no
-kernel), as the reference's runs outside Pallas.
+kernel), as the reference's runs outside Pallas. On a mesh DTensor's own
+propagation carries them (the KV caches per rank, ``core/mesh_route.py``);
+each rank draws every leaf's noise whole from the seeded generator and
+keeps its block (``Context.sample_eps``), and reads the logits whole, so
+every rank reaches the same second opinion.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import torch
 
 from repro_torch.bayes.metrics import predictive_metrics_from_samples
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import mesh_route
 from repro_torch.core.gaussian import is_gaussian
 from repro_torch.core.modes import Mode
 from repro_torch.models import lm
@@ -111,6 +116,7 @@ def make_svi_fallback(cfg: ModelConfig, num_samples: int, *,
             logits, _ = lm.decode_step(model, cfg, inputs, sub_state, ctx)
             if is_gaussian(logits):
                 logits = logits.mean
+            logits = mesh_route.full(logits)
             rows.append(logits[:, out_idx].float())          # (1, V)
         m = predictive_metrics_from_samples(torch.stack(rows))  # (N, 1, V)
         return m["pred"][0], m["mi"][0]

@@ -1,8 +1,11 @@
 """Decode-state management for the serving engine: slot pool + page pool.
 
-Counterpart of ``repro/serving/engine/state.py``, without its ``mesh``
-argument (a GSPMD sharding of the state; passing one raises
-``NotImplementedError``).
+Counterpart of ``repro/serving/engine/state.py``. With ``mesh=`` (a live
+``DeviceMesh``) the state's leaves are DTensors placed by the decode-state
+rules (``launch.sharding.state_shardings``: slots, or pages, over
+``data``; KV heads, or else the sequence, over ``model``), as the
+reference places them; host state (free lists, page tables, positions)
+and ``device_table()`` stay replicated: every rank holds the same.
 
 ``DecodeStatePool`` (the contiguous layout) owns the per-slot decode state
 — the KV mean/variance caches (PFP's uncertainty-carrying analogue of a KV
@@ -77,25 +80,20 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import live_mesh
 from repro_torch.models import lm
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a sharded decode state (mesh) is not ported yet (ROADMAP.md)")
 
 
 class DecodeStatePool:
     def __init__(self, cfg: ModelConfig, num_slots: int, max_len: int, *,
                  mesh=None, device: DeviceLike = None):
-        _no_mesh(mesh)
+        self.mesh = live_mesh(mesh)
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_len = max_len
         self.device = resolve_device(device)
         self.states = lm.init_decode_state(cfg, num_slots, max_len,
-                                           device=self.device)
+                                           device=self.device, mesh=self.mesh)
         # Lowest-index-first allocation keeps live slots packed at the
         # front, bounding fragmentation between compactions.
         self._free: List[int] = list(range(num_slots))
@@ -196,7 +194,7 @@ class PagedDecodeStatePool:
     def __init__(self, cfg: ModelConfig, num_slots: int, max_len: int,
                  page_size: int, *, num_pages: Optional[int] = None,
                  mesh=None, device: DeviceLike = None):
-        _no_mesh(mesh)
+        self.mesh = live_mesh(mesh)
         if page_size < 1:
             raise ValueError("page_size must be >= 1")
         self.cfg = cfg
@@ -214,7 +212,8 @@ class PagedDecodeStatePool:
         self.device = resolve_device(device)
         self.states = lm.init_paged_decode_state(cfg, self.num_pages,
                                                  page_size,
-                                                 device=self.device)
+                                                 device=self.device,
+                                                 mesh=self.mesh)
         # Host-side identity: slots are batch rows; pages are pool rows.
         self._free: List[int] = list(range(num_slots))
         self.owner: List[Optional[int]] = [None] * num_slots   # request uid

@@ -16,6 +16,11 @@ depend only on its own tokens and keys (the kernels' row contracts, and
 one shape a pass on the CPU), and the per-(uid, token) keyed sampling
 makes placement invisible: the routed output is bit for bit the
 baseline's.
+
+With ``mesh=`` every replica serves on the same (data, model) mesh, as in
+the reference: the fleet is replicated in time on every rank of it (each
+rank's frontend routes the same way, on replicated host state), each
+replica's passes run sharded across the mesh.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.obs.registry import Stopwatch
 from repro_torch.obs.trace import Tracer
 from repro_torch.serving.batcher import Request
-from repro_torch.serving.engine.engine import Engine, EngineConfig
+from repro_torch.serving.engine.engine import (Engine, EngineConfig,
+                                               placed_model)
 from repro_torch.serving.engine.router import RouterConfig, UncertaintyRouter
 from repro_torch.serving.engine.scheduler import (RequestScheduler,
                                                   SchedulerConfig)
@@ -54,18 +60,21 @@ class Fleet:
     """Same submit/step/now/idle/metrics protocol as ``Engine``, so the
     loadgen harness and serve CLI drive a fleet like a single engine.
     ``model`` is the port's ``lm.LM`` on ``device`` (None: the CUDA
-    card)."""
+    card); ``mesh``: a live ``DeviceMesh`` every replica serves on (from
+    one copy of the model placed on it, ``placed_model``)."""
 
     def __init__(self, cfg: ModelConfig, model,
                  config: EngineConfig = EngineConfig(),
                  fleet_config: FleetConfig = FleetConfig(), *,
                  router: Optional[UncertaintyRouter] = None,
                  scheduler_config: Optional[SchedulerConfig] = None,
-                 device: DeviceLike = None, tracer: Optional[Tracer] = None):
+                 mesh=None, device: DeviceLike = None,
+                 tracer: Optional[Tracer] = None):
         self.cfg = cfg
         self.config = config
         self.fleet_config = fleet_config
         device = resolve_device(device)
+        model = placed_model(model, mesh)
         if router is None:
             router = UncertaintyRouter(cfg, RouterConfig(),
                                        formulation=config.formulation,
@@ -82,14 +91,14 @@ class Fleet:
             if fleet_config.disaggregate:
                 self.replicas.append(DisaggPair(
                     cfg, model, config, router=router,
-                    scheduler_config=sched_cfg, device=device,
+                    scheduler_config=sched_cfg, mesh=mesh, device=device,
                     tracer=tracer, lane=f"r{i}"))
             else:
                 self.replicas.append(Engine(
                     cfg, model, config, router=router,
                     scheduler=RequestScheduler(sched_cfg,
                                                max_len=config.max_len),
-                    tracer=tracer, lane=f"r{i}", device=device))
+                    mesh=mesh, tracer=tracer, lane=f"r{i}", device=device))
         self.router = PrefixRouter(min_tokens=fleet_config.route_min_tokens)
         # ONE wall clock for the whole fleet: every replica engine's
         # metrics and the frontend's share it, so the pooled throughput

@@ -40,6 +40,9 @@ per-(uid, token) keyed uncertainty sampling produces bit-for-bit the
 tokens and MI traces of a single undisaggregated engine. The only device
 work disaggregation adds is one copy-on-write of the boundary page when
 the prompt is not page-aligned.
+
+With ``mesh=`` the shared pool is placed once on the mesh (the
+decode-state rules) and both engines take it.
 """
 from __future__ import annotations
 
@@ -49,7 +52,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.obs.trace import Tracer
 from repro_torch.serving.batcher import Request
-from repro_torch.serving.engine.engine import Engine, EngineConfig
+from repro_torch.serving.engine.engine import (Engine, EngineConfig,
+                                               check_mesh_family,
+                                               placed_model)
 from repro_torch.serving.engine.metrics import percentile
 from repro_torch.serving.engine.prefix import PrefixIndex
 from repro_torch.serving.engine.router import RouterConfig, UncertaintyRouter
@@ -78,14 +83,16 @@ class DisaggPair:
     a page pool and a prefix index. Implements the same submit/step/now/
     idle/metrics protocol as ``Engine``, so loadgen and the fleet
     frontend drive either interchangeably. ``model`` is the port's
-    ``lm.LM`` on ``device`` (None: the CUDA card)."""
+    ``lm.LM`` on ``device`` (None: the CUDA card); ``mesh``: a live
+    ``DeviceMesh`` both engines serve on, from one placed copy of the
+    model (``placed_model``) and over one placed pool."""
 
     def __init__(self, cfg: ModelConfig, model,
                  config: EngineConfig = EngineConfig(), *,
                  router: Optional[UncertaintyRouter] = None,
                  scheduler_config: Optional[SchedulerConfig] = None,
-                 device: DeviceLike = None, tracer: Optional[Tracer] = None,
-                 lane: str = "pair"):
+                 mesh=None, device: DeviceLike = None,
+                 tracer: Optional[Tracer] = None, lane: str = "pair"):
         if config.page_size is None:
             raise ValueError("disaggregation requires the paged Gaussian "
                              "KV-cache (set page_size)")
@@ -101,9 +108,12 @@ class DisaggPair:
                 "escalation-replay snapshot")
         self.config = config
         device = resolve_device(device)
+        if mesh is not None:
+            check_mesh_family(cfg)
+        model = placed_model(model, mesh)
         pool = PagedDecodeStatePool(
             cfg, config.slots, config.max_len, config.page_size,
-            num_pages=config.page_budget, device=device)
+            num_pages=config.page_budget, mesh=mesh, device=device)
         retention = (config.prefix_retention_pages
                      if config.prefix_retention_pages is not None
                      else pool.total_pages)
@@ -125,12 +135,12 @@ class DisaggPair:
         self.prefill_engine = Engine(
             cfg, model, config, router=router,
             scheduler=RequestScheduler(sched_cfg, max_len=config.max_len),
-            pool=pool, prefix=prefix, tracer=tracer,
+            pool=pool, prefix=prefix, mesh=mesh, tracer=tracer,
             lane=lane + ".prefill", device=device)
         self.decode_engine = Engine(
             cfg, model, config, router=router,
             scheduler=RequestScheduler(sched_cfg, max_len=config.max_len),
-            pool=pool, prefix=prefix, tracer=tracer,
+            pool=pool, prefix=prefix, mesh=mesh, tracer=tracer,
             lane=lane + ".decode", device=device)
         self.finished: List[Request] = []
         self.metrics = _PairMetricsView(self)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.configs import reduced_config
+from repro_torch.launch.mesh import MeshSpec
 from repro_torch.models import lm
 from repro_torch.nn.attention import KVCache, PagedKVCache
 from repro_torch.serving import batcher
@@ -227,11 +228,15 @@ def test_paged_pool_churn_never_aliases_writable_pages():
 
 
 def test_pools_refuse_a_mesh_and_cache_the_device_table():
+    """A mesh description (``MeshSpec``) has no process group to place the
+    state on: both pools refuse it (a live mesh is taken, see
+    test_torch_serve_mesh.py)."""
     cfg = reduced_config(ARCH)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        DecodeStatePool(cfg, 2, 8, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        PagedDecodeStatePool(cfg, 2, 8, 4, mesh=object(), device="cpu")
+    spec = MeshSpec((1, 1), ("data", "model"))
+    with pytest.raises(TypeError, match="MeshSpec"):
+        DecodeStatePool(cfg, 2, 8, mesh=spec, device="cpu")
+    with pytest.raises(TypeError, match="MeshSpec"):
+        PagedDecodeStatePool(cfg, 2, 8, 4, mesh=spec, device="cpu")
     pool = PagedDecodeStatePool(cfg, 2, 8, 4, device="cpu")
     slot = pool.alloc(7)
     pool.ensure_capacity(slot, 8)

@@ -179,3 +179,23 @@ def test_first_step_matches_reference():
     for k in ("loss", "nll", "kl"):
         np.testing.assert_allclose(float(got[k]), float(want[k]),
                                    err_msg=k, **LM_METRIC_TOL)
+
+
+def test_ranks_on_the_card_need_a_launcher(monkeypatch, capsys):
+    """On two cards, ``--devices 2`` without a launcher exits 2 naming
+    torchrun, in the train and the serve CLI: only ``--device cpu`` starts
+    ranks in-process (gloo, which has no all_gather on CUDA)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh, serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr(train, "run", _never)
+    monkeypatch.setattr(train, "_spawn", _never)
+    monkeypatch.setattr(mesh, "spawn", _never)
+    monkeypatch.setattr(serve, "_run", _never)
+    for cli in (train, serve):
+        assert cli.main(["--reduced", "--devices", "2"]) == 2
+        assert "torchrun --nproc-per-node 2" in capsys.readouterr().err
+    assert not dist.is_initialized()
